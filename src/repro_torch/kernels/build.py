@@ -1,0 +1,218 @@
+"""Builds the port's native code from the sources in ``kernels/csrc``.
+
+CUDA kernels are compiled with ``nvcc`` for ``sm_90a`` into shared
+libraries with a plain C interface and loaded with ``ctypes``; no
+PyTorch headers are involved, so a build takes seconds. Outputs go to
+``build/repro_torch/`` at the root of the checkout, named by a digest of
+the sources, the generated headers and the flags, so a changed source
+rebuilds and an unchanged one loads the library already built. Builds
+run under a file lock: parallel test workers or processes build once.
+
+``host_datapath`` compiles the ``__host__ __device__`` datapath header
+with ``g++`` for the CPU tests; nothing on the port's CPU path uses it.
+"""
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+import numpy as np
+
+from repro_torch.core import alphabet as ab
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
+
+
+def _mask(codes) -> str:
+    m = 0
+    for c in codes:
+        if not 0 <= int(c) < 64:
+            raise ValueError(f"letter code {c} outside the 6-bit range")
+        m |= 1 << int(c)
+    return f"0x{m:016x}ull"
+
+
+def codes_header() -> str:
+    """stem_codes.h: the affix code sets, letter codes and candidate-group
+    tables, generated from ``core.alphabet`` and ``kernels.stem_fused``."""
+    from repro_torch.kernels import stem_fused as sf
+
+    tables = {"tri": 0, "quad": 1, "bi": 2}
+
+    def select(values) -> str:
+        expr = str(int(values[-1]))
+        for g in range(len(values) - 2, -1, -1):
+            expr = f"g == {g} ? {int(values[g])} : {expr}"
+        return expr
+
+    dicts = [tables[name] for name in sf.GROUP_DICTS]
+    return "\n".join([
+        "// Generated from repro_torch/core/alphabet.py and",
+        "// repro_torch/kernels/stem_fused.py by kernels/build.py.",
+        "#pragma once",
+        "#include <stdint.h>",
+        "#ifdef __CUDACC__",
+        "#define RT_CODES_HD __host__ __device__ __forceinline__",
+        "#else",
+        "#define RT_CODES_HD inline",
+        "#endif",
+        f"#define RT_MAXLEN {ab.MAXLEN}",
+        f"#define RT_ALEF {int(ab.ALEF)}",
+        f"#define RT_WAW {int(ab.WAW)}",
+        f"#define RT_YEH {int(ab.YEH)}",
+        f"#define RT_PREFIX_MASK {_mask(ab.PREFIX_CODES)}",
+        f"#define RT_SUFFIX_MASK {_mask(ab.SUFFIX_CODES)}",
+        f"#define RT_INFIX_MASK {_mask(ab.INFIX_CODES)}",
+        "// candidate group g -> table (0 tri, 1 quad, 2 bi) and source tag",
+        f"RT_CODES_HD int rt_group_dict(int g) {{ return {select(dicts)}; }}",
+        "RT_CODES_HD int32_t rt_group_tag(int g) {"
+        f" return {select(sf.GROUP_TAGS)}; }}",
+        "",
+    ])
+
+
+@dataclass(frozen=True)
+class _Spec:
+    name: str
+    source: str                 # file under csrc/
+    compiler: tuple             # argv prefix
+    out_dir: Path
+
+    def digest(self, header: str) -> str:
+        h = hashlib.sha256()
+        for part in (self.compiler, header):
+            h.update(repr(part).encode())
+        for f in sorted(CSRC.iterdir()):
+            if f.suffix in (".cu", ".cuh", ".cpp", ".h"):
+                h.update(f.name.encode())
+                h.update(f.read_bytes())
+        return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.access(found, os.X_OK):
+        raise RuntimeError("repro_torch: nvcc not found (PATH or"
+                           " /usr/local/cuda/bin); the CUDA kernels are"
+                           " built from source at first use")
+    return found
+
+
+def _cuda_spec(name: str) -> _Spec:
+    return _Spec(name, f"{name}.cu", (_nvcc(),) + NVCC_FLAGS, BUILD_DIR)
+
+
+def _host_spec() -> _Spec:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("repro_torch: g++ not found for the host build")
+    return _Spec("host_datapath", "host_datapath.cpp", (gxx,) + GXX_FLAGS,
+                 BUILD_DIR / "host")
+
+
+# loaded libraries by name: a process builds (or finds) and loads each once
+_LOADED: dict[str, ctypes.CDLL] = {}
+
+
+def _build(specs: list[_Spec]) -> list[Path]:
+    """Compile every spec whose library is missing, all compilers started
+    together; -> the library paths. Each build holds its lock file until
+    its compiler has finished; compiler output goes to a .log beside each
+    library."""
+    header = codes_header()
+    paths, failed = [], []
+    with contextlib.ExitStack() as stack:
+        jobs = []
+        for spec in specs:
+            spec.out_dir.mkdir(parents=True, exist_ok=True)
+            lib = spec.out_dir / f"lib{spec.name}-{spec.digest(header)}.so"
+            paths.append(lib)
+            if lib.exists():
+                continue
+            lock = stack.enter_context(
+                open(spec.out_dir / f"{spec.name}.lock", "w"))
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if lib.exists():             # another process built it
+                continue
+            gen = spec.out_dir / f"gen-{lib.stem}"
+            gen.mkdir(exist_ok=True)
+            (gen / "stem_codes.h").write_text(header)
+            tmp = lib.with_suffix(f".tmp{os.getpid()}")
+            argv = [*spec.compiler, "-I", str(gen), "-I", str(CSRC),
+                    "-o", str(tmp), str(CSRC / spec.source)]
+            log = stack.enter_context(open(lib.with_suffix(".log"), "w"))
+            proc = stack.enter_context(subprocess.Popen(
+                argv, stdout=log, stderr=subprocess.STDOUT))
+            jobs.append((proc, tmp, lib, argv))
+        for proc, tmp, lib, argv in jobs:
+            rc = proc.wait()
+            if rc == 0:
+                os.replace(tmp, lib)
+            else:
+                failed.append((lib, f"{' '.join(argv)} (exit {rc})"))
+    if failed:
+        raise RuntimeError("repro_torch: kernel build failed:\n" + "\n".join(
+            f"{cmd}:\n{lib.with_suffix('.log').read_text()[-4000:]}"
+            for lib, cmd in failed))
+    return paths
+
+
+CUDA_LIBRARIES = ("stem_fused",)
+
+
+def build_cuda() -> tuple[float, dict[str, Path]]:
+    """Build every CUDA library of the port in parallel; -> (seconds,
+    {name: library path}). Zero-cost when all are already built."""
+    t0 = time.perf_counter()
+    paths = _build([_cuda_spec(n) for n in CUDA_LIBRARIES])
+    return time.perf_counter() - t0, dict(zip(CUDA_LIBRARIES, paths))
+
+
+def stem_fused_library() -> ctypes.CDLL:
+    """The K1 library with its C signatures declared; built on first use."""
+    lib = _LOADED.get("stem_fused")
+    if lib is None:
+        (path,) = _build([_cuda_spec("stem_fused")])
+        lib = ctypes.CDLL(str(path))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.stem_fused_launch.argtypes = [p, i, p, i, p, i, p, i, p, p, i, i,
+                                          i, i, p]
+        lib.stem_fused_launch.restype = ctypes.c_int
+        lib.stem_fused_error_string.argtypes = [ctypes.c_int]
+        lib.stem_fused_error_string.restype = ctypes.c_char_p
+        _LOADED["stem_fused"] = lib
+    return lib
+
+
+def host_candidate_columns(words: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The g++ build of stem_datapath.cuh: words int32[n, 16] ->
+    (keys int32[n, 30], valid int32[n, 30])."""
+    lib = _LOADED.get("host_datapath")
+    if lib is None:
+        (path,) = _build([_host_spec()])
+        lib = ctypes.CDLL(str(path))
+        lib.host_candidate_columns.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        lib.host_candidate_columns.restype = None
+        _LOADED["host_datapath"] = lib
+    w = np.ascontiguousarray(words, dtype=np.int32)
+    if w.ndim != 2 or w.shape[1] != ab.MAXLEN:
+        raise ValueError(f"words must be [n, {ab.MAXLEN}], got {w.shape}")
+    n = w.shape[0]
+    keys = np.zeros((n, 30), np.int32)
+    valid = np.zeros((n, 30), np.int32)
+    lib.host_candidate_columns(w.ctypes.data, n, keys.ctypes.data,
+                               valid.ctypes.data)
+    return keys, valid

@@ -15,3 +15,9 @@ def _reset_dispatch_count():
     ops.reset_dispatch_count()
     yield
     ops.reset_dispatch_count()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (the hand-written kernels have"
+        " no CPU mode); skips where there is none")
