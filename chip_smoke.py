@@ -4,24 +4,41 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
-drives its main path — root extraction served through
+drives its main paths — root extraction served through
 ``repro_torch.serve.Engine`` + ``StemmerWorkload`` onto the stemmer
-megakernel — at a realistic size. Phases:
+kernels — at a realistic size. Phases:
 
-  1. card     name and power limit (nvidia-smi)
-  2. build    nvcc build of every kernel library, with its seconds
-  3. K1       the megakernel against its plain PyTorch version on the card,
-              bit for bit, over infix x match x block_b x batch sizes, on
-              the realistic dictionary (shared-memory tables) and on a
-              ~60K-key grown dictionary (global-memory tables)
-  4. serve    1,048,576 corpus words in 256 requests of 4096 through the
-              engine; every request checked against the plain sorted-search
-              stemmer on the card, every retire checksum-verified, and the
-              kernel's launch count equal to the planned launches
-  5. accuracy Table-6 root recall through the megakernel, exactly
-  6. times    the kernel's device time with CUDA events and its wall
-              time per call with the host's share; the plain version's
-              wall time per call
+  1. card      name and power limit (nvidia-smi)
+  2. build     nvcc build of every kernel library, with its seconds
+  3. K1        the resident megakernel against its plain PyTorch version
+               on the card, bit for bit, over infix x match x block_b x
+               batch sizes, on the realistic dictionary (shared-memory
+               tables) and on a ~60K-key grown dictionary (global memory)
+  4. K2        the streamed megakernel against its plain version, bit for
+               bit: the realistic dictionary forced to streamed and a
+               262,144-key grown one, x infix x match x num_buffers
+               {1, 2, 4} x skip_index x dict_block_r {1, 8, 16} x B {0, 1,
+               257, 65536} (the full grid)
+  5. K3        both persistent variants against their plain versions,
+               roots, sources and flags, version_slot {0, 5}, the streamed
+               one through visit-budget chunks
+  6. serve     1,048,576 corpus words in 256 requests of 4096 through the
+               engine, three ways, each run's kernel launches counted from
+               zero: resident (K1); persistent on the 262,144-key
+               dictionary (K3 streamed); persistent on the realistic one
+               (K3 resident); then the two resident ways again in the
+               other order. Every request equals the plain sorted-search
+               stemmer, every retire's checksum (and flags) is verified,
+               and launches equal the planned launches
+  7. extract   the same words through core.stemmer.extract_roots
+               (backend "fused") on the 262,144-key dictionary, which
+               streams them through K2
+  8. accuracy  Table-6 root recall through the megakernel, exactly
+  9. times     each kernel's device time with CUDA events at 4096 and
+               1,048,576 words, its wall time per call with the host's
+               share, the plain version's wall time per call, the tile
+               visits of the streamed kernels and their host pre-pass, and
+               a bound
 
 Imports nothing of jax or of the ``repro`` package. Any failed check
 raises, so the script exits non-zero and prints no result line; it also
@@ -29,6 +46,7 @@ exits non-zero without a CUDA device. The last line is the JSON result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -41,7 +59,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 RECALL_WITH_INFIX = 0.8914728682170543
 RECALL_WITHOUT_INFIX = 0.8062015503875969
 # H100 SXM peaks (published data sheet): HBM bytes/s, and the
-# non-tensor-core 32-bit rate used as the peak for the kernel's int32 ops
+# non-tensor-core 32-bit rate used as the peak for the kernels' int32 ops
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
 # int32 operations per word for stages 1-4 (count nonzero 16, prefix run
@@ -50,10 +68,18 @@ PEAK_OPS_S = 67e12
 # add+shift, clamp 2, load, compare, 2 selects, +1)
 DATAPATH_OPS_PER_WORD = 16 + 5 * 4 + 16 * 3 + 6 * (10 + 5 * 6 + 3 + 6)
 OPS_PER_PROBE = 9
+WORD_BYTES = 16 * 4 + 4 * 4 + 4          # word row in, root + source out
 SERVE_WORDS = 1 << 20
 SERVE_REQUEST_WORDS = 4096
+GROWN_KEYS = 262_144
 K1_BATCHES = (0, 1, 257, 65536)
 K1_BLOCKS = (64, 128, 256, 512)
+K2_BATCHES = (0, 1, 257, 65536)
+K2_DICT_BLOCK_RS = (1, 8, 16)
+K2_NUM_BUFFERS = (1, 2, 4)
+K3_BATCHES = (1, 257, 65536)
+K3_VERSION_SLOTS = (0, 5)
+BLOCK_B = 256
 DEVICE = "cuda"
 
 
@@ -108,54 +134,70 @@ def device_ms(fn, n: int, host_ms: float) -> float:
     raise RuntimeError("chip_smoke: the host never got ahead of the card")
 
 
-def main() -> int:
+def same(got, want) -> int:
+    """Rows or entries that differ between two output tuples."""
+    bad = 0
+    for g, w in zip(got, want):
+        d = g != w
+        bad += int(d.any(1).sum() if d.dim() == 2 else d.sum())
+    return bad
+
+
+def max_err(got, want) -> int:
+    return max((int((g - w).abs().max()) for g, w in zip(got, want)
+                if g.numel()), default=0)
+
+
+@contextlib.contextmanager
+def plain_kernels(sf):
+    """Route every CUDA wrapper of stem_fused to its plain version on the
+    card, so a whole stem_fused call (pre-pass, chunks) can be run both
+    ways on the same inputs; the kernels' launch counters do not move."""
+    names = {"stem_fused_cuda": sf.stem_fused_plain,
+             "stem_streamed_cuda": sf.stem_streamed_plain,
+             "persistent_resident_cuda": sf.persistent_resident_plain,
+             "persistent_streamed_cuda": sf.persistent_streamed_plain}
+    saved = {n: getattr(sf, n) for n in names}
+    try:
+        for n, fn in names.items():
+            setattr(sf, n, fn)
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(sf, n, fn)
+
+
+def wrapper(sf, name: str):
+    """A CUDA wrapper of stem_fused by name, as ops counts its launches."""
+    return {w.__name__: w for w in sf.CUDA_WRAPPERS}[name]
+
+
+def visit_tables(sf, w, tiles, *, infix: bool, skip_index: bool = True,
+                 block_b: int = BLOCK_B):
+    n_groups = 5 if infix else 2
+    keys, valid = sf._candidates(sf._pad_words(w, block_b), n_groups)
+    return sf._visit_tables(keys, valid, tiles, n_groups=n_groups,
+                            block_b=block_b, skip_index=skip_index)
+
+
+# ---------------------------------------------------------------------------
+# kernel phases
+# ---------------------------------------------------------------------------
+def k1_phase(sf, ops, realistic, grown60k, words):
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
-        return 1
-    import numpy as np
-
-    from repro_torch.core import accuracy, corpus, stemmer
-    from repro_torch.kernels import build, ops
-    from repro_torch.kernels import stem_fused as sf
-    from repro_torch.serve import DictStore, Engine, StemmerWorkload
-
-    dev = torch.device(DEVICE)
-    t_all = time.perf_counter()
-
-    # ---- 1. card ---------------------------------------------------------
-    card = card_line()
-    print(f"[card] {card}")
-    print(f"[card] torch {torch.__version__} cuda {torch.version.cuda}"
-          f" python {sys.version.split()[0]}")
-
-    # ---- 2. build --------------------------------------------------------
-    build_s, libs = build.build_cuda()
-    print(f"[build] {len(libs)} kernel librar{'y' if len(libs) == 1 else 'ies'}"
-          f" built in {build_s:.1f} s")
-    for name, path in libs.items():
-        log = path.with_suffix(".log")
-        for line in (log.read_text().splitlines() if log.exists() else []):
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
-
-    # ---- 3. K1 against its plain version ---------------------------------
     t0 = time.perf_counter()
-    realistic = stemmer.RootDictArrays.from_rootdict(
-        corpus.build_dictionary(), device=dev)
-    grown = corpus.grow_root_arrays(realistic, 60_000)
-    words_np = next(corpus.stream_corpus_words(
-        max(K1_BATCHES), seed=0, chunk_words=max(K1_BATCHES))).words
-    words = torch.from_numpy(words_np).to(dev)
-    max_err = 0
-    cases = 0
+    worst, cases = 0, 0
     for dict_name, arrays, want_shared in (("realistic", realistic, True),
-                                           ("grown", grown, False)):
+                                           ("grown", grown60k, False)):
         for infix in (True, False):
             n_groups = 5 if infix else 2
             for match in ("bsearch", "bank"):
                 tables = sf.padded_tables(arrays, match=match, infix=infix)
+                check(sf.dict_in_shared(tables, n_groups=n_groups)
+                      == want_shared,
+                      f"{dict_name} tables expected in"
+                      f" {'shared' if want_shared else 'global'} memory")
                 for b in K1_BATCHES:
                     w = words[:b]
                     if b == 0:   # the wrapper returns early, no launch
@@ -166,24 +208,14 @@ def main() -> int:
                               and ops.dispatch_count() == before,
                               "B=0 must return empty outputs, no launch")
                         continue
-                    r_ref, s_ref = sf.stem_fused_plain(
-                        w, tables, n_groups=n_groups, match=match,
-                        block_b=256)
+                    want = sf.stem_fused_plain(w, tables, n_groups=n_groups,
+                                               match=match, block_b=BLOCK_B)
                     for block_b in K1_BLOCKS:
-                        shared = sf.dict_in_shared(tables, n_groups=n_groups)
-                        check(shared == want_shared,
-                              f"{dict_name} tables expected in"
-                              f" {'shared' if want_shared else 'global'}"
-                              " memory")
-                        r, s = sf.stem_fused_cuda(
-                            w, tables, n_groups=n_groups, match=match,
-                            block_b=block_b)
+                        got = sf.stem_fused_cuda(w, tables, n_groups=n_groups,
+                                                 match=match, block_b=block_b)
                         torch.cuda.synchronize()
-                        err = max(int((r - r_ref).abs().max()),
-                                  int((s - s_ref).abs().max()))
-                        bad = int((r != r_ref).any(1).sum()
-                                  + (s != s_ref).sum())
-                        max_err = max(max_err, err)
+                        bad = same(got, want)
+                        worst = max(worst, max_err(got, want))
                         cases += 1
                         check(bad == 0, f"K1 vs plain: {bad} mismatches"
                               f" ({dict_name}, infix={infix}, match={match},"
@@ -193,17 +225,162 @@ def main() -> int:
                       f" infix={infix} match={match}: B in {K1_BATCHES} x"
                       f" block_b in {K1_BLOCKS} identical")
     print(f"[K1] {cases} launches identical to the plain version,"
-          f" max_abs_err {max_err} ({time.perf_counter() - t0:.1f} s)")
+          f" max_abs_err {worst} ({time.perf_counter() - t0:.1f} s)")
+    return worst
 
-    # ---- 4. serve --------------------------------------------------------
-    serve_words = np.concatenate([c.words for c in corpus.stream_corpus_words(
-        SERVE_WORDS, seed=0, chunk_words=65536)])
+
+def k2_phase(sf, sm, ops, dicts, words):
+    import torch
+
+    t0 = time.perf_counter()
+    worst, cases = 0, 0
+    for dict_name, arrays in dicts:
+        for dict_block_r in K2_DICT_BLOCK_RS:
+            tiles = sm.build_dict_tiles(arrays.tri, arrays.quad, arrays.bi,
+                                        dict_block_r)
+            for infix in (True, False):
+                n_groups = 5 if infix else 2
+                for skip_index in (True, False):
+                    for b in K2_BATCHES:
+                        w = words[:b]
+                        if b == 0:
+                            before = ops.dispatch_count()
+                            r, s = sf.stem_fused(w, arrays, infix=infix,
+                                                 residency="streamed",
+                                                 dict_block_r=dict_block_r)
+                            check(r.shape == (0, 4) and s.shape == (0,)
+                                  and ops.dispatch_count() == before,
+                                  "streamed B=0: empty outputs, no launch")
+                            continue
+                        n_visits, visit_idx = visit_tables(
+                            sf, w, tiles, infix=infix, skip_index=skip_index)
+                        kern = dict(n_groups=n_groups, block_b=BLOCK_B,
+                                    dict_block_r=dict_block_r,
+                                    tri_tiles=tiles.counts[0],
+                                    quad_tiles=tiles.counts[1])
+                        want = sf.stem_streamed_plain(
+                            w, tiles.stream, n_visits, visit_idx,
+                            match="bsearch", num_buffers=2, **kern)
+                        for match in ("bsearch", "bank"):
+                            for nb in K2_NUM_BUFFERS:
+                                got = sf.stem_streamed_cuda(
+                                    w, tiles.stream, n_visits, visit_idx,
+                                    match=match, num_buffers=nb, **kern)
+                                torch.cuda.synchronize()
+                                bad = same(got, want)
+                                worst = max(worst, max_err(got, want))
+                                cases += 1
+                                check(bad == 0,
+                                      f"K2 vs plain: {bad} mismatches"
+                                      f" ({dict_name}, dict_block_r="
+                                      f"{dict_block_r}, infix={infix},"
+                                      f" skip_index={skip_index}, B={b},"
+                                      f" match={match}, num_buffers={nb})")
+            print(f"[K2] {dict_name} dict ({arrays.n_keys} keys,"
+                  f" {tiles.n_tiles} tiles of {dict_block_r} rows): infix x"
+                  f" skip_index x B in {K2_BATCHES} x match x num_buffers in"
+                  f" {K2_NUM_BUFFERS} identical")
+    print(f"[K2] full grid: {cases} launches identical to the plain version,"
+          f" max_abs_err {worst} ({time.perf_counter() - t0:.1f} s)")
+    return worst
+
+
+def k3_phase(sf, ops, resident_dicts, streamed_dicts, words):
+    import torch
+
+    t0 = time.perf_counter()
+    worst, cases = 0, 0
+    for dict_name, arrays in resident_dicts:
+        for infix in (True, False):
+            n_groups = 5 if infix else 2
+            for match in ("bsearch", "bank"):
+                tables = sf.padded_tables(arrays, match=match, infix=infix)
+                for b in K3_BATCHES:
+                    w = words[:b]
+                    bt = -(-b // BLOCK_B)
+                    zeros = torch.zeros(bt, dtype=torch.int32, device=w.device)
+                    for version_slot in K3_VERSION_SLOTS:
+                        desc = sf._descriptors(bt, BLOCK_B, zeros,
+                                               version_slot)
+                        kern = dict(n_groups=n_groups, match=match,
+                                    block_b=BLOCK_B)
+                        got = sf.persistent_resident_cuda(w, tables, desc,
+                                                          **kern)
+                        want = sf.persistent_resident_plain(w, tables, desc,
+                                                            **kern)
+                        torch.cuda.synchronize()
+                        bad = same(got, want)
+                        worst = max(worst, max_err(got, want))
+                        cases += 1
+                        check(bad == 0 and bool((got[2] == 1 + version_slot)
+                                                .all()),
+                              f"K3 resident vs plain: {bad} mismatches"
+                              f" ({dict_name}, infix={infix}, match={match},"
+                              f" B={b}, version_slot={version_slot})")
+        print(f"[K3] resident, {dict_name} dict ({arrays.n_keys} keys):"
+              f" infix x match x B in {K3_BATCHES} x version_slot in"
+              f" {K3_VERSION_SLOTS}: roots, sources, flags identical")
+    for dict_name, arrays in streamed_dicts:
+        n_tiles = sf.dict_tile_count(arrays, 8)
+        budget = 64 * n_tiles                     # chunks of 64 batch tiles
+        for infix in (True, False):
+            for match in ("bsearch", "bank"):
+                for b in K3_BATCHES:
+                    w = words[:b]
+                    for version_slot in K3_VERSION_SLOTS:
+                        kw = dict(infix=infix, match=match, block_b=BLOCK_B,
+                                  residency="streamed", persistent=True,
+                                  version_slot=version_slot,
+                                  visit_budget=budget)
+                        counter = wrapper(sf, "persistent_streamed_cuda")
+                        before = counter.launches
+                        got = sf.stem_fused(w, arrays, **kw)
+                        torch.cuda.synchronize()
+                        chunks = counter.launches - before
+                        with plain_kernels(sf):
+                            want = sf.stem_fused(w, arrays, **kw)
+                        bad = same(got, want)
+                        worst = max(worst, max_err(got, want))
+                        cases += chunks
+                        check(bad == 0 and bool((got[2] == 1 + version_slot)
+                                                .all())
+                              and chunks == sf.planned_launches(
+                                  b, arrays, block_b=BLOCK_B,
+                                  residency="streamed", persistent=True,
+                                  visit_budget=budget),
+                              f"K3 streamed vs plain: {bad} mismatches,"
+                              f" {chunks} launches ({dict_name},"
+                              f" infix={infix}, match={match}, B={b},"
+                              f" version_slot={version_slot})")
+        print(f"[K3] streamed, {dict_name} dict ({arrays.n_keys} keys,"
+              f" {n_tiles} tiles of 8 rows, visit_budget {budget}: 64 batch"
+              f" tiles a launch): infix x match x B in {K3_BATCHES} x"
+              f" version_slot in {K3_VERSION_SLOTS}: roots, sources, flags"
+              " identical")
+    print(f"[K3] {cases} launches identical to the plain versions,"
+          f" max_abs_err {worst} ({time.perf_counter() - t0:.1f} s)")
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# the main paths
+# ---------------------------------------------------------------------------
+def serve_phase(label, ops, sf, arrays, serve_words, want, *,
+                persistent: bool, store_kw=None):
+    """Serve every word through Engine + StemmerWorkload (after an 8-request
+    warm-up), with the launch counters set to 0 just before and read just
+    after; check every request and the accounting -> (launches, seconds)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import DictStore, Engine, StemmerWorkload
+
     n_req = SERVE_WORDS // SERVE_REQUEST_WORDS
 
     def serve(n_requests: int):
-        store = DictStore(realistic, device=dev)
-        wl = StemmerWorkload(store, block_b=256, megabatch_tiles=16,
-                             max_inflight=2)
+        store = DictStore(arrays, device=arrays.device, **(store_kw or {}))
+        wl = StemmerWorkload(store, block_b=BLOCK_B, megabatch_tiles=16,
+                             max_inflight=2, persistent=persistent)
         eng = Engine(wl)
         t = time.perf_counter()
         rids = [eng.submit(serve_words[i * SERVE_REQUEST_WORDS:
@@ -216,13 +393,14 @@ def main() -> int:
     serve(8)                                  # warm-up: buffers, first load
     ops.reset_dispatch_count()
     eng, rids, rep, serve_s = serve(n_req)
-    launches = ops.dispatch_count()
+    launches = {w.__name__: w.launches for w in sf.CUDA_WRAPPERS}
+    total = ops.dispatch_count()
     wl = eng.workload
-    planned = n_req * sf.planned_launches(
-        SERVE_REQUEST_WORDS, wl.store.acquire().handle)
-    want_r, want_s = stemmer.extract_roots(serve_words, realistic,
-                                           backend="sorted", device=dev)
-    want_r, want_s = want_r.cpu().numpy(), want_s.cpu().numpy()
+    handle = wl.store.acquire().handle
+    n_launch = -(-SERVE_WORDS // wl.launch_b)     # full megabatches
+    planned = n_launch * sf.planned_launches(
+        wl.launch_b, handle, block_b=BLOCK_B, persistent=persistent)
+    want_r, want_s = want
     for i, rid in enumerate(rids):
         req = eng.result(rid)
         sl = slice(i * SERVE_REQUEST_WORDS, (i + 1) * SERVE_REQUEST_WORDS)
@@ -230,21 +408,186 @@ def main() -> int:
         check(np.array_equal(req.roots, want_r[sl])
               and np.array_equal(req.sources, want_s[sl])
               and (req.dict_versions == 0).all(),
-              f"served request {rid} differs from the plain stemmer")
-    check(wl.checksum_tiles == SERVE_WORDS // wl.block_b,
-          f"{wl.checksum_tiles} tiles checksum-verified, want"
-          f" {SERVE_WORDS // wl.block_b}")
-    check(launches == planned == wl.ticks_launched,
-          f"kernel launches {launches}, planned {planned}, engine"
+              f"{label}: served request {rid} differs from the plain stemmer")
+    tiles = SERVE_WORDS // wl.block_b
+    check(wl.checksum_tiles == tiles,
+          f"{wl.checksum_tiles} tiles checksum-verified, want {tiles}")
+    check(wl.flag_tiles == (tiles if persistent else 0),
+          f"{wl.flag_tiles} tiles flag-verified")
+    check(total == planned == wl.ticks_launched,
+          f"{label}: kernel launches {total}, planned {planned}, engine"
           f" {wl.ticks_launched}")
-    check(launches > 0, "the serve run launched no kernel")
-    found = float((want_s > 0).mean())
-    print(f"[serve] {n_req} requests / {SERVE_WORDS} words in {serve_s:.3f} s"
-          f" ({SERVE_WORDS / serve_s:.0f} words/s, {rep.ticks} ticks,"
-          f" {launches} K1 launches = planned {planned}, {wl.checksum_tiles}"
-          f" tiles checksum-verified, root found for {found:.4f} of words)")
+    check(total > 0, f"{label}: the serve run launched no kernel")
+    ran = {n: c for n, c in launches.items() if c}
+    print(f"[serve] {label}: {n_req} requests / {SERVE_WORDS} words in"
+          f" {serve_s:.6f} s ({SERVE_WORDS / serve_s:.0f} words/s,"
+          f" {rep.ticks} ticks, launches {ran} = planned {planned}, {tiles}"
+          f" tiles checksum-verified, {wl.flag_tiles} flag-verified,"
+          f" residency {handle.residency})")
+    return ran, serve_s
 
-    # ---- 5. accuracy -----------------------------------------------------
+
+def bound(n_bytes: int, n_ops: int) -> dict:
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / PEAK_OPS_S
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                n_bytes=n_bytes, n_ops=n_ops)
+
+
+def resident_probes(sf, w, tables, *, steps) -> int:
+    """Bisection probes the resident kernels make on these words: every
+    valid slot up to the word's first hit, ceil(log2 Rp) + 1 each."""
+    import torch
+
+    keys, valid = sf._candidates(w, 5)
+    hits = sf._resident_hits(keys, valid, dict(zip(sf.DICT_NAMES, tables)),
+                             n_groups=5, match="bsearch")
+    slot = torch.arange(30, device=w.device)
+    first = torch.where(hits.any(1), hits.to(torch.int8).argmax(1), 30)
+    tried = valid & (slot[None, :] <= first[:, None])
+    per_slot = torch.tensor([steps[sf.GROUP_DICTS[g]] + 1
+                             for g in range(5) for _ in range(6)],
+                            device=w.device)
+    return int((tried * per_slot).sum())
+
+
+def streamed_probes(sf, w, tiles) -> int:
+    """Bisection probes the streamed kernels make on these words: each live
+    key that lands in a tile of its table is searched there once,
+    log2(tile) + 1 probes (the skip index visits every landing tile)."""
+    import torch
+
+    keys, valid = sf._candidates(sf._pad_words(w, BLOCK_B), 5)
+    landed = 0
+    base = 0
+    for name, td in zip(sf.DICT_NAMES, tiles.counts):
+        slots = sf._dict_slots(name, 5)
+        mins = tiles.mins[base:base + td]
+        maxs = tiles.maxs[base:base + td]
+        k = keys[:, slots].contiguous()
+        t = (torch.searchsorted(mins, k, right=True) - 1).clamp(0, td - 1)
+        landed += int((valid[:, slots] & (mins[t] <= k)
+                       & (k <= maxs[t])).sum())
+        base += td
+    tile_n = tiles.dict_block_r * 128
+    return landed * ((tile_n - 1).bit_length() + 1)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
+        return 1
+    import numpy as np
+
+    from repro_torch.core import accuracy, corpus, stemmer
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import stem_fused as sf
+    from repro_torch.kernels import stem_match as sm
+
+    dev = torch.device(DEVICE)
+    t_all = time.perf_counter()
+
+    # ---- 1. card ---------------------------------------------------------
+    card = card_line()
+    print(f"[card] {card}")
+    print(f"[card] torch {torch.__version__} cuda {torch.version.cuda}"
+          f" python {sys.version.split()[0]}")
+
+    # ---- 2. build --------------------------------------------------------
+    build_s, libs = build.build_cuda()
+    print(f"[build] {len(libs)} kernel libraries built in {build_s:.1f} s")
+    for name, path in libs.items():
+        log = path.with_suffix(".log")
+        lines = log.read_text().splitlines() if log.exists() else []
+        regs = [int(x.split("Used ")[1].split(" registers")[0])
+                for x in lines if "Used " in x and " registers" in x]
+        spills = sorted({x.split("ptxas info    : ")[-1].strip()
+                         for x in lines if "spill" in x
+                         and not x.strip().endswith("0 bytes spill loads")})
+        print(f"[build] {name}: {len(regs)} kernel instances,"
+              f" {min(regs, default=0)}-{max(regs, default=0)} registers;"
+              f" spills: {spills or 'none'}")
+
+    realistic = stemmer.RootDictArrays.from_rootdict(
+        corpus.build_dictionary(), device=dev)
+    grown60k = corpus.grow_root_arrays(realistic, 60_000)
+    grown = corpus.grow_root_arrays(realistic, GROWN_KEYS)
+    check(sf.choose_residency(grown) == "streamed",
+          "the 262,144-key dictionary must stream under residency='auto'")
+    words_np = next(corpus.stream_corpus_words(
+        max(K1_BATCHES), seed=0, chunk_words=max(K1_BATCHES))).words
+    words = torch.from_numpy(words_np).to(dev)
+
+    # ---- 3-5. kernels against their plain versions -----------------------
+    k1_err = k1_phase(sf, ops, realistic, grown60k, words)
+    k2_err = k2_phase(sf, sm, ops, (("realistic", realistic),
+                                    ("grown", grown)), words)
+    k3_err = k3_phase(sf, ops, (("realistic", realistic),
+                                ("grown", grown60k)),
+                      (("realistic", realistic), ("grown", grown)), words)
+
+    # ---- 6. serve --------------------------------------------------------
+    serve_words = np.concatenate([c.words for c in corpus.stream_corpus_words(
+        SERVE_WORDS, seed=0, chunk_words=65536)])
+
+    def plain_stemmer(arrays):
+        r, s = stemmer.extract_roots(serve_words, arrays, backend="sorted",
+                                     device=dev)
+        return r.cpu().numpy(), s.cpu().numpy()
+
+    want_real, want_grown = plain_stemmer(realistic), plain_stemmer(grown)
+    k1_launches, k1_serve_s = serve_phase(
+        "resident (K1)", ops, sf, realistic, serve_words, want_real,
+        persistent=False)
+    k3s_launches, k3s_serve_s = serve_phase(
+        "persistent, 262,144-key dict (K3 streamed)", ops, sf, grown,
+        serve_words, want_grown, persistent=True,
+        store_kw=dict(dict_block_r=8))
+    k3r_launches, k3r_serve_s = serve_phase(
+        "persistent, realistic dict (K3 resident)", ops, sf, realistic,
+        serve_words, want_real, persistent=True)
+    check(set(k1_launches) == {"stem_fused_cuda"}
+          and set(k3s_launches) == {"persistent_streamed_cuda"}
+          and set(k3r_launches) == {"persistent_resident_cuda"},
+          "each serve run must go through its own kernel only")
+    # the resident serves again in the other order: the spread of the
+    # host-bound serve rate within this run
+    for label, persistent in (("persistent, realistic dict (K3 resident),"
+                               " again", True),
+                              ("resident (K1), again", False)):
+        serve_phase(label, ops, sf, realistic, serve_words, want_real,
+                    persistent=persistent)
+    found = float((want_grown[1] > 0).mean())
+    print(f"[serve] root found for {found:.4f} of words on the 262,144-key"
+          f" dictionary, {float((want_real[1] > 0).mean()):.4f} on the"
+          " realistic one")
+
+    # ---- 7. extract_roots through K2 -------------------------------------
+    stemmer.extract_roots(serve_words, grown, backend="fused",
+                          device=dev)       # warm-up: allocations at size
+    torch.cuda.synchronize()
+    ops.reset_dispatch_count()
+    t = time.perf_counter()
+    got_r, got_s = stemmer.extract_roots(serve_words, grown, backend="fused",
+                                         device=dev)
+    torch.cuda.synchronize()
+    extract_s = time.perf_counter() - t
+    k2_launches = wrapper(sf, "stem_streamed_cuda").launches
+    planned = sf.planned_launches(SERVE_WORDS, grown)
+    check(k2_launches == ops.dispatch_count() == planned > 0,
+          f"extract_roots: {k2_launches} K2 launches of"
+          f" {ops.dispatch_count()}, planned {planned}")
+    check(np.array_equal(got_r.cpu().numpy(), want_grown[0])
+          and np.array_equal(got_s.cpu().numpy(), want_grown[1]),
+          "extract_roots(backend='fused') differs from the plain stemmer")
+    print(f"[extract] {SERVE_WORDS} words through extract_roots(backend="
+          f"'fused') on the 262,144-key dictionary in {extract_s:.6f} s"
+          f" ({SERVE_WORDS / extract_s:.0f} words/s, {k2_launches} K2"
+          f" launches = planned {planned}), equal to the plain stemmer")
+
+    # ---- 8. accuracy -----------------------------------------------------
     t6 = accuracy.table6(n_words=2000, seed=0, backend="fused", device=dev)
     rw, ro = t6["with_infix"].root_recall, t6["without_infix"].root_recall
     print(f"[accuracy] table6 root recall with infix {rw!r},"
@@ -252,70 +595,136 @@ def main() -> int:
     check(rw == RECALL_WITH_INFIX and ro == RECALL_WITHOUT_INFIX,
           "table6 recall differs from the reference")
 
-    # ---- 6. times --------------------------------------------------------
-    tables = sf.padded_tables(realistic, match="bsearch", infix=True)
-    table_bytes = 4 * sum(int(t.shape[0]) for t in tables)
+    # ---- 9. times --------------------------------------------------------
+    real_tables = sf.padded_tables(realistic, match="bsearch", infix=True)
+    table_bytes = 4 * sum(int(t.shape[0]) for t in real_tables)
     steps = {name: max(1, int(t.shape[0]) - 1).bit_length()
-             for name, t in zip(("tri", "quad", "bi"), tables)}
+             for name, t in zip(sf.DICT_NAMES, real_tables)}
+    tiles = sm.build_dict_tiles(grown.tri, grown.quad, grown.bi, 8)
+    stream_bytes = 4 * tiles.stream.numel()
     times = {}
     for b in (SERVE_REQUEST_WORDS, SERVE_WORDS):
         w = torch.from_numpy(serve_words[:b]).to(dev)
-        run = dict(n_groups=5, match="bsearch", block_b=256)
-        r_k, s_k = sf.stem_fused_cuda(w, tables, **run)
-        r_p, s_p = sf.stem_fused_plain(w, tables, **run)
-        check(bool((r_k == r_p).all() and (s_k == s_p).all()),
-              f"timed shape B={b} differs from the plain version")
-        n_k = 200 if b == SERVE_REQUEST_WORDS else 20
-        n_p = 20 if b == SERVE_REQUEST_WORDS else 3
-        kernel = lambda: sf.stem_fused_cuda(w, tables, **run)  # noqa: E731
-        plain = lambda: sf.stem_fused_plain(w, tables, **run)  # noqa: E731
-        k_call = call_ms(kernel, n_k)
-        ms = device_ms(kernel, n_k, k_call)
-        # the plain version issues hundreds of small kernels a call, more
-        # than the launch queue holds behind a spacer: its time is the
-        # wall time per call
-        plain_ms = call_ms(plain, n_p)
-        # the bound: bytes the function must move, and the int32 ops these
-        # inputs need (probes stop at each word's first hit)
-        keys, valid = sf._candidates(w, 5)
-        hits = sf._resident_hits(keys, valid, dict(zip(("tri", "quad", "bi"),
-                                                       tables)),
-                                 n_groups=5, match="bsearch")
-        slot = torch.arange(30, device=dev)
-        first = torch.where(hits.any(1), hits.to(torch.int8).argmax(1), 30)
-        tried = valid & (slot[None, :] <= first[:, None])
-        per_slot = torch.tensor([steps[sf.GROUP_DICTS[g]] + 1
-                                 for g in range(5) for _ in range(6)],
-                                device=dev)
-        probes = int((tried * per_slot).sum())
-        n_bytes = b * (16 * 4 + 4 * 4 + 4) + table_bytes
-        n_ops = b * DATAPATH_OPS_PER_WORD + probes * OPS_PER_PROBE
-        t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / PEAK_OPS_S
-        times[b] = dict(ms=ms, plain_ms=plain_ms,
-                        bound_ms=1e3 * max(t_bytes, t_ops),
-                        bound_by="bytes" if t_bytes >= t_ops else "operations")
-        print(f"[times] K1 B={b}: {ms:.6f} ms on the card ({k_call:.6f} ms"
-              f" a call with the host), plain {plain_ms:.6f} ms a call,"
-              f" bound {times[b]['bound_ms']:.6f} ms by"
-              f" {times[b]['bound_by']} ({n_bytes} B, {n_ops} int32 ops,"
-              f" {probes} probes); no single PyTorch call computes this"
-              f" function, so library_ms is null")
+        bt = b // BLOCK_B
+        n_k = 200 if b == SERVE_REQUEST_WORDS else 10
+        n_p = 10 if b == SERVE_REQUEST_WORDS else 2
+        zeros = torch.zeros(bt, dtype=torch.int32, device=dev)
+        res_desc = sf._descriptors(bt, BLOCK_B, zeros, 0)
+        n_visits, visit_idx = visit_tables(sf, w, tiles, infix=True)
+        str_desc = sf._descriptors(bt, BLOCK_B, n_visits, 0)
+        stats = sf.tile_visit_stats(w, grown, block_b=BLOCK_B)
+        skern = dict(n_groups=5, match="bsearch", block_b=BLOCK_B,
+                     dict_block_r=8, num_buffers=2,
+                     tri_tiles=tiles.counts[0], quad_tiles=tiles.counts[1])
+        rkern = dict(n_groups=5, match="bsearch", block_b=BLOCK_B)
+        runs = {
+            "K1": (lambda: sf.stem_fused_cuda(w, real_tables, **rkern),
+                   lambda: sf.stem_fused_plain(w, real_tables, **rkern)),
+            "K2": (lambda: sf.stem_streamed_cuda(
+                       w, tiles.stream, n_visits, visit_idx, **skern),
+                   lambda: sf.stem_streamed_plain(
+                       w, tiles.stream, n_visits, visit_idx, **skern)),
+            "K3 resident": (
+                lambda: sf.persistent_resident_cuda(w, real_tables, res_desc,
+                                                    **rkern),
+                lambda: sf.persistent_resident_plain(w, real_tables, res_desc,
+                                                     **rkern)),
+            "K3 streamed": (
+                lambda: sf.persistent_streamed_cuda(
+                    w, tiles.stream, str_desc, visit_idx, **skern),
+                lambda: sf.persistent_streamed_plain(
+                    w, tiles.stream, str_desc, visit_idx, **skern)),
+        }
+        res_probes = resident_probes(sf, w, real_tables, steps=steps)
+        str_probes = streamed_probes(sf, w, tiles)
+        visited = int(n_visits.sum())
+        # bytes: words in and outputs out once, the tables once (the
+        # resident tables, and the ~1 MB stream, stay in the 50 MB L2), the
+        # visit lists read; the persistent kernels also read descriptors and
+        # write flags
+        n_ops_res = b * DATAPATH_OPS_PER_WORD + res_probes * OPS_PER_PROBE
+        n_ops_str = b * DATAPATH_OPS_PER_WORD + str_probes * OPS_PER_PROBE
+        bounds = {
+            "K1": bound(b * WORD_BYTES + table_bytes, n_ops_res),
+            "K2": bound(b * WORD_BYTES + stream_bytes + 4 * (bt + visited),
+                        n_ops_str),
+            "K3 resident": bound(b * WORD_BYTES + table_bytes + 16 * bt,
+                                 n_ops_res),
+            "K3 streamed": bound(b * WORD_BYTES + stream_bytes
+                                 + 4 * visited + 16 * bt, n_ops_str),
+        }
+        for name, (kernel, plain) in runs.items():
+            check(same(kernel(), plain()) == 0,
+                  f"timed shape B={b}: {name} differs from its plain version")
+            k_call = call_ms(kernel, n_k)
+            ms = device_ms(kernel, n_k, k_call)
+            # the plain versions issue hundreds of small kernels a call,
+            # more than the launch queue holds behind a spacer: their time
+            # is the wall time per call
+            plain_ms = call_ms(plain, n_p)
+            times[(name, b)] = dict(ms=ms, call_ms=k_call, plain_ms=plain_ms,
+                                    **bounds[name])
+            bd = bounds[name]
+            extra = ""
+            if name.startswith("K3"):
+                grid = wrapper(sf, "persistent_resident_cuda" if name.endswith(
+                    "resident") else "persistent_streamed_cuda").last_grid
+                extra = f", {grid} blocks for {bt} descriptors"
+            print(f"[times] {name} B={b}: {ms:.6f} ms on the card"
+                  f" ({k_call:.6f} ms a call with the host{extra}), plain"
+                  f" {plain_ms:.6f} ms a call, bound {bd['bound_ms']:.6f} ms"
+                  f" by {bd['bound_by']} ({bd['n_bytes']} B,"
+                  f" {bd['n_ops']} int32 ops)")
+        # the streamed launches' host-side pre-pass: stages 1-4 in plain
+        # PyTorch, then the visit tables
+        prepass_ms = call_ms(lambda: visit_tables(sf, w, tiles, infix=True),
+                             n_p)
+        print(f"[times] B={b}: the streamed pre-pass takes {prepass_ms:.6f}"
+              " ms a call (wall)")
+        print(f"[times] B={b}: resident probes {res_probes}, streamed probes"
+              f" {str_probes}; tile visits {stats['visited']} of a full"
+              f" sweep's {stats['full_sweep']} ({stats['batch_tiles']} batch"
+              f" tiles x {stats['dict_tiles']} dictionary tiles of 8 rows);"
+              " no single PyTorch call computes these functions, so"
+              " library_ms is null")
 
-    busy = launches * times[SERVE_REQUEST_WORDS]["ms"] * 1e-3 / serve_s
-    print(f"[times] K1 ran for {busy:.6f} of the serve phase's wall time"
-          f" ({launches} launches x the device time at B="
-          f"{SERVE_REQUEST_WORDS}, over {serve_s:.6f} s)")
+    serve_b = SERVE_REQUEST_WORDS
+    for label, kernel, launches, serve_s in (
+            ("K1, resident serve", "K1", sum(k1_launches.values()),
+             k1_serve_s),
+            ("K3 streamed, persistent serve", "K3 streamed",
+             sum(k3s_launches.values()), k3s_serve_s),
+            ("K3 resident, persistent serve", "K3 resident",
+             sum(k3r_launches.values()), k3r_serve_s)):
+        busy = launches * times[(kernel, serve_b)]["ms"] * 1e-3 / serve_s
+        print(f"[times] {label}: the kernel ran for {busy:.6f} of the wall"
+              f" time ({launches} launches x its device time at B={serve_b},"
+              f" over {serve_s:.6f} s)")
     print(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(card_line())
-    serve_t = times[SERVE_REQUEST_WORDS]
-    print(json.dumps({"kernels": [{
-        "name": "stem_fused", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/stem_fused.cu",
-        "replaces": "src/repro/kernels/stem_fused.py:166",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": serve_t["ms"], "plain_ms": serve_t["plain_ms"],
-        "bound_ms": serve_t["bound_ms"], "bound_by": serve_t["bound_by"],
-        "library_ms": None}]}))
+
+    def entry(name, key, source, replaces, launches, err):
+        t = times[(key, serve_b)]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": None}
+
+    csrc = "src/repro_torch/kernels/csrc/"
+    ref = "src/repro/kernels/stem_fused.py:"
+    print(json.dumps({"kernels": [
+        entry("stem_fused", "K1", csrc + "stem_fused.cu", ref + "166",
+              k1_launches["stem_fused_cuda"], k1_err),
+        entry("stem_streamed", "K2", csrc + "stem_streamed.cu", ref + "312",
+              k2_launches, k2_err),
+        entry("persistent_resident", "K3 resident",
+              csrc + "stem_persistent.cu", ref + "403",
+              k3r_launches["persistent_resident_cuda"], k3_err),
+        entry("persistent_streamed", "K3 streamed",
+              csrc + "stem_persistent.cu", ref + "364",
+              k3s_launches["persistent_streamed_cuda"], k3_err),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

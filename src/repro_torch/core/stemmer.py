@@ -95,13 +95,17 @@ class RootDictArrays:
 class ResolvedRootDict:
     """A RootDictArrays plus its residency, pinned once (at publish time).
 
-    ``padded`` caches the megakernel's padded table layout per
+    ``tiles`` optionally carries the streamed layout's prebuilt
+    ``stem_match.DictTileSet`` (tile stream + per-tile boundary tables),
+    so serving launches never re-pad or re-concatenate the tables.
+    ``padded`` caches the resident kernels' padded table layout per
     ``(match, infix)``, so a served dictionary version is padded and
     uploaded once, not per launch.
     """
 
     arrays: RootDictArrays
-    residency: str          # "resident" — never "auto"
+    residency: str          # "resident" | "streamed" — never "auto"
+    tiles: object = None    # stem_match.DictTileSet | None
     padded: dict = field(default_factory=dict, repr=False, compare=False)
 
     @property
@@ -109,27 +113,44 @@ class ResolvedRootDict:
         return self.arrays.n_keys
 
 
-def resolve_dict(roots, *, residency: str = "auto",
-                 infix: bool = True) -> ResolvedRootDict:
-    """Pin a dictionary's residency against the kernel's budget up front."""
+def resolve_dict(roots, *, residency: str = "auto", infix: bool = True,
+                 dict_block_r: int | None = None) -> ResolvedRootDict:
+    """Pin a dictionary's residency against the kernel's budget up front.
+
+    ``infix`` scopes the budget to the tables the Compare stage loads. A
+    streamed resolution with ``dict_block_r`` set also prebuilds the tile
+    set; an already-resolved handle without (matching) tiles gets them
+    built here.
+    """
     if isinstance(roots, ResolvedRootDict):
         unwrap_dict(roots, residency)  # conflicting residency raises
-        return roots
-    from repro_torch.kernels import stem_fused as sf  # lazy: kernels need core
+        res, arrays, tiles = roots.residency, roots.arrays, roots.tiles
+    else:
+        from repro_torch.kernels import stem_fused as sf  # lazy: kernels need core
 
-    return ResolvedRootDict(roots, sf.choose_residency(roots, residency,
-                                                       infix=infix))
+        res = sf.choose_residency(roots, residency, infix=infix)
+        arrays, tiles = roots, None
+    if res == "streamed" and dict_block_r and (
+            tiles is None or tiles.dict_block_r != dict_block_r):
+        from repro_torch.kernels import stem_match as sm
+
+        tiles = sm.build_dict_tiles(arrays.tri, arrays.quad, arrays.bi,
+                                    dict_block_r)
+    if isinstance(roots, ResolvedRootDict) and tiles is roots.tiles:
+        return roots
+    return ResolvedRootDict(arrays, res, tiles)
 
 
 def unwrap_dict(roots, residency: str = "auto"):
-    """-> (RootDictArrays, residency); a handle's pinned residency wins."""
+    """-> (RootDictArrays, residency, tiles); a handle's pinned residency
+    wins, and tiles is its prebuilt DictTileSet (None otherwise)."""
     if isinstance(roots, ResolvedRootDict):
         if residency not in ("auto", roots.residency):
             raise ValueError(
                 f"residency={residency!r} conflicts with the resolved dict"
                 f" handle's pinned residency {roots.residency!r}")
-        return roots.arrays, roots.residency
-    return roots, residency
+        return roots.arrays, roots.residency, roots.tiles
+    return roots, residency, None
 
 
 # ---------------------------------------------------------------------------
@@ -227,7 +248,8 @@ BACKENDS = ("dense", "sorted", "fused")
 
 def extract_roots(words, roots, *, infix: bool = True,
                   backend: str = "sorted", extended: bool = False,
-                  residency: str = "auto",
+                  residency: str = "auto", num_buffers: int = 2,
+                  skip_index: bool = True,
                   device=devmod.DEFAULT_DEVICE):
     """words int32[B,16] -> (root int32[B,4], source int32[B]) on ``device``.
 
@@ -237,9 +259,13 @@ def extract_roots(words, roots, *, infix: bool = True,
     pinned residency then overrides the residency argument.
 
     backend selects the Compare stage: "dense" / "sorted" (plain PyTorch)
-    or "fused" — the single-launch stage 1-5 stemmer megakernel
-    (kernels/stem_fused.py), which runs the CUDA kernel on a CUDA device
-    and its plain version on the CPU.
+    or "fused" — the stage 1-5 stemmer megakernels (kernels/stem_fused.py),
+    which run the CUDA kernels on a CUDA device and their plain versions
+    on the CPU. For the fused backend, residency picks the dictionary
+    layout ("resident", "streamed", or "auto": resident while it fits);
+    ``num_buffers`` (copy pipeline depth) and ``skip_index`` (visit only
+    the tiles that can hit) tune the streamed sweep and are ignored
+    elsewhere.
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r} (want one of"
@@ -256,9 +282,11 @@ def extract_roots(words, roots, *, infix: bool = True,
         from repro_torch.kernels import ops  # lazy: kernels depend on core
 
         return ops.extract_roots_fused(words, roots, infix=infix,
-                                       residency=residency, device=dev)
+                                       residency=residency,
+                                       num_buffers=num_buffers,
+                                       skip_index=skip_index, device=dev)
 
-    roots, _ = unwrap_dict(roots, residency)
+    roots, _, _ = unwrap_dict(roots, residency)
     roots = roots.to(dev)
     words = devmod.as_int32(words, dev)
     tri, tri_valid, quad, quad_valid = generate_stems(words)
@@ -315,8 +343,10 @@ def extract_roots(words, roots, *, infix: bool = True,
 
 
 def stem_batch(words, roots, *, infix=True, backend="sorted", extended=False,
-               residency="auto", device=devmod.DEFAULT_DEVICE):
+               residency="auto", num_buffers=2, skip_index=True,
+               device=devmod.DEFAULT_DEVICE):
     """'Non-pipelined processor' analogue: whole batch through all stages."""
     return extract_roots(words, roots, infix=infix, backend=backend,
                          extended=extended, residency=residency,
+                         num_buffers=num_buffers, skip_index=skip_index,
                          device=device)

@@ -8,8 +8,9 @@ the sources, the generated headers and the flags, so a changed source
 rebuilds and an unchanged one loads the library already built. Builds
 run under a file lock: parallel test workers or processes build once.
 
-``host_datapath`` compiles the ``__host__ __device__`` datapath header
-with ``g++`` for the CPU tests; nothing on the port's CPU path uses it.
+``host_datapath`` compiles the ``__host__ __device__`` headers (the
+datapath and the streamed sweep) with ``g++`` for the CPU tests; nothing
+on the port's CPU path uses it.
 """
 from __future__ import annotations
 
@@ -169,7 +170,7 @@ def _build(specs: list[_Spec]) -> list[Path]:
     return paths
 
 
-CUDA_LIBRARIES = ("stem_fused",)
+CUDA_LIBRARIES = ("stem_fused", "stem_streamed", "stem_persistent")
 
 
 def build_cuda() -> tuple[float, dict[str, Path]]:
@@ -180,39 +181,115 @@ def build_cuda() -> tuple[float, dict[str, Path]]:
     return time.perf_counter() - t0, dict(zip(CUDA_LIBRARIES, paths))
 
 
-def stem_fused_library() -> ctypes.CDLL:
-    """The K1 library with its C signatures declared; built on first use."""
-    lib = _LOADED.get("stem_fused")
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C signatures of each library's launch functions
+_SIGNATURES = {
+    "stem_fused": {
+        "stem_fused_launch": [_P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I,
+                              _I, _I, _P]},
+    "stem_streamed": {
+        "stem_streamed_launch": [_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I,
+                                 _I, _I, _I, _I, _P]},
+    "stem_persistent": {
+        "persistent_resident_launch": [_P, _I, _P, _I, _P, _I, _P, _I, _P,
+                                       _I, _P, _P, _P, _I, _I, _I, _I, _P,
+                                       ctypes.POINTER(_I)],
+        "persistent_streamed_launch": [_P, _I, _P, _I, _P, _I, _P, _P, _P,
+                                       _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                                       ctypes.POINTER(_I)]},
+}
+
+
+def _cuda_library(name: str) -> ctypes.CDLL:
+    """CUDA library ``name`` with its C signatures declared and its error
+    string function as ``error_string``; built on first use."""
+    lib = _LOADED.get(name)
     if lib is None:
-        (path,) = _build([_cuda_spec("stem_fused")])
+        (path,) = _build([_cuda_spec(name)])
         lib = ctypes.CDLL(str(path))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.stem_fused_launch.argtypes = [p, i, p, i, p, i, p, i, p, p, i, i,
-                                          i, i, p]
-        lib.stem_fused_launch.restype = ctypes.c_int
-        lib.stem_fused_error_string.argtypes = [ctypes.c_int]
-        lib.stem_fused_error_string.restype = ctypes.c_char_p
-        _LOADED["stem_fused"] = lib
+        for fn, argtypes in _SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.error_string = getattr(lib, f"{name}_error_string")
+        lib.error_string.argtypes = [ctypes.c_int]
+        lib.error_string.restype = ctypes.c_char_p
+        _LOADED[name] = lib
+    return lib
+
+
+def stem_fused_library() -> ctypes.CDLL:
+    """K1, the resident megakernel (csrc/stem_fused.cu)."""
+    return _cuda_library("stem_fused")
+
+
+def stem_streamed_library() -> ctypes.CDLL:
+    """K2, the streamed megakernel (csrc/stem_streamed.cu)."""
+    return _cuda_library("stem_streamed")
+
+
+def stem_persistent_library() -> ctypes.CDLL:
+    """K3, the persistent kernel's two variants (csrc/stem_persistent.cu)."""
+    return _cuda_library("stem_persistent")
+
+
+def _host_library() -> ctypes.CDLL:
+    lib = _LOADED.get("host_datapath")
+    if lib is None:
+        (path,) = _build([_host_spec()])
+        lib = ctypes.CDLL(str(path))
+        lib.host_candidate_columns.argtypes = [_P, _I, _P, _P]
+        lib.host_candidate_columns.restype = None
+        lib.host_stem_streamed.argtypes = [_P, _I, _P, _I, _P, _P, _I, _I,
+                                           _I, _I, _I, _I, _P, _P]
+        lib.host_stem_streamed.restype = None
+        _LOADED["host_datapath"] = lib
     return lib
 
 
 def host_candidate_columns(words: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """The g++ build of stem_datapath.cuh: words int32[n, 16] ->
     (keys int32[n, 30], valid int32[n, 30])."""
-    lib = _LOADED.get("host_datapath")
-    if lib is None:
-        (path,) = _build([_host_spec()])
-        lib = ctypes.CDLL(str(path))
-        lib.host_candidate_columns.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-        lib.host_candidate_columns.restype = None
-        _LOADED["host_datapath"] = lib
-    w = np.ascontiguousarray(words, dtype=np.int32)
-    if w.ndim != 2 or w.shape[1] != ab.MAXLEN:
-        raise ValueError(f"words must be [n, {ab.MAXLEN}], got {w.shape}")
+    lib = _host_library()
+    w = _host_words(words)
     n = w.shape[0]
     keys = np.zeros((n, 30), np.int32)
     valid = np.zeros((n, 30), np.int32)
     lib.host_candidate_columns(w.ctypes.data, n, keys.ctypes.data,
                                valid.ctypes.data)
     return keys, valid
+
+
+def host_stem_streamed(words: np.ndarray, stream: np.ndarray,
+                       n_visits: np.ndarray, visit_idx: np.ndarray, *,
+                       n_groups: int, match: int, block_b: int,
+                       dict_block_r: int, tri_tiles: int,
+                       quad_tiles: int) -> tuple[np.ndarray, np.ndarray]:
+    """The g++ build of stem_sweep.cuh, run as the streamed kernel's blocks
+    would run it: the kernel's contract (match 0 = bsearch, 1 = bank) ->
+    (root int32[n, 4], source int32[n])."""
+    lib = _host_library()
+    w = _host_words(words)
+    stream = np.ascontiguousarray(stream, dtype=np.int32)
+    n_visits = np.ascontiguousarray(n_visits, dtype=np.int32)
+    visit_idx = np.ascontiguousarray(visit_idx, dtype=np.int32)
+    n = w.shape[0]
+    n_tiles = stream.size // (dict_block_r * 128)
+    bt = -(-n // block_b)
+    if n_visits.shape != (bt,) or visit_idx.shape != (bt, n_tiles):
+        raise ValueError(f"visit tables {n_visits.shape}, {visit_idx.shape}"
+                         f" do not match {bt} x {n_tiles}")
+    root = np.zeros((n, 4), np.int32)
+    source = np.zeros((n,), np.int32)
+    lib.host_stem_streamed(w.ctypes.data, n, stream.ctypes.data, n_tiles,
+                           n_visits.ctypes.data, visit_idx.ctypes.data,
+                           block_b, dict_block_r, tri_tiles, quad_tiles,
+                           n_groups, match, root.ctypes.data,
+                           source.ctypes.data)
+    return root, source
+
+
+def _host_words(words: np.ndarray) -> np.ndarray:
+    w = np.ascontiguousarray(words, dtype=np.int32)
+    if w.ndim != 2 or w.shape[1] != ab.MAXLEN:
+        raise ValueError(f"words must be [n, {ab.MAXLEN}], got {w.shape}")
+    return w

@@ -32,6 +32,9 @@ namespace rt {
 constexpr int kMaxLen = RT_MAXLEN;
 constexpr int kCand = 6;
 constexpr int kSlots = 30;
+// stage 5 strategies, in kernels/stem_fused.py:MATCHES order
+constexpr int kMatchBsearch = 0;
+constexpr int kMatchBank = 1;
 
 // Membership in a generated 64-bit code-set mask; codes outside 0..63
 // are members of no set (the reference compares for equality).

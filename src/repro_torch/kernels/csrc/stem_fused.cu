@@ -26,56 +26,18 @@
 //     hit, which the priority select would pick anyway, so a word pays
 //     only for the valid slots up to its hit;
 //   - the pad rows of a ragged last block are masked, not computed.
+// The per-word code lives in stem_resident.cuh, shared with the
+// persistent kernel (stem_persistent.cu).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "stem_datapath.cuh"
+#include "stem_resident.cuh"
 
 namespace {
 
-constexpr int kMaxBlock = 512;
-constexpr int kMatchBsearch = 0;
-constexpr int kMatchBank = 1;
-
-template <bool SHARED>
-__device__ __forceinline__ int32_t dict_at(const int32_t* d, int i) {
-  if constexpr (SHARED) {
-    return d[i];
-  } else {
-    return __ldg(d + i);
-  }
-}
-
-// ceil(log2 rp) bisection steps over a sorted, sentinel-padded table of
-// pow2 length rp; each probe index is clamped into [0, rp-1] like the
-// reference's jnp.take(mode="clip").
-template <bool SHARED>
-__device__ __forceinline__ bool bsearch_hit(const int32_t* d, int rp,
-                                            int steps, int32_t key) {
-  int lo = 0, hi = rp - 1;
-  for (int s = 0; s < steps; ++s) {
-    const int mid = (lo + hi) >> 1;
-    const bool ge = dict_at<SHARED>(d, min(max(mid, 0), rp - 1)) >= key;
-    hi = ge ? mid : hi;
-    lo = ge ? lo : mid + 1;
-  }
-  return dict_at<SHARED>(d, min(max(lo, 0), rp - 1)) == key;
-}
-
-// Comparator bank: any equal entry. Stopping at the first equal entry
-// gives the same answer as the reference's all-pairs OR.
-template <bool SHARED>
-__device__ __forceinline__ bool bank_hit(const int32_t* d, int r,
-                                         int32_t key) {
-  for (int i = 0; i < r; ++i) {
-    if (dict_at<SHARED>(d, i) == key) return true;
-  }
-  return false;
-}
-
-__device__ __forceinline__ int ceil_log2(int n) {
-  return n > 1 ? 32 - __clz(n - 1) : 0;
-}
+using rt::kMatchBank;
+using rt::kMatchBsearch;
+using rt::kMaxBlock;
 
 template <int MATCH, bool SHARED, int N_GROUPS>
 __global__ void __launch_bounds__(kMaxBlock)
@@ -84,73 +46,21 @@ stem_fused_kernel(const int4* __restrict__ words, int n_words,
                   const int32_t* __restrict__ quad, int quad_n,
                   const int32_t* __restrict__ bi, int bi_n,
                   int4* __restrict__ root, int32_t* __restrict__ source) {
-  constexpr int kTables = N_GROUPS == 5 ? 3 : 2;  // bi feeds group 4 only
   const int32_t* dict[3] = {tri, quad, bi};
   const int len[3] = {tri_n, quad_n, bi_n};
-
-  if constexpr (SHARED) {
-    extern __shared__ int4 smem4[];
-    int32_t* smem = reinterpret_cast<int32_t*>(smem4);
-    int off = 0;
-#pragma unroll
-    for (int t = 0; t < kTables; ++t) {
-      // every padded table length is a multiple of 128 ints
-      const int4* src = reinterpret_cast<const int4*>(dict[t]);
-      int4* dst = reinterpret_cast<int4*>(smem + off);
-      for (int i = threadIdx.x; i < len[t] / 4; i += blockDim.x) {
-        dst[i] = __ldg(src + i);
-      }
-      dict[t] = smem + off;
-      off += len[t];
-    }
-    __syncthreads();
-  }
+  if constexpr (SHARED) rt::stage_tables<N_GROUPS>(dict, len);
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_words) return;
 
   int32_t w[rt::kMaxLen];
-  const int4* row = words + 4ll * i;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int4 v = __ldg(row + k);
-    w[4 * k + 0] = v.x;
-    w[4 * k + 1] = v.y;
-    w[4 * k + 2] = v.z;
-    w[4 * k + 3] = v.w;
-  }
-
-  int32_t keys[rt::kSlots];
-  bool valid[rt::kSlots];
-  rt::candidate_columns(w, keys, valid);
-
-  int steps[3] = {0, 0, 0};
-  if constexpr (MATCH == kMatchBsearch) {
-#pragma unroll
-    for (int t = 0; t < kTables; ++t) steps[t] = ceil_log2(len[t]);
-  }
-
-  bool found = false;
-  int32_t chosen = 0, src = 0;
-#pragma unroll
-  for (int s = 0; s < N_GROUPS * rt::kCand; ++s) {
-    const int g = s / rt::kCand;
-    const int t = rt_group_dict(g);
-    if (!found && valid[s]) {
-      const bool hit =
-          MATCH == kMatchBsearch
-              ? bsearch_hit<SHARED>(dict[t], len[t], steps[t], keys[s])
-              : bank_hit<SHARED>(dict[t], len[t], keys[s]);
-      if (hit) {
-        found = true;
-        chosen = keys[s];
-        src = rt_group_tag(g);
-      }
-    }
-  }
-  root[i] = make_int4((chosen >> 18) & 63, (chosen >> 12) & 63,
-                      (chosen >> 6) & 63, chosen & 63);
-  source[i] = src;
+  rt::load_word(words, i, n_words, w);
+  int steps[3];
+  rt::table_steps<MATCH, N_GROUPS>(len, steps);
+  int32_t chosen, src;
+  rt::resident_word<MATCH, SHARED, N_GROUPS>(w, dict, len, steps, chosen,
+                                             src);
+  rt::store_root(root, source, i, chosen, src);
 }
 
 struct Args {
@@ -171,16 +81,10 @@ struct Args {
 template <int MATCH, bool SHARED, int N_GROUPS>
 int launch(const Args& a) {
   auto kernel = stem_fused_kernel<MATCH, SHARED, N_GROUPS>;
-  size_t smem = 0;
-  if (SHARED) {
-    smem = sizeof(int32_t) *
-           (size_t(a.tri_n) + a.quad_n + (N_GROUPS == 5 ? a.bi_n : 0));
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-      if (e != cudaSuccess) return int(e);
-    }
-  }
+  const size_t smem =
+      rt::resident_smem_bytes<SHARED, N_GROUPS>(a.tri_n, a.quad_n, a.bi_n);
+  const cudaError_t e = rt::allow_smem(kernel, smem);
+  if (e != cudaSuccess) return int(e);
   const unsigned grid = unsigned((a.n_words + a.block_b - 1) / a.block_b);
   kernel<<<grid, a.block_b, smem, a.stream>>>(
       a.words, a.n_words, a.tri, a.tri_n, a.quad, a.quad_n, a.bi, a.bi_n,

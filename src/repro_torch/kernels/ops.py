@@ -1,7 +1,8 @@
 """Public entry points of the port's kernels.
 
 The counterpart of ``repro.kernels.ops`` for the main path: the stemmer
-megakernel (:func:`extract_roots_fused`), its launch counter, and the
+megakernels (:func:`extract_roots_fused`), the persistent serving kernel
+(:func:`extract_roots_persistent`), their launch counter, and the
 per-tile integrity checksum the serving ring verifies at retire.
 """
 from __future__ import annotations
@@ -16,15 +17,16 @@ from repro_torch.kernels import stem_fused as sf
 
 # -- dispatch accounting -----------------------------------------------------
 def reset_dispatch_count() -> None:
-    """Zero the stemmer-megakernel launch counter."""
-    sf.stem_fused_cuda.launches = 0
+    """Zero the launch counters of every stemmer kernel (K1, K2, K3)."""
+    for wrapper in sf.CUDA_WRAPPERS:
+        wrapper.launches = 0
 
 
 def dispatch_count() -> int:
-    """CUDA stemmer-megakernel launches since the last
-    :func:`reset_dispatch_count`. Only real kernel launches count: the
-    plain version that runs on the CPU launches nothing."""
-    return sf.stem_fused_cuda.launches
+    """CUDA stemmer-kernel launches (K1, K2 and both K3 variants) since the
+    last :func:`reset_dispatch_count`. Only real kernel launches count:
+    the plain versions that run on the CPU launch nothing."""
+    return sum(wrapper.launches for wrapper in sf.CUDA_WRAPPERS)
 
 
 def _on_device(roots, dev: torch.device):
@@ -32,35 +34,73 @@ def _on_device(roots, dev: torch.device):
     if isinstance(roots, core_stemmer.ResolvedRootDict):
         if roots.arrays.device == dev:
             return roots
+        tiles = roots.tiles.to(dev) if roots.tiles is not None else None
         return core_stemmer.ResolvedRootDict(roots.arrays.to(dev),
-                                             roots.residency)
+                                             roots.residency, tiles)
     return roots.to(dev)
 
 
-def extract_roots_fused(words, roots, *, infix: bool = True,
-                        match: str = "bsearch", block_b: int = 256,
-                        residency: str = "auto", with_checksum: bool = False,
-                        device=devmod.DEFAULT_DEVICE):
-    """The stemmer megakernel on ``device``: all five stages in one launch.
-    Same contract as ``core.stemmer.extract_roots``; bit-identical output.
-
-    words int32[B,16] (numpy or tensor) and RootDictArrays or a resolved
-    handle -> (root int32[B,4], source int32[B]) on ``device``.
-    ``with_checksum=True`` adds the per-tile :func:`tile_checksum` row,
-    computed on the same stream right after the launch (B must be a
-    multiple of block_b).
-    """
+def _launch(words, roots, *, block_b: int, with_checksum: bool, device,
+            **kw):
     dev = devmod.resolve(device)
     words = devmod.as_int32(words, dev)
     if with_checksum and words.shape[0] % block_b:
         raise ValueError(f"with_checksum needs B ({words.shape[0]}) to be a"
                          f" multiple of block_b ({block_b})")
-    root, source = sf.stem_fused(words, _on_device(roots, dev), infix=infix,
-                                 match=match, block_b=block_b,
-                                 residency=residency)
+    out = sf.stem_fused(words, _on_device(roots, dev), block_b=block_b, **kw)
     if with_checksum:
-        return root, source, tile_checksum(root, source, block_b=block_b)
-    return root, source
+        return out + (tile_checksum(out[0], out[1], block_b=block_b),)
+    return out
+
+
+def extract_roots_fused(words, roots, *, infix: bool = True,
+                        match: str = "bsearch", block_b: int = 256,
+                        residency: str = "auto", dict_block_r: int = 8,
+                        num_buffers: int = 2, skip_index: bool = True,
+                        visit_budget: int | None = None,
+                        with_checksum: bool = False,
+                        device=devmod.DEFAULT_DEVICE):
+    """The stemmer megakernels on ``device``: all five stages, resident (K1)
+    or streamed (K2) as ``residency`` resolves. Same contract as
+    ``core.stemmer.extract_roots``; bit-identical output.
+
+    words int32[B,16] (numpy or tensor) and RootDictArrays or a resolved
+    handle -> (root int32[B,4], source int32[B]) on ``device``. Streamed
+    batches whose visit table would exceed ``visit_budget`` entries chunk
+    into several launches (``stem_fused.planned_launches``).
+    ``with_checksum=True`` adds the per-tile :func:`tile_checksum` row,
+    computed on the same stream right after the launch (B must be a
+    multiple of block_b).
+    """
+    return _launch(words, roots, infix=infix, match=match, block_b=block_b,
+                   residency=residency, dict_block_r=dict_block_r,
+                   num_buffers=num_buffers, skip_index=skip_index,
+                   visit_budget=visit_budget, with_checksum=with_checksum,
+                   device=device)
+
+
+def extract_roots_persistent(words, roots, *, infix: bool = True,
+                             match: str = "bsearch", block_b: int = 256,
+                             residency: str = "auto", dict_block_r: int = 8,
+                             num_buffers: int = 2, skip_index: bool = True,
+                             version_slot: int = 0,
+                             visit_budget: int | None = None,
+                             with_checksum: bool = False,
+                             device=devmod.DEFAULT_DEVICE):
+    """The persistent serving kernel (K3) on ``device``: one launch (one a
+    chunk, streamed) walks a descriptor ring of the batch's tiles. Returns
+    ``(root, source, flags)``: flags int32[batch_tiles] is ``1 +
+    version_slot`` for every retired descriptor, the completion word the
+    serving ring checks. Roots and sources are bit-identical to
+    :func:`extract_roots_fused`; ``with_checksum=True`` appends the
+    :func:`tile_checksum` row.
+    """
+    return _launch(words, roots, infix=infix, match=match, block_b=block_b,
+                   residency=residency, dict_block_r=dict_block_r,
+                   num_buffers=num_buffers, skip_index=skip_index,
+                   persistent=True, version_slot=version_slot,
+                   visit_budget=visit_budget, with_checksum=with_checksum,
+                   device=device)
 
 
 # ---------------------------------------------------------------------------

@@ -1,30 +1,48 @@
-"""The stemmer megakernel (stages 1-5 in one launch): wrapper and plain version.
+"""The stemmer megakernels (stages 1-5 in one launch): wrappers and plain
+versions.
 
-The counterpart of ``repro.kernels.stem_fused`` for the resident,
-non-persistent layout. A word tile goes in and ``(root, source)`` comes
-out; candidates, validity flags and hit masks never reach device memory.
+The counterpart of ``repro.kernels.stem_fused``. A word tile goes in and
+``(root, source)`` comes out; candidates, validity flags and hit masks
+never reach device memory.
 
   - stages 1-4 are ``stem_datapath.candidate_columns`` (30 packed keys +
     validity flags per word);
   - stage 5a matches each candidate group against its dictionary:
-      match="bsearch"  branchless binary search over the sorted table,
-                       padded to a pow2 >= 128 with DICT_SENTINEL;
-      match="bank"     all-pairs comparator bank over the table, padded
-                       to a 128 multiple with DICT_PAD;
+      match="bsearch"  branchless binary search over the sorted table;
+      match="bank"     all-pairs comparator bank over the table;
   - stage 5b keeps the first hit in slot order and unpacks it into four
     6-bit codes; ``source`` is the group's ``GROUP_TAGS`` entry, or 0.
 
-:func:`stem_fused` runs the CUDA kernel ``csrc/stem_fused.cu`` on a CUDA
-tensor and :func:`stem_fused_plain`, its plain PyTorch version, on a CPU
-tensor. The kernel holds the tables in shared memory when they fit and
-reads them from global memory otherwise; outputs are the same.
+``residency`` picks the dictionary layout:
 
-The streamed-dictionary and persistent layouts of the reference are not
-ported yet (ROADMAP §2 K2, K3): ``residency="streamed"``, and ``"auto"``
-for dictionaries past MAX_RESIDENT_KEYS, raise NotImplementedError.
+  "resident"  the padded tables ride along whole (K1,
+              ``csrc/stem_fused.cu``): bsearch pads each to a pow2 >= 128
+              with DICT_SENTINEL, the bank to a 128 multiple with DICT_PAD.
+  "streamed"  the tables are cut into sorted ``(dict_block_r x 128)``
+              tiles (``stem_match.DictTileSet``); a torch pre-pass
+              (:func:`_visit_tables`) lists, per ``block_b``-word tile,
+              the dictionary tiles a live candidate key can land in, and
+              the kernel (K2, ``csrc/stem_streamed.cu``) walks that list
+              through a ``num_buffers``-deep copy pipeline.
+              ``skip_index=False`` lists every tile (the full sweep).
+  "auto"      resident while the loaded tables fit MAX_RESIDENT_KEYS.
+
+``persistent=True`` runs the persistent serving kernel instead (K3,
+``csrc/stem_persistent.cu``): one launch whose blocks loop over a
+descriptor ring of ``(row offset, n_visits, version slot)`` tiles and
+write ``flags[d] = 1 + version_slot`` after each tile's outputs.
+
+Each kernel has a plain PyTorch version beside its CUDA wrapper: a CUDA
+tensor launches the kernel (or raises), a CPU tensor runs the plain
+version. Streamed launches are chunked along the batch axis so that each
+launch's visit table stays within ``visit_budget`` entries, exactly as
+the reference chunks its scalar-prefetch table.
 """
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 
 from repro_torch.core import alphabet as ab
@@ -43,18 +61,23 @@ GROUP_TAGS = (
     pyref.SRC_DEINFIX_TRI,
     pyref.SRC_DEINFIX_BI,
 )
+DICT_NAMES = ("tri", "quad", "bi")   # the stream's table order
 MATCHES = ("bsearch", "bank")
 # The reference's resident budget (its VMEM limit). The port accepts every
-# dictionary the reference keeps resident; the kernel itself decides
-# between shared and global memory (dict_in_shared).
+# dictionary the reference keeps resident; the kernels decide between
+# shared and global memory (dict_in_shared).
 MAX_RESIDENT_KEYS = 1 << 16
 RESIDENCIES = ("resident", "streamed", "auto")
-_STREAMED_TODO = ("the streamed-dictionary megakernel (reference"
-                  " stem_fused._fused_pipeline_kernel) is not ported yet:"
-                  " ROADMAP §1 item 1 and §2 K2")
+MAX_NUM_BUFFERS = 4
+_KEY_NOWHERE = -(1 << 31)  # lands in no tile: below every tile's min
+# Visit-table budget in int32 entries ([batch_tiles, n_dict_tiles] per
+# launch): a streamed batch whose table would exceed it is chunked along
+# the batch axis into several launches, as the reference chunks its
+# scalar-prefetch table (16K entries = 64 KB).
+VISIT_SMEM_BUDGET = 1 << 14
 # Shared memory one block may opt into on an H100 (232,448 bytes).
 SMEM_BLOCK_BYTES = 227 * 1024
-MAX_BLOCK_B = 512          # csrc/stem_fused.cu __launch_bounds__
+MAX_BLOCK_B = 512          # __launch_bounds__ of the kernels
 _BANK_CHUNK = 1 << 24      # plain comparator bank: elements per compare
 
 
@@ -67,35 +90,62 @@ def _loaded_keys(roots, infix: bool) -> int:
 
 def choose_residency(roots, residency: str = "auto", *,
                      infix: bool = True) -> str:
-    """Resolve residency="auto": resident while the loaded tables fit the
-    reference's budget. Only the resident layout is ported."""
+    """Resolve residency="auto": resident while the loaded tables fit
+    MAX_RESIDENT_KEYS, streamed once they don't. Only the tables the
+    Compare stage loads count (bi is excluded for infix=False)."""
     if residency not in RESIDENCIES:
         raise ValueError(f"unknown residency: {residency!r} (want one of"
                          f" {RESIDENCIES})")
-    loaded = _loaded_keys(roots, infix)
-    if residency == "streamed" or (residency == "auto"
-                                   and loaded > MAX_RESIDENT_KEYS):
-        raise NotImplementedError(
-            f"residency={residency!r} with {loaded} loaded keys needs "
-            + _STREAMED_TODO)
-    if loaded > MAX_RESIDENT_KEYS:
-        raise ValueError(
-            f"dictionaries too large for residency='resident' ({loaded}"
-            f" keys > {MAX_RESIDENT_KEYS})")
-    return "resident"
+    if residency != "auto":
+        return residency
+    return ("streamed" if _loaded_keys(roots, infix) > MAX_RESIDENT_KEYS
+            else "resident")
+
+
+def _dict_slots(name: str, n_groups: int) -> list:
+    """Candidate-slot columns fed by dictionary ``name``."""
+    return [g * N_CAND + c for g in range(n_groups)
+            if GROUP_DICTS[g] == name for c in range(N_CAND)]
+
+
+def dict_tile_count(roots, dict_block_r: int) -> int:
+    """Tiles in the streamed ``[tri | quad | bi]`` stream (every table pads
+    to at least one full tile, as stem_match.pad_dict_tiles does)."""
+    per = dict_block_r * sm.LANE
+    return sum(max(1, -(-int(t.shape[0]) // per))
+               for t in (roots.tri, roots.quad, roots.bi))
+
+
+def _max_chunk_tiles(n_tiles: int, visit_budget: int | None) -> int:
+    budget = VISIT_SMEM_BUDGET if visit_budget is None else visit_budget
+    return max(1, budget // n_tiles)
 
 
 def planned_launches(n_words: int, roots, *, infix: bool = True,
-                     residency: str = "auto") -> int:
-    """Kernel launches one :func:`stem_fused` call makes: 0 for an empty
-    batch, else 1 (the resident layout is a single launch)."""
-    roots, residency = core_stemmer.unwrap_dict(roots, residency)
-    choose_residency(roots, residency, infix=infix)
-    return 0 if n_words == 0 else 1
+                     block_b: int = 256, residency: str = "auto",
+                     dict_block_r: int = 8, persistent: bool = False,
+                     visit_budget: int | None = None) -> int:
+    """Kernel launches one :func:`stem_fused` call makes for this
+    configuration: 0 for an empty batch, 1 for the resident layout
+    (persistent or not), and ceil(batch_tiles / chunk) for the streamed
+    one (persistent or not), chunk being the most batch tiles whose visit
+    table fits ``visit_budget``."""
+    arrays, residency, tiles = core_stemmer.unwrap_dict(roots, residency)
+    residency = choose_residency(arrays, residency, infix=infix)
+    if n_words == 0:
+        return 0
+    if residency == "resident":
+        return 1
+    if tiles is not None and tiles.dict_block_r == dict_block_r:
+        n_tiles = tiles.n_tiles
+    else:
+        n_tiles = dict_tile_count(arrays, dict_block_r)
+    bt = -(-n_words // block_b)
+    return -(-bt // _max_chunk_tiles(n_tiles, visit_budget))
 
 
 # ---------------------------------------------------------------------------
-# plain version
+# plain versions
 # ---------------------------------------------------------------------------
 def _bank_hit(flat_dict: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
     """All-pairs comparator bank: keys[bb,6] vs flat_dict[R] -> bool[bb,6],
@@ -123,7 +173,7 @@ def _priority_select(keys, hits_i, *, n_groups: int):
 
 
 def _candidates(w, n_groups: int):
-    """Stages 1-4 on one word tile -> (keys[bb, n_slots], valid[bb, n_slots])."""
+    """Stages 1-4 on a word tile -> (keys[bb, n_slots], valid[bb, n_slots])."""
     key_cols, val_cols = sdp.candidate_columns(w)
     n_slots = n_groups * N_CAND
     keys = torch.stack(key_cols[:n_slots], dim=1)
@@ -142,9 +192,16 @@ def _resident_hits(keys, valid, dicts, *, n_groups: int, match: str):
     return torch.cat(hit_cols, dim=1) & valid
 
 
+def _pad_words(words: torch.Tensor, block_b: int) -> torch.Tensor:
+    """Pad the batch with zero words to a multiple of block_b."""
+    pad = (-words.shape[0]) % block_b
+    return torch.cat([words, words.new_zeros((pad, ab.MAXLEN))]) if pad \
+        else words
+
+
 def stem_fused_plain(words, tables, *, n_groups: int, match: str,
                      block_b: int):
-    """The kernel's plain PyTorch version, on any device.
+    """K1's plain PyTorch version, on any device.
 
     words int32[B,16]; tables (tri, quad, bi) padded flat int32 tables from
     :func:`padded_tables` -> (root int32[B,4], source int32[B]). The batch
@@ -152,10 +209,8 @@ def stem_fused_plain(words, tables, *, n_groups: int, match: str,
     trimmed, as the reference does.
     """
     b = words.shape[0]
-    pad = (-b) % block_b
-    wp = torch.cat([words, words.new_zeros((pad, ab.MAXLEN))]) if pad else words
-    keys, valid = _candidates(wp, n_groups)
-    dicts = dict(zip(("tri", "quad", "bi"), tables))
+    keys, valid = _candidates(_pad_words(words, block_b), n_groups)
+    dicts = dict(zip(DICT_NAMES, tables))
     hits = _resident_hits(keys, valid, dicts, n_groups=n_groups, match=match)
     root, source = _priority_select(keys, hits.to(torch.int32),
                                     n_groups=n_groups)
@@ -172,7 +227,7 @@ def padded_tables(roots, *, match: str, infix: bool):
         else None
     if cache is not None and (match, infix) in cache:
         return cache[(match, infix)]
-    arrays, _ = core_stemmer.unwrap_dict(roots)
+    arrays, _, _ = core_stemmer.unwrap_dict(roots)
     prep = sm.pad_dict_sorted if match == "bsearch" else sm.pad_dict_lanes
     bi = arrays.bi if infix else torch.full((1,), sm.DICT_PAD,
                                             dtype=torch.int32,
@@ -184,45 +239,324 @@ def padded_tables(roots, *, match: str, infix: bool):
     return out
 
 
+# -- streamed layout: the tile-visit pre-pass and K2's plain version --------
+def _visit_tables(keys, valid, tiles: sm.DictTileSet, *, n_groups: int,
+                  block_b: int, skip_index: bool):
+    """The tile-skipping pre-pass: per batch tile, the dictionary tiles a
+    live candidate key can land in.
+
+    The tiles partition each sorted dictionary, so a key lands in at most
+    one of them: ``searchsorted(mins, key, right) - 1``, kept only when
+    the key is also under that tile's max. A hit needs the key in the
+    dictionary, hence in its landing tile, so sweeping only the marked
+    tiles gives the full sweep's result.
+
+    keys int32[bp, n_slots], valid bool[bp, n_slots] (stages 1-4 of the
+    padded batch) ->
+
+      n_visits  int32[batch_tiles]           tiles to visit per batch tile
+      visit_idx int32[batch_tiles, n_tiles]  global tile ids, the n_visits
+                live ones first in ascending order (the rest are never
+                read)
+
+    skip_index=False marks every tile of every swept dictionary (bi stays
+    unmarked for infix=False): the full sweep through the same kernel.
+    """
+    bt = keys.shape[0] // block_b
+    dev = keys.device
+    tri_t, quad_t, bi_t = tiles.counts
+    masks = []
+    for name, base, td in (("tri", 0, tri_t), ("quad", tri_t, quad_t),
+                           ("bi", tri_t + quad_t, bi_t)):
+        slots = _dict_slots(name, n_groups)
+        if not slots:                # bi with infix=False: never swept
+            masks.append(torch.zeros((bt, td), dtype=torch.bool, device=dev))
+            continue
+        if not skip_index:           # full sweep: every tile of the dict
+            masks.append(torch.ones((bt, td), dtype=torch.bool, device=dev))
+            continue
+        mins = tiles.mins[base:base + td]
+        maxs = tiles.maxs[base:base + td]
+        k = torch.where(valid[:, slots], keys[:, slots],
+                        torch.tensor(_KEY_NOWHERE, dtype=torch.int32,
+                                     device=dev))
+        k = k.reshape(bt, -1).contiguous()   # [bt, block_b * n_dict_slots]
+        t = (torch.searchsorted(mins, k, right=True) - 1).clamp(0, td - 1)
+        lands = (mins[t] <= k) & (k <= maxs[t])
+        # count the keys landing in each (batch tile, dict tile) with an
+        # index_add, not a boolean-mask index: no host sync on the device
+        cell = (torch.arange(bt, device=dev)[:, None] * td + t).reshape(-1)
+        landed = torch.zeros(bt * td, dtype=torch.int32, device=dev)
+        landed.index_add_(0, cell, lands.reshape(-1).to(torch.int32))
+        masks.append((landed > 0).reshape(bt, td))
+    mask = torch.cat(masks, dim=1)                      # [bt, n_tiles]
+    n_visits = mask.sum(dim=1).to(torch.int32)
+    # a stable sort of ~mask packs the marked tile ids to the front,
+    # ascending: the visit order stays the sorted [tri | quad | bi] order
+    visit_idx = torch.sort((~mask).to(torch.int8), dim=1,
+                           stable=True).indices.to(torch.int32)
+    return n_visits, visit_idx.contiguous()
+
+
+def _tiles_for(arrays, tiles, dict_block_r: int) -> sm.DictTileSet:
+    if tiles is None or tiles.dict_block_r != dict_block_r:
+        tiles = sm.build_dict_tiles(arrays.tri, arrays.quad, arrays.bi,
+                                    dict_block_r)
+    return tiles
+
+
+def tile_visit_stats(words, roots, *, infix: bool = True, block_b: int = 256,
+                     dict_block_r: int = 8, skip_index: bool = True) -> dict:
+    """Run only the tile-visit pre-pass and report visit counts:
+    ``{"visited": tile visits over all batch tiles, "full_sweep":
+    batch_tiles * live dictionary tiles (what skip_index=False visits),
+    "batch_tiles", "dict_tiles"}``. words is an int32[B,16] tensor on the
+    dictionary's device."""
+    arrays, _, tiles = core_stemmer.unwrap_dict(roots, "auto")
+    tiles = _tiles_for(arrays, tiles, dict_block_r)
+    n_groups = 5 if infix else 2
+    keys, valid = _candidates(_pad_words(words, block_b), n_groups)
+    n_visits, _ = _visit_tables(keys, valid, tiles, n_groups=n_groups,
+                                block_b=block_b, skip_index=skip_index)
+    bt = keys.shape[0] // block_b
+    tri_t, quad_t, bi_t = tiles.counts
+    live = tri_t + quad_t + (bi_t if infix else 0)
+    return {"visited": int(n_visits.sum()), "full_sweep": bt * live,
+            "batch_tiles": bt, "dict_tiles": live}
+
+
+def _tile_member(tile: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+    """Membership of keys[bt, M] in the sorted rows tile[bt, R]. bsearch
+    and the bank compute the same membership on a sorted tile, so the
+    plain version computes it once, by a batched sorted search."""
+    idx = torch.searchsorted(tile, keys).clamp(max=tile.shape[1] - 1)
+    return tile.gather(1, idx) == keys
+
+
+def _slot_dicts(n_groups: int, device) -> torch.Tensor:
+    """Table index (0 tri, 1 quad, 2 bi) of every candidate slot."""
+    return torch.tensor([DICT_NAMES.index(GROUP_DICTS[g])
+                         for g in range(n_groups) for _ in range(N_CAND)],
+                        dtype=torch.int64, device=device)
+
+
+def _streamed_rows(wp, stream, n_visits, visit_idx, *, n_groups: int,
+                   block_b: int, dict_block_r: int, tri_tiles: int,
+                   quad_tiles: int):
+    """Stages 1-5 over padded words wp[bt * block_b, 16], each batch tile
+    walking its visit list, vectorised over batch tiles (visit k of every
+    tile at once) -> (root, source) for every padded row.
+
+    As in the kernel, a tile's hits count only for the slots of the
+    dictionary the tile belongs to (told by its global tile id), and only
+    the first n_visits[i] entries of row i are read.
+    """
+    bt = wp.shape[0] // block_b
+    n_slots = n_groups * N_CAND
+    keys, valid = _candidates(wp, n_groups)
+    k = keys.reshape(bt, block_b * n_slots).contiguous()
+    live_slots = valid.reshape(bt, block_b * n_slots)
+    slot_dict = _slot_dicts(n_groups, wp.device).repeat(block_b)
+    tiles = stream.reshape(-1, dict_block_r * sm.LANE)
+    nv = n_visits.to(torch.int64)
+    hits = torch.zeros_like(live_slots)
+    for v in range(int(nv.max()) if bt else 0):
+        t = visit_idx[:, v].to(torch.int64)                        # [bt]
+        tile_dict = ((t >= tri_tiles).long()
+                     + (t >= tri_tiles + quad_tiles).long())
+        counted = (live_slots & (nv > v)[:, None]
+                   & (slot_dict[None, :] == tile_dict[:, None]))
+        hits |= _tile_member(tiles[t], k) & counted
+    return _priority_select(keys, hits.reshape(-1, n_slots).to(torch.int32),
+                            n_groups=n_groups)
+
+
+def stem_streamed_plain(words, stream, n_visits, visit_idx, *, n_groups: int,
+                        match: str, block_b: int, dict_block_r: int,
+                        num_buffers: int, tri_tiles: int, quad_tiles: int):
+    """K2's plain PyTorch version, on any device.
+
+    words int32[B,16]; stream the DictTileSet stream; n_visits
+    int32[bt], visit_idx int32[bt, n_tiles] from :func:`_visit_tables`
+    (bt = ceil(B / block_b)) -> (root int32[B,4], source int32[B]).
+    ``match`` and ``num_buffers`` change how the kernel compares and
+    copies, not what it computes.
+    """
+    del match, num_buffers
+    b = words.shape[0]
+    root, source = _streamed_rows(
+        _pad_words(words, block_b), stream, n_visits, visit_idx,
+        n_groups=n_groups, block_b=block_b, dict_block_r=dict_block_r,
+        tri_tiles=tri_tiles, quad_tiles=quad_tiles)
+    return root[:b], source[:b]
+
+
+# -- persistent layout: descriptors, K3's plain versions, salvage ----------
+def _descriptors(bt: int, block_b: int, n_visits, version_slot):
+    """The work-descriptor ring: int32[bt, 3] of (row offset, n_visits,
+    version slot) per tile, on n_visits' device."""
+    dev = n_visits.device
+    offs = torch.arange(bt, dtype=torch.int32, device=dev) * block_b
+    ver = torch.full((bt,), int(version_slot), dtype=torch.int32, device=dev)
+    return torch.stack([offs, n_visits.to(torch.int32), ver],
+                       dim=1).contiguous()
+
+
+def _descriptor_rows(words, desc, block_b: int):
+    """Gather every descriptor's word tile (rows past B read as zero
+    words) -> (tile words [n_desc * block_b, 16], their row numbers)."""
+    rows = (desc[:, 0:1].to(torch.int64)
+            + torch.arange(block_b, device=desc.device)).reshape(-1)
+    wp = torch.cat([words, words.new_zeros((1, ab.MAXLEN))])
+    return wp[rows.clamp(max=words.shape[0])], rows
+
+
+def _scatter_rows(b: int, rows, root, source):
+    """Write the rows below b back to their places in [B] outputs."""
+    keep = rows < b
+    out_r = root.new_zeros((b, 4))
+    out_s = source.new_zeros((b,))
+    out_r[rows[keep]] = root[keep]
+    out_s[rows[keep]] = source[keep]
+    return out_r, out_s
+
+
+def persistent_resident_plain(words, tables, desc, *, n_groups: int,
+                              match: str, block_b: int):
+    """K3's resident variant in plain PyTorch: every descriptor's tile runs
+    stages 1-5 on the resident tables -> (root int32[B,4], source
+    int32[B], flags int32[n_desc] = 1 + version slot)."""
+    wd, rows = _descriptor_rows(words, desc, block_b)
+    root, source = stem_fused_plain(wd, tables, n_groups=n_groups,
+                                    match=match, block_b=block_b)
+    return _scatter_rows(words.shape[0], rows, root, source) + (
+        (1 + desc[:, 2]).to(torch.int32),)
+
+
+def persistent_streamed_plain(words, stream, desc, visit_idx, *,
+                              n_groups: int, match: str, block_b: int,
+                              dict_block_r: int, num_buffers: int,
+                              tri_tiles: int, quad_tiles: int):
+    """K3's streamed variant in plain PyTorch: descriptor d's tile walks
+    the first desc[d, 1] entries of visit_idx[d] -> (root, source,
+    flags), as :func:`persistent_resident_plain`."""
+    del match, num_buffers
+    wd, rows = _descriptor_rows(words, desc, block_b)
+    root, source = _streamed_rows(
+        wd, stream, desc[:, 1], visit_idx, n_groups=n_groups,
+        block_b=block_b, dict_block_r=dict_block_r, tri_tiles=tri_tiles,
+        quad_tiles=quad_tiles)
+    return _scatter_rows(words.shape[0], rows, root, source) + (
+        (1 + desc[:, 2]).to(torch.int32),)
+
+
+def salvage_descriptor_rows(flags, version_slot: int, block_b: int) -> int:
+    """Rows of an abandoned persistent launch that its completion flags
+    prove retired: ``block_b`` times the longest prefix of flags equal to
+    ``1 + version_slot``.
+
+    The reference retires descriptors in ring order. The CUDA kernel's
+    blocks retire them out of order, but each flag is written after a
+    fence that follows its tile's output writes, so every set flag proves
+    its rows: the prefix rule stays sound, only more conservative.
+    """
+    f = np.asarray(flags)
+    good = f == 1 + version_slot
+    k = int(f.size if good.all() else np.argmin(good))
+    return k * block_b
+
+
 # ---------------------------------------------------------------------------
-# CUDA kernel
+# CUDA kernels
 # ---------------------------------------------------------------------------
 def dict_in_shared(tables, *, n_groups: int) -> bool:
-    """Whether the kernel copies the tables it reads into shared memory (it
-    stages nothing else there); otherwise it reads them from global memory."""
+    """Whether the resident kernels copy the tables they read into shared
+    memory; otherwise they read them from global memory."""
     n_tables = 3 if n_groups == 5 else 2
     return 4 * sum(int(t.shape[0]) for t in tables[:n_tables]) \
         <= SMEM_BLOCK_BYTES
 
 
-def _check_cuda(name: str, t: torch.Tensor, ndim: int, dev: torch.device):
+def _check_cuda(name: str, t: torch.Tensor, ndim: int, dev: torch.device,
+                align: int = 16):
     if t.device.type != "cuda":
         raise ValueError(f"{name}: the kernel takes CUDA tensors, got one"
                          f" on {t.device}")
     if t.dtype != torch.int32 or t.device != dev or t.dim() != ndim:
         raise ValueError(f"{name}: want a {ndim}-D int32 tensor on {dev},"
                          f" got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"{name}: want a contiguous 16-byte aligned tensor")
+    if not t.is_contiguous() or t.data_ptr() % align:
+        raise ValueError(f"{name}: want a contiguous {align}-byte aligned"
+                         " tensor")
 
 
-def stem_fused_cuda(words, tables, *, n_groups: int, match: str,
-                    block_b: int):
-    """Launch ``csrc/stem_fused.cu`` on the current stream: same contract as
-    :func:`stem_fused_plain`, for CUDA tensors. Adds one to
-    ``stem_fused_cuda.launches`` per launch."""
-    from repro_torch.kernels import build  # lazy: builds at first launch
-
+def _check_words(words: torch.Tensor, block_b: int) -> torch.device:
     dev = words.device
     _check_cuda("words", words, 2, dev)
     if words.shape[1] != ab.MAXLEN:
         raise ValueError(f"words must be [B, {ab.MAXLEN}], got"
                          f" {tuple(words.shape)}")
-    for name, t in zip(("tri", "quad", "bi"), tables):
-        _check_cuda(name, t, 1, dev)
     if not 1 <= block_b <= MAX_BLOCK_B:
         raise ValueError(f"block_b must be in 1..{MAX_BLOCK_B} on CUDA,"
                          f" got {block_b}")
+    return dev
+
+
+def _check_stream(stream, dev, *, dict_block_r: int, num_buffers: int,
+                  tri_tiles: int, quad_tiles: int) -> int:
+    """Checks of the streamed kernels' dictionary arguments -> n_tiles."""
+    _check_cuda("stream", stream, 2, dev)
+    if stream.shape[1] != sm.LANE or dict_block_r < 1 \
+            or stream.shape[0] % dict_block_r:
+        raise ValueError(f"stream {tuple(stream.shape)} is not a stack of"
+                         f" ({dict_block_r}, {sm.LANE}) tiles")
+    n_tiles = stream.shape[0] // dict_block_r
+    if not (0 < tri_tiles and 0 < quad_tiles
+            and tri_tiles + quad_tiles < n_tiles):
+        raise ValueError(f"tile counts tri={tri_tiles} quad={quad_tiles}"
+                         f" do not fit {n_tiles} tiles")
+    if not 1 <= num_buffers <= MAX_NUM_BUFFERS:
+        raise ValueError(f"num_buffers must be in 1..{MAX_NUM_BUFFERS},"
+                         f" got {num_buffers}")
+    smem = num_buffers * dict_block_r * sm.LANE * 4
+    if smem > SMEM_BLOCK_BYTES:
+        raise ValueError(
+            f"num_buffers * dict_block_r * 512 = {smem} bytes of tile"
+            f" buffers exceed the {SMEM_BLOCK_BYTES}-byte shared memory of"
+            " one block")
+    return n_tiles
+
+
+def _check_visits(n_visits, visit_idx, dev, bt: int, n_tiles: int):
+    _check_cuda("n_visits", n_visits, 1, dev, align=4)
+    _check_cuda("visit_idx", visit_idx, 2, dev, align=4)
+    if n_visits.shape[0] != bt or tuple(visit_idx.shape) != (bt, n_tiles):
+        raise ValueError(f"visit tables {tuple(n_visits.shape)},"
+                         f" {tuple(visit_idx.shape)} do not match {bt}"
+                         f" batch tiles x {n_tiles} dictionary tiles")
+
+
+def _raise_on(err: int, lib, what: str) -> None:
+    if err:
+        raise RuntimeError(
+            f"{what} kernel launch failed: CUDA error {err}"
+            f" ({lib.error_string(err).decode()})")
+
+
+def _cuda_stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def stem_fused_cuda(words, tables, *, n_groups: int, match: str,
+                    block_b: int):
+    """Launch K1 (``csrc/stem_fused.cu``) on the current stream: same
+    contract as :func:`stem_fused_plain`, for CUDA tensors. Adds one to
+    ``stem_fused_cuda.launches`` per launch."""
+    from repro_torch.kernels import build  # lazy: builds at first launch
+
+    dev = _check_words(words, block_b)
+    for name, t in zip(DICT_NAMES, tables):
+        _check_cuda(name, t, 1, dev)
     b = words.shape[0]
     root = torch.empty((b, 4), dtype=torch.int32, device=dev)
     source = torch.empty((b,), dtype=torch.int32, device=dev)
@@ -232,48 +566,220 @@ def stem_fused_cuda(words, tables, *, n_groups: int, match: str,
     tri, quad, bi = tables
     shared = dict_in_shared(tables, n_groups=n_groups)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.stem_fused_launch(
             words.data_ptr(), b, tri.data_ptr(), tri.shape[0],
             quad.data_ptr(), quad.shape[0], bi.data_ptr(), bi.shape[0],
             root.data_ptr(), source.data_ptr(), block_b, n_groups,
-            MATCHES.index(match), int(shared), stream)
-    if err:
-        raise RuntimeError(
-            f"stem_fused kernel launch failed: CUDA error {err}"
-            f" ({lib.stem_fused_error_string(err).decode()})")
+            MATCHES.index(match), int(shared), _cuda_stream(dev))
+    _raise_on(err, lib, "stem_fused")
     stem_fused_cuda.launches += 1
     return root, source
 
 
-stem_fused_cuda.launches = 0
+def stem_streamed_cuda(words, stream, n_visits, visit_idx, *, n_groups: int,
+                       match: str, block_b: int, dict_block_r: int,
+                       num_buffers: int, tri_tiles: int, quad_tiles: int):
+    """Launch K2 (``csrc/stem_streamed.cu``) on the current stream: same
+    contract as :func:`stem_streamed_plain`, for CUDA tensors. Adds one
+    to ``stem_streamed_cuda.launches`` per launch."""
+    from repro_torch.kernels import build
+
+    dev = _check_words(words, block_b)
+    n_tiles = _check_stream(stream, dev, dict_block_r=dict_block_r,
+                            num_buffers=num_buffers, tri_tiles=tri_tiles,
+                            quad_tiles=quad_tiles)
+    b = words.shape[0]
+    bt = -(-b // block_b)
+    _check_visits(n_visits, visit_idx, dev, bt, n_tiles)
+    root = torch.empty((b, 4), dtype=torch.int32, device=dev)
+    source = torch.empty((b,), dtype=torch.int32, device=dev)
+    if b == 0:
+        return root, source
+    lib = build.stem_streamed_library()
+    with torch.cuda.device(dev):
+        err = lib.stem_streamed_launch(
+            words.data_ptr(), b, stream.data_ptr(), n_tiles,
+            n_visits.data_ptr(), visit_idx.data_ptr(), root.data_ptr(),
+            source.data_ptr(), block_b, dict_block_r, num_buffers,
+            tri_tiles, quad_tiles, n_groups, MATCHES.index(match),
+            _cuda_stream(dev))
+    _raise_on(err, lib, "stem_streamed")
+    stem_streamed_cuda.launches += 1
+    return root, source
+
+
+def _check_desc(desc, dev, bt: int):
+    _check_cuda("desc", desc, 2, dev, align=4)
+    if tuple(desc.shape) != (bt, 3):
+        raise ValueError(f"descriptor ring {tuple(desc.shape)} is not"
+                         f" [{bt}, 3]")
+
+
+def persistent_resident_cuda(words, tables, desc, *, n_groups: int,
+                             match: str, block_b: int):
+    """Launch K3's resident variant (``csrc/stem_persistent.cu``): same
+    contract as :func:`persistent_resident_plain`, for CUDA tensors. Adds
+    one to ``persistent_resident_cuda.launches`` per launch and records
+    the blocks it launched in ``last_grid``."""
+    from repro_torch.kernels import build
+
+    dev = _check_words(words, block_b)
+    for name, t in zip(DICT_NAMES, tables):
+        _check_cuda(name, t, 1, dev)
+    b = words.shape[0]
+    bt = desc.shape[0]
+    _check_desc(desc, dev, bt)
+    root = torch.empty((b, 4), dtype=torch.int32, device=dev)
+    source = torch.empty((b,), dtype=torch.int32, device=dev)
+    flags = torch.zeros((bt,), dtype=torch.int32, device=dev)
+    if bt == 0:
+        return root, source, flags
+    lib = build.stem_persistent_library()
+    grid = ctypes.c_int(0)
+    tri, quad, bi = tables
+    shared = dict_in_shared(tables, n_groups=n_groups)
+    with torch.cuda.device(dev):
+        err = lib.persistent_resident_launch(
+            words.data_ptr(), b, desc.data_ptr(), bt, tri.data_ptr(),
+            tri.shape[0], quad.data_ptr(), quad.shape[0], bi.data_ptr(),
+            bi.shape[0], root.data_ptr(), source.data_ptr(),
+            flags.data_ptr(), block_b, n_groups, MATCHES.index(match),
+            int(shared), _cuda_stream(dev), ctypes.byref(grid))
+    _raise_on(err, lib, "persistent_resident")
+    persistent_resident_cuda.launches += 1
+    persistent_resident_cuda.last_grid = grid.value
+    return root, source, flags
+
+
+def persistent_streamed_cuda(words, stream, desc, visit_idx, *,
+                             n_groups: int, match: str, block_b: int,
+                             dict_block_r: int, num_buffers: int,
+                             tri_tiles: int, quad_tiles: int):
+    """Launch K3's streamed variant (``csrc/stem_persistent.cu``): same
+    contract as :func:`persistent_streamed_plain`, for CUDA tensors. Adds
+    one to ``persistent_streamed_cuda.launches`` per launch and records
+    the blocks it launched in ``last_grid``."""
+    from repro_torch.kernels import build
+
+    dev = _check_words(words, block_b)
+    n_tiles = _check_stream(stream, dev, dict_block_r=dict_block_r,
+                            num_buffers=num_buffers, tri_tiles=tri_tiles,
+                            quad_tiles=quad_tiles)
+    b = words.shape[0]
+    bt = desc.shape[0]
+    _check_desc(desc, dev, bt)
+    _check_cuda("visit_idx", visit_idx, 2, dev, align=4)
+    if tuple(visit_idx.shape) != (bt, n_tiles):
+        raise ValueError(f"visit_idx {tuple(visit_idx.shape)} is not"
+                         f" [{bt}, {n_tiles}]")
+    root = torch.empty((b, 4), dtype=torch.int32, device=dev)
+    source = torch.empty((b,), dtype=torch.int32, device=dev)
+    flags = torch.zeros((bt,), dtype=torch.int32, device=dev)
+    if bt == 0:
+        return root, source, flags
+    lib = build.stem_persistent_library()
+    grid = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        err = lib.persistent_streamed_launch(
+            words.data_ptr(), b, desc.data_ptr(), bt, stream.data_ptr(),
+            n_tiles, visit_idx.data_ptr(), root.data_ptr(),
+            source.data_ptr(), flags.data_ptr(), block_b, dict_block_r,
+            num_buffers, tri_tiles, quad_tiles, n_groups,
+            MATCHES.index(match), _cuda_stream(dev), ctypes.byref(grid))
+    _raise_on(err, lib, "persistent_streamed")
+    persistent_streamed_cuda.launches += 1
+    persistent_streamed_cuda.last_grid = grid.value
+    return root, source, flags
+
+
+# every CUDA wrapper; each counts its own launches
+CUDA_WRAPPERS = (stem_fused_cuda, stem_streamed_cuda,
+                 persistent_resident_cuda, persistent_streamed_cuda)
+for _wrapper in CUDA_WRAPPERS:
+    _wrapper.launches = 0
 
 
 def stem_fused(words: torch.Tensor, roots, *, infix: bool = True,
                match: str = "bsearch", block_b: int = 256,
-               residency: str = "auto"):
+               residency: str = "auto", dict_block_r: int = 8,
+               num_buffers: int = 2, skip_index: bool = True,
+               persistent: bool = False, version_slot: int = 0,
+               visit_budget: int | None = None):
     """words int32[B,16] + RootDictArrays (or a resolved handle) ->
-    (root int32[B,4], source int32[B]), on the words' device.
+    (root int32[B,4], source int32[B]) on the words' device, plus
+    ``flags`` int32[batch_tiles] (``1 + version_slot`` per retired
+    descriptor) when ``persistent=True``.
 
-    A CUDA tensor launches the CUDA kernel (or raises); a CPU tensor runs
-    the plain version. Bit-identical to ``core.stemmer.extract_roots``.
+    A CUDA tensor launches the CUDA kernels (or raises); a CPU tensor runs
+    their plain versions. Bit-identical to ``core.stemmer.extract_roots``
+    in every (residency, match, num_buffers, skip_index, persistent)
+    combination. A handle's pinned residency replaces the residency
+    argument, and its prebuilt tile set of matching dict_block_r is used
+    as it is.
     """
     if match not in MATCHES:
         raise ValueError(f"unknown in-kernel match strategy: {match}")
+    if not 1 <= num_buffers <= MAX_NUM_BUFFERS:
+        raise ValueError(f"num_buffers must be in 1..{MAX_NUM_BUFFERS},"
+                         f" got {num_buffers}")
     if block_b < 1:
         raise ValueError(f"block_b must be >= 1, got {block_b}")
     n_groups = 5 if infix else 2
-    arrays, res = core_stemmer.unwrap_dict(roots, residency)
-    choose_residency(arrays, res, infix=infix)
+    arrays, residency, tiles = core_stemmer.unwrap_dict(roots, residency)
+    residency = choose_residency(arrays, residency, infix=infix)
+    loaded = _loaded_keys(arrays, infix)
+    if residency == "resident" and loaded > MAX_RESIDENT_KEYS:
+        raise ValueError(
+            f"dictionaries too large for residency='resident' ({loaded}"
+            f" keys > {MAX_RESIDENT_KEYS}); use residency='streamed' or"
+            " 'auto'")
+    if words.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no stem_fused path for device {words.device}")
+    on_cuda = words.device.type == "cuda"
     b = words.shape[0]
     if b == 0:  # degenerate batch: nothing to launch
-        return (words.new_zeros((0, 4)), words.new_zeros((0,)))
-    tables = padded_tables(roots, match=match, infix=infix)
-    if words.device.type == "cuda":
-        run = stem_fused_cuda
-    elif words.device.type == "cpu":
-        run = stem_fused_plain
-    else:
-        raise ValueError(f"no stem_fused path for device {words.device}")
-    return run(words, tables, n_groups=n_groups, match=match,
-               block_b=block_b)
+        empty = (words.new_zeros((0, 4)), words.new_zeros((0,)))
+        return empty + (words.new_zeros((0,)),) if persistent else empty
+    bt = -(-b // block_b)
+
+    if residency == "resident":
+        tables = padded_tables(roots, match=match, infix=infix)
+        kern = dict(n_groups=n_groups, match=match, block_b=block_b)
+        if persistent:
+            desc = _descriptors(
+                bt, block_b, torch.zeros(bt, dtype=torch.int32,
+                                         device=words.device), version_slot)
+            run = persistent_resident_cuda if on_cuda \
+                else persistent_resident_plain
+            return run(words, tables, desc, **kern)
+        run = stem_fused_cuda if on_cuda else stem_fused_plain
+        return run(words, tables, **kern)
+
+    # ---- streamed: the visit pre-pass, then chunked launches -------------
+    tiles = _tiles_for(arrays, tiles, dict_block_r).to(words.device)
+    tri_tiles, quad_tiles, _ = tiles.counts
+    keys, valid = _candidates(_pad_words(words, block_b), n_groups)
+    n_visits, visit_idx = _visit_tables(keys, valid, tiles,
+                                        n_groups=n_groups, block_b=block_b,
+                                        skip_index=skip_index)
+    max_bt = _max_chunk_tiles(tiles.n_tiles, visit_budget)
+    kern = dict(n_groups=n_groups, match=match, block_b=block_b,
+                dict_block_r=dict_block_r, num_buffers=num_buffers,
+                tri_tiles=tri_tiles, quad_tiles=quad_tiles)
+    outs = []
+    for c0 in range(0, bt, max_bt):
+        c1 = min(bt, c0 + max_bt)
+        cw = words[c0 * block_b:c1 * block_b]
+        if persistent:
+            desc = _descriptors(c1 - c0, block_b, n_visits[c0:c1],
+                                version_slot)
+            run = persistent_streamed_cuda if on_cuda \
+                else persistent_streamed_plain
+            outs.append(run(cw, tiles.stream, desc, visit_idx[c0:c1], **kern))
+        else:
+            run = stem_streamed_cuda if on_cuda else stem_streamed_plain
+            outs.append(run(cw, tiles.stream, n_visits[c0:c1],
+                            visit_idx[c0:c1], **kern))
+    if len(outs) == 1:
+        return outs[0]
+    return tuple(torch.cat(parts) for parts in zip(*outs))

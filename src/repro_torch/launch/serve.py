@@ -2,6 +2,8 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --workload stemmer --requests 16
   PYTHONPATH=src python -m repro_torch.launch.serve --workload stemmer --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --workload stemmer \
+      --megabatch 4 --persistent
 
 Runs on the CUDA device unless ``--device cpu`` is given; with no CUDA
 device present the default raises instead of falling back to the CPU.
@@ -18,10 +20,15 @@ from repro_torch.serve import DictStore, Engine, StemmerWorkload
 def serve_stemmer(args) -> None:
     d = corpus.build_dictionary(n_tri=1000, n_quad=120, seed=0)
     store = DictStore(stemmer.RootDictArrays.from_rootdict(
-        d, device=args.device), device=args.device)
+        d, device=args.device), dict_block_r=args.dict_block_r,
+        device=args.device)
     eng = Engine(StemmerWorkload(store, block_b=args.block_b,
+                                 dict_block_r=args.dict_block_r,
+                                 num_buffers=args.num_buffers,
+                                 skip_index=not args.full_sweep,
                                  max_inflight=args.inflight,
-                                 megabatch_tiles=args.megabatch))
+                                 megabatch_tiles=args.megabatch,
+                                 persistent=args.persistent))
 
     wpr = args.words_per_request
     words, _, _ = corpus.build_corpus(n_words=args.requests * wpr, seed=1)
@@ -36,7 +43,8 @@ def serve_stemmer(args) -> None:
     print(f"served {args.requests} word-batch requests / {n_words} words in "
           f"{dt:.2f}s ({n_words / dt:.1f} Wps, {rep.ticks} ticks, "
           f"{eng.workload.ticks_launched} launches, dict v{store.version}, "
-          f"super-tile 1x{args.block_b}, megabatch {args.megabatch}, "
+          f"super-tile 1x{args.block_b}, megabatch {args.megabatch}"
+          f"{', persistent' if args.persistent else ''}, "
           f"inflight {args.inflight})")
     for rid in rids[:2]:
         req = eng.result(rid)
@@ -52,8 +60,20 @@ def main(argv=None):
     ap.add_argument("--inflight", type=int, default=2,
                     help="dispatch ring depth: outstanding megakernel"
                          " launches (1 = synchronous tick, overlap off)")
+    ap.add_argument("--dict-block-r", type=int, default=8,
+                    help="streamed dictionary tile height in 128-lane"
+                         " rows; also pins the publish-time tile stream")
+    ap.add_argument("--num-buffers", type=int, default=2,
+                    help="streamed-path copy pipeline depth (1 = no"
+                         " overlap, 2 = double buffering, up to 4)")
+    ap.add_argument("--full-sweep", action="store_true",
+                    help="disable the tile-visit skip index (sweep every"
+                         " dictionary tile; the skip-off baseline)")
     ap.add_argument("--megabatch", type=int, default=1,
                     help="block_b tiles coalesced per launch")
+    ap.add_argument("--persistent", action="store_true",
+                    help="persistent serving kernel: one launch walks a"
+                         " descriptor ring over the megabatch's tiles")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="cuda runs the CUDA kernels; cpu their plain"
                          " PyTorch versions")

@@ -13,11 +13,14 @@ acquire, get, version and two-phase validation):
                    tile in flight
 
 Each version wraps its tables in a ``core.stemmer.ResolvedRootDict``
-whose residency is resolved once at publish time and which caches the
-kernel's padded table layout, so launches never re-pad or re-upload.
-Publishes are two-phase: phase 1 validates the layout every kernel path
-assumes (1-D int32 tables of strictly sorted unique packed 24-bit keys,
-or the single ``[-1]`` empty-table placeholder) and raises
+whose residency is resolved once at publish time (``residency``,
+``infix``); a streamed version with ``dict_block_r`` set also gets its
+tile stream prebuilt then, and a resident one caches the kernels' padded
+table layout, so launches never re-pad or re-upload. Publishes are
+two-phase: phase 1 validates the layout every kernel path assumes (1-D
+int32 tables of strictly sorted unique packed 24-bit keys, or the single
+``[-1]`` empty-table placeholder; a prebuilt tile set of the right shape
+whose boundary tables are its tiles' first and last entries) and raises
 :class:`DictValidationError` with the store untouched; phase 2 is the
 atomic version bump.
 """
@@ -68,9 +71,34 @@ def _validate_table(name: str, t: torch.Tensor) -> None:
 
 def validate_handle(handle: core_stemmer.ResolvedRootDict) -> None:
     """Phase-1 publish validation: binary search and the bank both break
-    silently on tables that are not sorted unique packed keys."""
+    silently on tables that are not sorted unique packed keys, and the
+    streamed sweep on a tile stream whose tiles are unsorted or whose
+    boundary tables are not the tiles' first and last entries."""
+    from repro_torch.kernels import stem_match as sm  # lazy: kernels need core
+
     for name in TABLES:
         _validate_table(name, getattr(handle.arrays, name))
+    tiles = handle.tiles
+    if tiles is None:
+        return
+    stream = tiles.stream.cpu().numpy()
+    n_tiles = sum(tiles.counts)
+    if stream.shape != (n_tiles * tiles.dict_block_r, sm.LANE):
+        raise DictValidationError(
+            f"tile stream shape {stream.shape} != "
+            f"({n_tiles} tiles x {tiles.dict_block_r} rows, {sm.LANE})")
+    flat = stream.reshape(n_tiles, -1)
+    if np.diff(flat, axis=1).min(initial=0) < 0:
+        raise DictValidationError(
+            "tile stream has an internally unsorted tile (sentinel"
+            " padding must keep every tile ascending)")
+    mins, maxs = tiles.mins.cpu().numpy(), tiles.maxs.cpu().numpy()
+    if (mins.shape != (n_tiles,) or maxs.shape != (n_tiles,)
+            or not np.array_equal(mins, flat[:, 0])
+            or not np.array_equal(maxs, flat[:, -1])):
+        raise DictValidationError(
+            "tile boundary tables diverge from the tile stream's"
+            " first/last lanes")
 
 
 @dataclass(frozen=True)
@@ -90,13 +118,21 @@ class DictStore:
 
     Versions start at 0 (the constructor publishes the initial
     dictionary) and only ever grow; every version stays retrievable
-    through :meth:`get`.
+    through :meth:`get`. ``residency`` ("auto" resolves per version),
+    ``infix`` (which tables count toward the resident budget) and
+    ``dict_block_r`` (prebuild the streamed tile stream at publish time)
+    apply to every publish.
     """
 
-    def __init__(self, arrays, *, device=devmod.DEFAULT_DEVICE):
+    def __init__(self, arrays, *, residency: str = "auto", infix: bool = True,
+                 dict_block_r: int | None = None,
+                 device=devmod.DEFAULT_DEVICE):
         self._lock = threading.Lock()       # guards the version table
         self._pub_lock = threading.Lock()   # serialises publishers
         self.device = devmod.resolve(device)
+        self._residency = residency
+        self._infix = infix
+        self._dict_block_r = dict_block_r
         self._versions: dict[int, DictVersion] = {}
         self._current: DictVersion | None = None
         self._next_version = 0
@@ -127,7 +163,9 @@ class DictStore:
                     arrays, device=self.device)
             if isinstance(arrays, core_stemmer.ResolvedRootDict):
                 arrays = arrays.arrays
-            handle = core_stemmer.resolve_dict(arrays.to(self.device))
+            handle = core_stemmer.resolve_dict(
+                arrays.to(self.device), residency=self._residency,
+                infix=self._infix, dict_block_r=self._dict_block_r)
             validate_handle(handle)
             return self._install(handle)
 

@@ -7,13 +7,17 @@ tick of work means is delegated to a :class:`Workload`.
 
 :class:`StemmerWorkload` coalesces queued word-batch requests into
 megabatches of up to ``megabatch_tiles`` ``[block_b, 16]`` tiles, each
-megabatch ONE stemmer-megakernel launch (``ops.extract_roots_fused``). A
-tick is a dispatch/retire pass over a ring of up to ``max_inflight``
-outstanding launches:
+megabatch ONE stemmer-kernel launch (``ops.extract_roots_fused``, or with
+``persistent=True`` the descriptor-ring kernel through
+``ops.extract_roots_persistent``; a streamed dictionary may split a launch
+into visit-budget chunks). A tick is a dispatch/retire pass over a ring of
+up to ``max_inflight`` outstanding launches:
 
   retire    every launch whose results have reached the host is scattered
             back into its requests, after its per-tile checksum is
-            re-derived on the host and compared with the device's;
+            re-derived on the host and compared with the device's (and,
+            persistent, after every completion flag reads 1 + the
+            dictionary version pinned at dispatch);
   dispatch  pending words are packed FIFO into a free slot's pinned host
             staging buffer, copied to the device, launched, and the
             outputs copied back asynchronously into the slot's pinned
@@ -29,8 +33,9 @@ between dispatch and retire stays exact per word. On the CPU the launch
 runs synchronously and a tile is ready as soon as it is dispatched.
 
 Not ported yet (ROADMAP §1): deadlines, admission caps, retries,
-bisection and quarantine (a checksum mismatch raises), the journal, the
-health ladder, the persistent kernel and multi-device launches.
+bisection and quarantine (a checksum or flag mismatch raises), the
+journal, the watchdog and salvage-on-stall, the health ladder and
+multi-device launches.
 """
 from __future__ import annotations
 
@@ -169,11 +174,11 @@ class StemRequest:
 class InflightTile:
     """One dispatched megabatch awaiting retire.
 
-    ``roots``, ``sources`` and ``checksums`` are the slot's host output
-    buffers (pinned on CUDA), filled by asynchronous device-to-host copies;
-    ``event`` is recorded after those copies (None on the CPU, where the
-    launch is synchronous). The host reads the buffers only once the event
-    has completed.
+    ``roots``, ``sources``, ``checksums`` and, for a persistent launch,
+    ``flags`` are the slot's host output buffers (pinned on CUDA), filled
+    by asynchronous device-to-host copies; ``event`` is recorded after
+    those copies (None on the CPU, where the launch is synchronous). The
+    host reads the buffers only once the event has completed.
     """
 
     segments: list             # [(req, req_start, tile_start, count)]
@@ -182,6 +187,7 @@ class InflightTile:
     roots: torch.Tensor        # host int32 [rows, 4]
     sources: torch.Tensor      # host int32 [rows]
     checksums: torch.Tensor    # host int32 [rows // block_b]
+    flags: torch.Tensor | None = None  # host int32 [rows // block_b]
     event: object = None       # torch.cuda.Event | None
 
     def is_ready(self) -> bool:
@@ -200,12 +206,20 @@ class StemmerWorkload:
     ``max_inflight=1`` degenerates to the synchronous dispatch-then-retire
     tick; ``megabatch_tiles=1`` makes each launch one ``block_b`` tile. A
     partially filled megabatch launches at the next power-of-two tile
-    count (capped at ``megabatch_tiles``). Runs on the store's device,
-    with the megakernel's defaults (infix processing, sorted search).
+    count (capped at ``megabatch_tiles``). Runs on the store's device.
+    ``infix``, ``match``, ``dict_block_r``, ``num_buffers`` and
+    ``skip_index`` are passed to every launch (the last three tune the
+    streamed layout, which the store's residency selects).
+    ``persistent=True`` launches the descriptor-ring kernel instead, and
+    retire checks its completion flags against the version pinned at
+    dispatch before it scatters.
     """
 
-    def __init__(self, store, *, block_b: int = 256, max_inflight: int = 2,
-                 megabatch_tiles: int = 1):
+    def __init__(self, store, *, block_b: int = 256, infix: bool = True,
+                 match: str = "bsearch", dict_block_r: int = 8,
+                 num_buffers: int = 2, skip_index: bool = True,
+                 max_inflight: int = 2, megabatch_tiles: int = 1,
+                 persistent: bool = False):
         if max_inflight < 1:
             raise ValueError(f"max_inflight must be >= 1, got {max_inflight}")
         if megabatch_tiles < 1:
@@ -214,6 +228,12 @@ class StemmerWorkload:
         self.store = store
         self.device = store.device
         self.block_b = block_b
+        self.infix = infix
+        self.match = match
+        self.dict_block_r = dict_block_r
+        self.num_buffers = num_buffers
+        self.skip_index = skip_index
+        self.persistent = persistent
         self.max_inflight = max_inflight
         self.megabatch_tiles = megabatch_tiles
         self.launch_b = block_b * megabatch_tiles
@@ -221,6 +241,7 @@ class StemmerWorkload:
         self.ring: list[InflightTile] = []
         self.ticks_launched = 0    # megakernel launches (not engine ticks)
         self.checksum_tiles = 0    # tiles whose checksum retire verified
+        self.flag_tiles = 0        # tiles whose completion flag it verified
         # one reusable set of host buffers per ring slot: dispatch fills
         # the staging rows in place instead of allocating per launch
         pin = self.device.type == "cuda"
@@ -231,7 +252,7 @@ class StemmerWorkload:
         self._staging = [host(self.launch_b, ab.MAXLEN)
                          for _ in range(max_inflight)]
         self._outputs = [(host(self.launch_b, 4), host(self.launch_b),
-                          host(megabatch_tiles))
+                          host(megabatch_tiles), host(megabatch_tiles))
                          for _ in range(max_inflight)]
         self._free_slots = list(range(max_inflight))
 
@@ -341,25 +362,34 @@ class StemmerWorkload:
         rows = self._bucket_rows(fill)
         tile[fill:rows] = 0             # padded words must stay empty
         words = staging[:rows].to(self.device, non_blocking=True)
-        root, source, checksums = ops.extract_roots_fused(
-            words, dv.handle, block_b=self.block_b, with_checksum=True,
-            device=self.device)
-        roots_h, sources_h, sums_h = self._outputs[slot]
-        roots_h, sources_h = roots_h[:rows], sources_h[:rows]
-        sums_h = sums_h[:rows // self.block_b]
+        kw = dict(infix=self.infix, match=self.match, block_b=self.block_b,
+                  dict_block_r=self.dict_block_r,
+                  num_buffers=self.num_buffers, skip_index=self.skip_index,
+                  with_checksum=True, device=self.device)
+        if self.persistent:
+            root, source, flags, checksums = ops.extract_roots_persistent(
+                words, dv.handle, version_slot=dv.version, **kw)
+        else:
+            root, source, checksums = ops.extract_roots_fused(
+                words, dv.handle, **kw)
+            flags = None
+        tiles = rows // self.block_b
+        roots_h, sources_h, sums_h, flags_h = self._outputs[slot]
+        copies = [(roots_h[:rows], root), (sources_h[:rows], source),
+                  (sums_h[:tiles], checksums)]
+        if flags is not None:
+            copies.append((flags_h[:tiles], flags))
+        on_cuda = self.device.type == "cuda"
+        for dst, src in copies:
+            dst.copy_(src, non_blocking=on_cuda)
         event = None
-        if self.device.type == "cuda":
-            roots_h.copy_(root, non_blocking=True)
-            sources_h.copy_(source, non_blocking=True)
-            sums_h.copy_(checksums, non_blocking=True)
+        if on_cuda:
             event = torch.cuda.Event()
             event.record()
-        else:
-            roots_h.copy_(root)
-            sources_h.copy_(source)
-            sums_h.copy_(checksums)
-        self.ring.append(InflightTile(placed, dv.version, slot, roots_h,
-                                      sources_h, sums_h, event))
+        self.ring.append(InflightTile(
+            placed, dv.version, slot, roots_h[:rows], sources_h[:rows],
+            sums_h[:tiles], flags_h[:tiles] if flags is not None else None,
+            event))
         self.ticks_launched += 1
 
     # -- retire side -------------------------------------------------------
@@ -377,9 +407,18 @@ class StemmerWorkload:
         return n
 
     def _retire(self, entry: InflightTile) -> None:
-        """Verify one launch's checksums and scatter its results back
-        (blocks until its copies have landed)."""
+        """Verify one launch's completion flags and checksums and scatter
+        its results back (blocks until its copies have landed)."""
         entry.wait()
+        if entry.flags is not None:
+            # every descriptor of the persistent launch must have retired
+            # under the version pinned at dispatch (0 = never processed)
+            flags = entry.flags.numpy()
+            if not (flags == 1 + entry.version).all():
+                raise RuntimeError(
+                    "persistent launch retired with bad completion flags:"
+                    f" expected {1 + entry.version}, got {flags.tolist()}")
+            self.flag_tiles += flags.shape[0]
         roots = entry.roots.numpy()
         sources = entry.sources.numpy()
         want = entry.checksums.numpy()

@@ -39,6 +39,17 @@ def test_cli_serves_on_cpu():
                      r" megabatch 1, inflight 2\)$", p.stdout, re.M), p.stdout
 
 
+def test_cli_persistent_and_streamed_flags_on_cpu():
+    p = _run("-m", "repro_torch.launch.serve", "--workload", "stemmer",
+             "--device", "cpu", "--requests", "4", "--words-per-request",
+             "64", "--megabatch", "2", "--persistent", "--dict-block-r", "4",
+             "--num-buffers", "1", "--full-sweep")
+    assert p.returncode == 0, p.stderr
+    assert re.search(r"^served 4 word-batch requests / 256 words in .*"
+                     r" launches, dict v0, super-tile 1x256, megabatch 2,"
+                     r" persistent, inflight 2\)$", p.stdout, re.M), p.stdout
+
+
 def test_cli_default_device_without_cuda_raises():
     _no_cuda()
     p = _run("-m", "repro_torch.launch.serve", "--workload", "stemmer",

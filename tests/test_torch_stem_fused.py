@@ -183,13 +183,24 @@ def test_from_numpy_round_trip(dicts):
 
 
 def test_streamed_residency_is_not_ported(dicts, words):
+    """Streamed residency, and "auto" past MAX_RESIDENT_KEYS, give the
+    reference's roots; "resident" past the budget still raises."""
     da, tda = dicts
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tops.extract_roots_fused(words[:8], tda, residency="streamed",
-                                 device="cpu")
+    want_r, want_s = rstemmer.extract_roots(jnp.asarray(words[:300]), da,
+                                            backend="sorted")
+    got_r, got_s = tops.extract_roots_fused(words[:300], tda,
+                                            residency="streamed",
+                                            device="cpu")
+    np.testing.assert_array_equal(got_r.numpy(), np.asarray(want_r))
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
     big = tcorpus.grow_root_arrays(tda, 70_000)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tops.extract_roots_fused(words[:8], big, device="cpu")
+    big_ref = rcorpus.grow_root_arrays(da, 70_000)
+    assert tsf.choose_residency(big) == "streamed"
+    want_r, want_s = rstemmer.extract_roots(jnp.asarray(words[:300]), big_ref,
+                                            backend="sorted")
+    got_r, got_s = tops.extract_roots_fused(words[:300], big, device="cpu")
+    np.testing.assert_array_equal(got_r.numpy(), np.asarray(want_r))
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
     with pytest.raises(ValueError, match="too large"):
         tops.extract_roots_fused(words[:8], big, residency="resident",
                                  device="cpu")

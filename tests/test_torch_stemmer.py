@@ -112,7 +112,7 @@ def test_resolved_handle_pins_residency(dicts):
     _, _, tda = dicts
     h = tstemmer.resolve_dict(tda)
     assert h.residency == "resident"
-    assert tstemmer.unwrap_dict(h) == (tda, "resident")
+    assert tstemmer.unwrap_dict(h) == (tda, "resident", None)
     with pytest.raises(ValueError, match="conflicts"):
         tstemmer.unwrap_dict(h, "streamed")
     with pytest.raises(ValueError, match="unknown backend"):
