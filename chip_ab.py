@@ -1,0 +1,119 @@
+#!/usr/bin/env python3
+"""Times the stemmer kernels of two checkouts of the port, in turns, on one
+CUDA card.
+
+    python3 chip_ab.py OTHER_CHECKOUT [--block-b N]
+
+For the checkouts (other, this, this, other), in that order, a subprocess
+imports ``repro_torch`` from that checkout's ``src``, builds its kernels
+(into that checkout's ``build/``) and times K1, K2 and both K3 variants at
+``block_b = N`` (default 256) on 4096 and 1,048,576 corpus words, with
+``chip_smoke.py``'s timers and dictionaries: the realistic dictionary for
+the resident kernels, the 262,144-key grown one (``dict_block_r = 8``)
+for the streamed ones. Prints one line a run, a table of both checkouts'
+times, and the card's name and power limit. Needs one CUDA card; exits
+non-zero without one.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import chip_smoke as cs
+
+SIZES = (4096, 1 << 20)
+
+
+def child(tree: Path, block_b: int) -> None:
+    """Time one checkout's kernels; print one JSON line of times."""
+    sys.path.insert(0, str(tree / "src"))
+    import numpy as np
+    import torch
+
+    from repro_torch.core import corpus, stemmer
+    from repro_torch.kernels import build
+    from repro_torch.kernels import stem_fused as sf
+    from repro_torch.kernels import stem_match as sm
+
+    check_root = Path(sf.__file__).resolve().parents[3]
+    cs.check(check_root == tree, f"imported {check_root}, not {tree}")
+    build_s, _ = build.build_cuda()
+    dev = torch.device("cuda")
+    realistic = stemmer.RootDictArrays.from_rootdict(
+        corpus.build_dictionary(), device=dev)
+    grown = corpus.grow_root_arrays(realistic, cs.GROWN_KEYS)
+    tables = sf.padded_tables(realistic, match="bsearch", infix=True)
+    tiles = sm.build_dict_tiles(grown.tri, grown.quad, grown.bi, 8)
+    words = torch.from_numpy(np.concatenate([
+        c.words for c in corpus.stream_corpus_words(
+            max(SIZES), seed=0, chunk_words=65536)])).to(dev)
+    out = {"tree": str(tree), "block_b": block_b, "build_s": build_s}
+    for b in SIZES:
+        w = words[:b]
+        bt = -(-b // block_b)
+        n_visits, visit_idx = cs.visit_tables(sf, w, tiles, infix=True,
+                                              block_b=block_b)
+        res = dict(n_groups=5, match="bsearch", block_b=block_b)
+        stm = dict(res, dict_block_r=8, num_buffers=2,
+                   tri_tiles=tiles.counts[0], quad_tiles=tiles.counts[1])
+        zeros = torch.zeros(bt, dtype=torch.int32, device=dev)
+        res_desc = sf._descriptors(bt, block_b, zeros, 0)
+        str_desc = sf._descriptors(bt, block_b, n_visits, 0)
+        runs = {
+            "K1": lambda: sf.stem_fused_cuda(w, tables, **res),
+            "K2": lambda: sf.stem_streamed_cuda(w, tiles.stream, n_visits,
+                                                visit_idx, **stm),
+            "K3 resident": lambda: sf.persistent_resident_cuda(
+                w, tables, res_desc, **res),
+            "K3 streamed": lambda: sf.persistent_streamed_cuda(
+                w, tiles.stream, str_desc, visit_idx, **stm),
+        }
+        n = 200 if b == min(SIZES) else 20
+        for name, fn in runs.items():
+            out[f"{name} B={b}"] = cs.device_ms(fn, n, cs.call_ms(fn, n))
+    print(json.dumps(out))
+
+
+def main() -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("other", type=Path)
+    p.add_argument("--block-b", type=int, default=cs.BLOCK_B)
+    p.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    args = p.parse_args()
+    if args.child:
+        child(args.other.resolve(), args.block_b)
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_ab: no CUDA device; nothing to run", file=sys.stderr)
+        return 1
+    this = Path(__file__).resolve().parent
+    other = args.other.resolve()
+    results = []
+    for label, tree in (("other", other), ("this", this), ("this", this),
+                        ("other", other)):
+        run = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                              str(tree), "--block-b", str(args.block_b),
+                              "--child"], capture_output=True, text=True)
+        if run.returncode:
+            print(run.stdout + run.stderr, file=sys.stderr)
+            raise RuntimeError(f"chip_ab: the run of {tree} failed")
+        row = json.loads(run.stdout.strip().splitlines()[-1])
+        row["label"] = label
+        results.append(row)
+        print(f"[ab] {label} ({tree}): {json.dumps(row)}")
+    keys = [k for k in results[0] if "B=" in k]
+    print(f"[ab] ms on the card at block_b={args.block_b}"
+          " (other, this, this, other):")
+    for k in keys:
+        print(f"[ab] {k}: " + ", ".join(f"{r[k]:.6f}" for r in results))
+    print(cs.card_line())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

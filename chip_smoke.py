@@ -6,22 +6,44 @@
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
 drives its main paths — root extraction served through
 ``repro_torch.serve.Engine`` + ``StemmerWorkload`` onto the stemmer
-kernels — at a realistic size. Phases:
+kernels, text served through ``TextAnalysisWorkload`` onto the text front
+end and the stemmer kernels, and a corpus index built through the stemmer
+kernels and the postings kernel — at a realistic size. Phases:
 
   1. card      name and power limit (nvidia-smi)
   2. build     nvcc build of every kernel library, with its seconds
   3. K1        the resident megakernel against its plain PyTorch version
-               on the card, bit for bit, over infix x match x block_b x
-               batch sizes, on the realistic dictionary (shared-memory
-               tables) and on a ~60K-key grown dictionary (global memory)
+               on the card, bit for bit, over infix x match x block_b
+               {64, ..., 512, 1024, 2048} x batch sizes, on the realistic
+               dictionary (shared-memory tables) and on a ~60K-key grown
+               dictionary (global memory)
   4. K2        the streamed megakernel against its plain version, bit for
                bit: the realistic dictionary forced to streamed and a
                262,144-key grown one, x infix x match x num_buffers
                {1, 2, 4} x skip_index x dict_block_r {1, 8, 16} x B {0, 1,
-               257, 65536} (the full grid)
+               257, 65536} (the full grid), then block_b 1024 and 2048
   5. K3        both persistent variants against their plain versions,
                roots, sources and flags, version_slot {0, 5}, the streamed
-               one through visit-budget chunks
+               one through visit-budget chunks, block_b 256, 1024, 2048
+  5b. K4       the text front end against its plain version, identical
+               rows: documents with every clitic, function word, mark and
+               letter variant, over-long words, empty and punctuation-only
+               documents, at block_w {128, 256, 1024, 2048}; a
+               one-codepoint tile; an index chunk's tile at the index
+               path's block_w 2048; a ~7M-codepoint tile of 1,048,576
+               words, whose rows equal the word stream's
+  5c. K5       the postings kernel against its plain version, identical
+               hist and rank, at block_w {128, 1024, 2048, 8192}: all ids
+               dropped, one root, the realistic vocabulary's ids; the
+               overflow guard raises
+  5d. index    build_corpus_index over 1,048,576 corpus words (block_b =
+               block_w = 2048), launches counted from zero, bit-identical
+               to the host build; the same corpus from text through
+               build_root_index_text, equal to it
+  5e. text     256 requests of 16 documents of 256 words through the
+               engine with the kernel front end, resident and persistent,
+               every request equal to the host front end and the plain
+               stemmer
   6. serve     1,048,576 corpus words in 256 requests of 4096 through the
                engine, three ways, each run's kernel launches counted from
                zero: resident (K1); persistent on the 262,144-key
@@ -35,10 +57,12 @@ kernels — at a realistic size. Phases:
                streams them through K2
   8. accuracy  Table-6 root recall through the megakernel, exactly
   9. times     each kernel's device time with CUDA events at 4096 and
-               1,048,576 words, its wall time per call with the host's
-               share, the plain version's wall time per call, the tile
-               visits of the streamed kernels and their host pre-pass, and
-               a bound
+               1,048,576 words (K4: a served request's tile and the
+               1,048,576-word tile; K5: an index chunk of 131,072 words and
+               1,048,576 words, with torch.sort of the same keys beside
+               it), its wall time per call with the host's share, the
+               plain version's wall time per call, the tile visits of the
+               streamed kernels and their host pre-pass, and a bound
 
 Imports nothing of jax or of the ``repro`` package. Any failed check
 raises, so the script exits non-zero and prints no result line; it also
@@ -73,12 +97,39 @@ SERVE_WORDS = 1 << 20
 SERVE_REQUEST_WORDS = 4096
 GROWN_KEYS = 262_144
 K1_BATCHES = (0, 1, 257, 65536)
-K1_BLOCKS = (64, 128, 256, 512)
+K1_BLOCKS = (64, 128, 256, 512, 1024, 2048)
 K2_BATCHES = (0, 1, 257, 65536)
 K2_DICT_BLOCK_RS = (1, 8, 16)
 K2_NUM_BUFFERS = (1, 2, 4)
 K3_BATCHES = (1, 257, 65536)
 K3_VERSION_SLOTS = (0, 5)
+WIDE_BLOCKS = (1024, 2048)          # the block_b repair: tiles > 512 threads
+K4_BLOCK_WS = (128, 256, 1024, 2048)
+K5_BLOCK_WS = (128, 1024, 2048, 8192)
+INDEX_WORDS = 1 << 20
+INDEX_CHUNK = 1 << 17
+INDEX_WORDS_PER_DOC = 512
+INDEX_BLOCK = 2048                  # block_b = block_w of the index path
+TEXT_REQUESTS = 256
+TEXT_DOCS_PER_REQUEST = 16
+TEXT_WORDS_PER_DOC = 256
+TEXT_CHAR_BLOCK = 2048
+# int32 operations of the text front end (K4): per codepoint of a word's
+# window (classify ~4, the 20-entry shift register 20, count 2) and per
+# word row with a word (packed key 9, 7 probes x 9, proclitic scan ~50,
+# the three tail reads 60, enclitic scan ~50, the 16 shifted outputs 80);
+# an empty row stores zeros (~5)
+K4_OPS_PER_CHAR = 26
+K4_OPS_PER_WORD = 9 + 7 * 9 + 50 + 60 + 50 + 80
+K4_OPS_PER_EMPTY_ROW = 5
+# int32 operations the postings function (K5) needs, whatever algorithm
+# computes it: per tile a counting pass over its words (read an id, bump
+# its bin), an exclusive scan of the n_roots + 1 bins, and each word's
+# stable rank (its bin's start and the equal ids before it): about 4 a
+# word and 2 a bin, O(block_w + n_roots) a tile. The kernel's own work
+# (a bitonic network and bisections) is more; it is not the bound.
+K5_OPS_PER_WORD = 4
+K5_OPS_PER_BIN = 2
 BLOCK_B = 256
 DEVICE = "cuda"
 
@@ -280,6 +331,36 @@ def k2_phase(sf, sm, ops, dicts, words):
                   f" {tiles.n_tiles} tiles of {dict_block_r} rows): infix x"
                   f" skip_index x B in {K2_BATCHES} x match x num_buffers in"
                   f" {K2_NUM_BUFFERS} identical")
+    # the block_b repair: tiles wider than a block of threads
+    for dict_name, arrays in dicts:
+        tiles = sm.build_dict_tiles(arrays.tri, arrays.quad, arrays.bi, 8)
+        for infix in (True, False):
+            n_groups = 5 if infix else 2
+            w = words[:max(K2_BATCHES)]
+            for block_b in WIDE_BLOCKS:
+                n_visits, visit_idx = visit_tables(sf, w, tiles, infix=infix,
+                                                   block_b=block_b)
+                kern = dict(n_groups=n_groups, block_b=block_b,
+                            dict_block_r=8, tri_tiles=tiles.counts[0],
+                            quad_tiles=tiles.counts[1])
+                want = sf.stem_streamed_plain(w, tiles.stream, n_visits,
+                                              visit_idx, match="bsearch",
+                                              num_buffers=2, **kern)
+                for match in ("bsearch", "bank"):
+                    for nb in K2_NUM_BUFFERS:
+                        got = sf.stem_streamed_cuda(
+                            w, tiles.stream, n_visits, visit_idx,
+                            match=match, num_buffers=nb, **kern)
+                        torch.cuda.synchronize()
+                        bad = same(got, want)
+                        worst = max(worst, max_err(got, want))
+                        cases += 1
+                        check(bad == 0, f"K2 vs plain: {bad} mismatches"
+                              f" ({dict_name}, block_b={block_b},"
+                              f" infix={infix}, match={match},"
+                              f" num_buffers={nb})")
+        print(f"[K2] {dict_name} dict, block_b in {WIDE_BLOCKS} x infix x"
+              f" match x num_buffers, B={max(K2_BATCHES)}: identical")
     print(f"[K2] full grid: {cases} launches identical to the plain version,"
           f" max_abs_err {worst} ({time.perf_counter() - t0:.1f} s)")
     return worst
@@ -295,15 +376,17 @@ def k3_phase(sf, ops, resident_dicts, streamed_dicts, words):
             n_groups = 5 if infix else 2
             for match in ("bsearch", "bank"):
                 tables = sf.padded_tables(arrays, match=match, infix=infix)
-                for b in K3_BATCHES:
+                for b, block_b in ([(b, BLOCK_B) for b in K3_BATCHES]
+                                   + [(max(K3_BATCHES), bb)
+                                      for bb in WIDE_BLOCKS]):
                     w = words[:b]
-                    bt = -(-b // BLOCK_B)
+                    bt = -(-b // block_b)
                     zeros = torch.zeros(bt, dtype=torch.int32, device=w.device)
                     for version_slot in K3_VERSION_SLOTS:
-                        desc = sf._descriptors(bt, BLOCK_B, zeros,
+                        desc = sf._descriptors(bt, block_b, zeros,
                                                version_slot)
                         kern = dict(n_groups=n_groups, match=match,
-                                    block_b=BLOCK_B)
+                                    block_b=block_b)
                         got = sf.persistent_resident_cuda(w, tables, desc,
                                                           **kern)
                         want = sf.persistent_resident_plain(w, tables, desc,
@@ -316,19 +399,23 @@ def k3_phase(sf, ops, resident_dicts, streamed_dicts, words):
                                                 .all()),
                               f"K3 resident vs plain: {bad} mismatches"
                               f" ({dict_name}, infix={infix}, match={match},"
-                              f" B={b}, version_slot={version_slot})")
+                              f" B={b}, block_b={block_b},"
+                              f" version_slot={version_slot})")
         print(f"[K3] resident, {dict_name} dict ({arrays.n_keys} keys):"
-              f" infix x match x B in {K3_BATCHES} x version_slot in"
+              f" infix x match x B in {K3_BATCHES} (and block_b in"
+              f" {WIDE_BLOCKS} at B={max(K3_BATCHES)}) x version_slot in"
               f" {K3_VERSION_SLOTS}: roots, sources, flags identical")
     for dict_name, arrays in streamed_dicts:
         n_tiles = sf.dict_tile_count(arrays, 8)
         budget = 64 * n_tiles                     # chunks of 64 batch tiles
         for infix in (True, False):
             for match in ("bsearch", "bank"):
-                for b in K3_BATCHES:
+                for b, block_b in ([(b, BLOCK_B) for b in K3_BATCHES]
+                                   + [(max(K3_BATCHES), bb)
+                                      for bb in WIDE_BLOCKS]):
                     w = words[:b]
                     for version_slot in K3_VERSION_SLOTS:
-                        kw = dict(infix=infix, match=match, block_b=BLOCK_B,
+                        kw = dict(infix=infix, match=match, block_b=block_b,
                                   residency="streamed", persistent=True,
                                   version_slot=version_slot,
                                   visit_budget=budget)
@@ -345,21 +432,275 @@ def k3_phase(sf, ops, resident_dicts, streamed_dicts, words):
                         check(bad == 0 and bool((got[2] == 1 + version_slot)
                                                 .all())
                               and chunks == sf.planned_launches(
-                                  b, arrays, block_b=BLOCK_B,
+                                  b, arrays, block_b=block_b,
                                   residency="streamed", persistent=True,
                                   visit_budget=budget),
                               f"K3 streamed vs plain: {bad} mismatches,"
                               f" {chunks} launches ({dict_name},"
                               f" infix={infix}, match={match}, B={b},"
+                              f" block_b={block_b},"
                               f" version_slot={version_slot})")
         print(f"[K3] streamed, {dict_name} dict ({arrays.n_keys} keys,"
               f" {n_tiles} tiles of 8 rows, visit_budget {budget}: 64 batch"
-              f" tiles a launch): infix x match x B in {K3_BATCHES} x"
+              f" tiles a launch): infix x match x B in {K3_BATCHES} (and"
+              f" block_b in {WIDE_BLOCKS} at B={max(K3_BATCHES)}) x"
               f" version_slot in {K3_VERSION_SLOTS}: roots, sources, flags"
               " identical")
     print(f"[K3] {cases} launches identical to the plain versions,"
           f" max_abs_err {worst} ({time.perf_counter() - t0:.1f} s)")
     return worst
+
+
+def k4_phase(tf, tn, docs, chunk_tile, big_tile, big_words):
+    """The text front end against its plain version on the card, identical
+    rows; the 1M-word tile's rows also equal the word stream's."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    worst, cases = 0, 0
+    chars, _, _ = tn.coalesce_docs(docs)
+    n_host = sum(len(tn.tokenize_py(d)) for d in docs)
+    tiles = [("documents", torch.from_numpy(chars).to(DEVICE), K4_BLOCK_WS),
+             ("one codepoint", torch.tensor([0x0628], dtype=torch.int32,
+                                            device=DEVICE), K4_BLOCK_WS),
+             ("index chunk", chunk_tile, (INDEX_BLOCK,)),
+             ("1M words", big_tile, (128,))]
+    for name, tile, block_ws in tiles:
+        for block_w in block_ws:
+            geo = tn.segment_geometry(tile, block_w=block_w)
+            got = tf.text_frontend_cuda(tile, geo.starts, geo.lens,
+                                        block_w=block_w)
+            torch.cuda.synchronize()
+            want = tf.text_frontend_plain(tile, geo.starts, geo.lens,
+                                          block_w=block_w)
+            bad = same((got,), (want,))
+            worst = max(worst, max_err((got,), (want,)))
+            cases += 1
+            check(bad == 0, f"K4 vs plain: {bad} rows differ ({name},"
+                  f" block_w={block_w})")
+            n = int(geo.n_words)
+            if name == "documents":
+                want_rows = np.concatenate([tn.analyze_text_py(d)[0]
+                                            for d in docs])
+                check(n == n_host and np.array_equal(
+                    got[:n].cpu().numpy(), want_rows),
+                    "K4 rows differ from the host front end")
+            if name == "1M words":
+                check(n == big_words.shape[0] and torch.equal(
+                    got[:n], big_words), "the 1M-word tile's rows differ"
+                    " from the word stream's")
+            print(f"[K4] {name}: {tile.shape[0]} codepoints, {n} words,"
+                  f" {geo.starts.shape[0]} rows, block_w={block_w}:"
+                  " identical to the plain version")
+    print(f"[K4] {cases} launches identical to the plain version,"
+          f" max_abs_err {worst} ({time.perf_counter() - t0:.1f} s)")
+    return worst
+
+
+def k5_phase(pk, real_ids, n_roots):
+    """The postings kernel against its plain version on the card."""
+    import torch
+
+    t0 = time.perf_counter()
+    worst, cases = 0, 0
+    w = real_ids.shape[0]
+    cases_ids = (("all dropped", torch.full_like(real_ids, n_roots)),
+                 ("one root", torch.zeros_like(real_ids)),
+                 ("realistic vocabulary", real_ids))
+    for block_w in K5_BLOCK_WS:
+        for name, ids in cases_ids:
+            tiles = pk.pad_ids(ids, n_roots=n_roots, block_w=block_w)
+            got = pk.postings_cuda(tiles, n_roots=n_roots, block_w=block_w)
+            torch.cuda.synchronize()
+            want = pk.postings_plain(tiles, n_roots=n_roots, block_w=block_w)
+            bad = same(got, want)
+            worst = max(worst, max_err(got, want))
+            cases += 1
+            check(bad == 0, f"K5 vs plain: {bad} differ ({name},"
+                  f" block_w={block_w})")
+        print(f"[K5] block_w={block_w}: {w} ids x {{all dropped, one root,"
+              f" realistic vocabulary of {n_roots}}}: hist and rank identical")
+    try:
+        pk.postings(real_ids, n_roots=1 << 22, block_w=1024)
+    except ValueError as e:
+        check("overflow" in str(e), f"unexpected guard message: {e}")
+        print(f"[K5] overflow guard raises: {e}")
+    else:
+        check(False, "the int32 overflow guard did not raise")
+    print(f"[K5] {cases} launches identical to the plain version,"
+          f" max_abs_err {worst} ({time.perf_counter() - t0:.1f} s)")
+    return worst
+
+
+def index_phase(ops, ix, corpus, tn, arrays, table):
+    """The corpus index over 1M words, words path then text path, launches
+    counted from zero for each; bit-identical to the host build."""
+    import numpy as np
+    import torch
+
+    def stream():
+        return corpus.stream_corpus_words(
+            INDEX_WORDS, seed=0, chunk_words=INDEX_CHUNK,
+            words_per_doc=INDEX_WORDS_PER_DOC, table=table)
+
+    kw = dict(block_b=INDEX_BLOCK, block_w=INDEX_BLOCK, device=DEVICE)
+    ix.build_corpus_index(corpus.stream_corpus_words(
+        INDEX_CHUNK, seed=1, chunk_words=INDEX_CHUNK, table=table),
+        arrays, **kw)                                       # warm-up
+    # the corpus is made first (set-up), so both paths time the same work:
+    # per chunk the device build, the n_postings sync, the copies back,
+    # and the merge
+    t = time.perf_counter()
+    chunks = list(stream())
+    make_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    ops.reset_dispatch_count()
+    t = time.perf_counter()
+    idx = ix.build_corpus_index(iter(chunks), arrays, **kw)
+    torch.cuda.synchronize()
+    words_s = time.perf_counter() - t
+    launches = {w.__name__: w.launches for w in ops.CUDA_WRAPPERS
+                if w.launches}
+    n_chunks = INDEX_WORDS // INDEX_CHUNK
+    check(launches == {"stem_fused_cuda": n_chunks,
+                       "postings_cuda": n_chunks},
+          f"index launches {launches}, want K1 and K5 once a chunk")
+    vocab = ix.build_vocab(arrays)
+    parts = []
+    for ch in chunks:
+        ids = ix.host_root_ids(ch.words, arrays, vocab)
+        parts.append(ix.IndexPartial(*ix.host_index(
+            ids, ch.doc_ids.astype(np.int32), ch.positions, len(vocab))))
+    want = ix.merge_partials(parts, vocab)
+    for name in ("counts", "offsets", "docs", "positions"):
+        check(np.array_equal(getattr(idx, name), getattr(want, name)),
+              f"index {name} differ from the host build")
+    check(idx.n_postings > INDEX_WORDS // 2, "the corpus must be indexable")
+    print(f"[index] {INDEX_WORDS} words in {n_chunks} chunks through"
+          f" build_corpus_index in {words_s:.6f} s"
+          f" ({INDEX_WORDS / words_s:.0f} words/s, launches {launches};"
+          f" making the corpus, not timed, {make_s:.6f} s),"
+          f" {idx.n_postings} postings over {int((idx.counts > 0).sum())}"
+          f" roots, bit-identical to the host build")
+
+    # the same corpus from text, chunk by chunk
+    docs_chunks = []
+    for doc0, docs in corpus.stream_corpus_docs(
+            INDEX_WORDS, seed=0, chunk_words=INDEX_CHUNK,
+            words_per_doc=INDEX_WORDS_PER_DOC, table=table):
+        chars, _, byte_off = tn.coalesce_docs(docs)
+        docs_chunks.append((doc0, chars, byte_off,
+                            sum(len(d.encode("utf-8")) for d in docs)))
+    text_kw = dict(block_w_text=INDEX_BLOCK, **kw)
+    ops.build_root_index_text(docs_chunks[0][1], arrays, vocab,
+                              docs_chunks[0][2], doc0=docs_chunks[0][0],
+                              **text_kw)                    # warm-up
+    torch.cuda.synchronize()
+    ops.reset_dispatch_count()
+    t = time.perf_counter()
+    parts = []
+    for doc0, chars, byte_off, _ in docs_chunks:
+        counts, docs, poss, n_post = ops.build_root_index_text(
+            chars, arrays, vocab, byte_off, doc0=doc0, **text_kw)
+        n = int(n_post)
+        parts.append(ix.IndexPartial(counts.cpu().numpy().astype(np.int64),
+                                     docs[:n].cpu().numpy(),
+                                     poss[:n].cpu().numpy()))
+    text_idx = ix.merge_partials(parts, vocab)
+    torch.cuda.synchronize()
+    text_s = time.perf_counter() - t
+    text_launches = {w.__name__: w.launches for w in ops.CUDA_WRAPPERS
+                     if w.launches}
+    check(text_launches == {"text_frontend_cuda": n_chunks,
+                            "stem_fused_cuda": n_chunks,
+                            "postings_cuda": n_chunks},
+          f"text index launches {text_launches}")
+    for name in ("counts", "offsets", "docs", "positions"):
+        check(np.array_equal(getattr(text_idx, name), getattr(idx, name)),
+              f"text-path index {name} differ from the words path")
+    n_bytes = sum(c[3] for c in docs_chunks)
+    print(f"[index] the same corpus from text ({n_bytes} bytes, block_w_text"
+          f" {INDEX_BLOCK}) through build_root_index_text, the syncs, the"
+          f" copies back and the merge in {text_s:.6f} s"
+          f" ({INDEX_WORDS / text_s:.0f} words/s, {n_bytes / text_s:.0f}"
+          f" B/s, launches {text_launches}), equal to the words path")
+    return launches, words_s, text_s
+
+
+def text_serve_phase(ops, stemmer, tn, arrays, docs, *,
+                     persistent: bool):
+    """Serve the documents through Engine + TextAnalysisWorkload with the
+    kernel front end (after a warm-up), launch counters set to 0 just
+    before and read just after; every request equals the host front end
+    and the plain stemmer."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import DictStore, Engine, TextAnalysisWorkload
+
+    per = TEXT_DOCS_PER_REQUEST
+    payloads = [docs[i * per:(i + 1) * per] for i in range(TEXT_REQUESTS)]
+
+    def serve(batch):
+        wl = TextAnalysisWorkload(DictStore(arrays, device=DEVICE),
+                                  block_b=BLOCK_B, megabatch_tiles=16,
+                                  max_inflight=2, persistent=persistent,
+                                  char_block=TEXT_CHAR_BLOCK,
+                                  frontend="kernel")
+        eng = Engine(wl)
+        t = time.perf_counter()
+        rids = [eng.submit(p) for p in batch]
+        t_admit = time.perf_counter() - t
+        rep = eng.run_until_drained(max_ticks=100_000)
+        torch.cuda.synchronize()
+        return eng, rids, rep, time.perf_counter() - t, t_admit
+
+    serve(payloads[:8])                                     # warm-up
+    ops.reset_dispatch_count()
+    eng, rids, rep, serve_s, admit_s = serve(payloads)
+    launches = {w.__name__: w.launches for w in ops.CUDA_WRAPPERS
+                if w.launches}
+    reqs = [eng.result(r) for r in rids]
+    host = [[tn.analyze_text_py(d) for d in p] for p in payloads]
+    host_words = np.concatenate([w for h in host for w, _ in h])
+    want_r, want_s = stemmer.extract_roots(host_words, arrays,
+                                           backend="sorted", device=DEVICE)
+    want_r, want_s = want_r.cpu().numpy(), want_s.cpu().numpy()
+    at = 0
+    for req, h in zip(reqs, host):
+        n = sum(w.shape[0] for w, _ in h)
+        check(req is not None and req.done and req.n_words == n,
+              "text request not finished or of the wrong length")
+        check(np.array_equal(req.words, np.concatenate([w for w, _ in h]))
+              and np.array_equal(req.spans,
+                                 np.concatenate([s for _, s in h]))
+              and np.array_equal(req.doc_ids, np.concatenate(
+                  [np.full(w.shape[0], i, np.int32)
+                   for i, (w, _) in enumerate(h)]))
+              and np.array_equal(req.roots, want_r[at:at + n])
+              and np.array_equal(req.sources, want_s[at:at + n]),
+              f"served text request {req.rid} differs from the host front"
+              " end and the plain stemmer")
+        at += n
+    n_words = at
+    n_bytes = sum(r.n_bytes for r in reqs)
+    stem_name = ("persistent_resident_cuda" if persistent
+                 else "stem_fused_cuda")
+    wl = eng.workload
+    check(set(launches) == {"text_frontend_cuda", stem_name}
+          and launches["text_frontend_cuda"] == TEXT_REQUESTS
+          and launches[stem_name] == wl.ticks_launched > 0,
+          f"text serve launches {launches}, engine {wl.ticks_launched}")
+    print(f"[text] {'persistent' if persistent else 'resident'}:"
+          f" {TEXT_REQUESTS} requests / {len(docs)} documents / {n_bytes}"
+          f" bytes / {n_words} words in {serve_s:.6f} s"
+          f" ({n_bytes / serve_s:.0f} B/s, {n_words / serve_s:.0f} words/s,"
+          f" {rep.ticks} ticks, launches {launches}); admission (the front"
+          f" end) {admit_s:.6f} s = {admit_s / serve_s:.6f} of the wall"
+          " time; every request equal to the host front end and the plain"
+          " stemmer")
+    return launches, serve_s, admit_s, n_words, n_bytes
 
 
 # ---------------------------------------------------------------------------
@@ -481,10 +822,15 @@ def main() -> int:
         return 1
     import numpy as np
 
+    from repro_torch import index as ix
     from repro_torch.core import accuracy, corpus, stemmer
+    from repro_torch.core import textnorm as tn
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels import postings as pk
     from repro_torch.kernels import stem_fused as sf
     from repro_torch.kernels import stem_match as sm
+    from repro_torch.kernels import text_frontend as tf
+    from repro_torch.launch.serve import build_documents, edge_documents
 
     dev = torch.device(DEVICE)
     t_all = time.perf_counter()
@@ -527,6 +873,30 @@ def main() -> int:
     k3_err = k3_phase(sf, ops, (("realistic", realistic),
                                 ("grown", grown60k)),
                       (("realistic", realistic), ("grown", grown)), words)
+
+    # ---- 5b-5c. the text front end and the postings kernel ---------------
+    table = corpus.build_token_table()
+    doc_chunks = list(corpus.stream_corpus_docs(
+        INDEX_WORDS, seed=0, chunk_words=INDEX_CHUNK,
+        words_per_doc=INDEX_WORDS_PER_DOC, table=table))
+    big_chars, _, _ = tn.coalesce_docs([d for _, ds in doc_chunks
+                                        for d in ds])
+    # the tile build_root_index_text gives K4 for the index's first chunk
+    chunk_tile = torch.from_numpy(tn.coalesce_docs(doc_chunks[0][1])[0]
+                                  ).to(dev)
+    big_tile = torch.from_numpy(big_chars).to(dev)
+    big_words = torch.from_numpy(np.concatenate([
+        c.words for c in corpus.stream_corpus_words(
+            INDEX_WORDS, seed=0, chunk_words=INDEX_CHUNK,
+            words_per_doc=INDEX_WORDS_PER_DOC, table=table)])).to(dev)
+    k4_err = k4_phase(tf, tn,
+                      edge_documents() + build_documents(64, 256, seed=3),
+                      chunk_tile, big_tile, big_words)
+    vocab = ix.build_vocab(realistic)
+    vocab_t = torch.from_numpy(vocab).to(dev)
+    real_ids = ops._root_ids(*sf.stem_fused(big_words, realistic,
+                                            block_b=INDEX_BLOCK), vocab_t)
+    k5_err = k5_phase(pk, real_ids, len(vocab))
 
     # ---- 6. serve --------------------------------------------------------
     serve_words = np.concatenate([c.words for c in corpus.stream_corpus_words(
@@ -586,6 +956,19 @@ def main() -> int:
           f"'fused') on the 262,144-key dictionary in {extract_s:.6f} s"
           f" ({SERVE_WORDS / extract_s:.0f} words/s, {k2_launches} K2"
           f" launches = planned {planned}), equal to the plain stemmer")
+
+    # ---- 7b. the corpus index, words and text --------------------------
+    k5_launches, index_s, index_text_s = index_phase(ops, ix, corpus, tn,
+                                                     realistic, table)
+
+    # ---- 7c. text serving -------------------------------------------------
+    text_docs = build_documents(TEXT_REQUESTS * TEXT_DOCS_PER_REQUEST,
+                                TEXT_WORDS_PER_DOC)
+    text_runs = {}
+    for persistent in (False, True):
+        text_runs[persistent] = text_serve_phase(
+            ops, stemmer, tn, realistic, text_docs,
+            persistent=persistent)
 
     # ---- 8. accuracy -----------------------------------------------------
     t6 = accuracy.table6(n_words=2000, seed=0, backend="fused", device=dev)
@@ -688,6 +1071,86 @@ def main() -> int:
               " no single PyTorch call computes these functions, so"
               " library_ms is null")
 
+    # K4 at a served request's tile and at the 1M-word tile; K5 at an index
+    # chunk and at 1M words, with torch.sort of the same keys beside it
+    req_chars, _, _ = tn.coalesce_docs(text_docs[:TEXT_DOCS_PER_REQUEST])
+    req_tile = np.zeros(TEXT_CHAR_BLOCK, np.int32)
+    while req_tile.shape[0] < req_chars.shape[0]:
+        req_tile = np.zeros(2 * req_tile.shape[0], np.int32)
+    req_tile[:req_chars.shape[0]] = req_chars
+    for label, tile in (("request", torch.from_numpy(req_tile).to(dev)),
+                        ("1M words", big_tile)):
+        geo = tn.segment_geometry(tile, block_w=128)
+        rows = geo.starts.shape[0]
+        n = int(geo.n_words)
+        live = geo.lens.clamp(max=tn.MAX_RAW)
+        n_chars = int(live.sum())
+        kernel = lambda: tf.text_frontend_cuda(tile, geo.starts, geo.lens)
+        plain = lambda: tf.text_frontend_plain(tile, geo.starts, geo.lens)
+        check(same((kernel(),), (plain(),)) == 0,
+              f"timed tile {label}: K4 differs from its plain version")
+        n_k = 200 if label == "request" else 10
+        k_call = call_ms(kernel, n_k)
+        ms = device_ms(kernel, n_k, k_call)
+        plain_ms = call_ms(plain, 10 if label == "request" else 2)
+        bd = bound(4 * tile.shape[0] + 8 * rows + 64 * rows,
+                   K4_OPS_PER_CHAR * n_chars + K4_OPS_PER_WORD * n
+                   + K4_OPS_PER_EMPTY_ROW * (rows - n))
+        times[("K4", label)] = dict(ms=ms, call_ms=k_call, plain_ms=plain_ms,
+                                    library_ms=None, **bd)
+        print(f"[times] K4 {label} tile ({tile.shape[0]} codepoints, {n}"
+              f" words, {rows} rows): {ms:.6f} ms on the card"
+              f" ({k_call:.6f} ms a call with the host), plain"
+              f" {plain_ms:.6f} ms a call, bound {bd['bound_ms']:.6f} ms by"
+              f" {bd['bound_by']} ({bd['n_bytes']} B, {bd['n_ops']} int32"
+              " ops); no single PyTorch call computes it, library_ms null")
+    n_roots = len(vocab)
+    for label, w in (("index chunk", INDEX_CHUNK), ("1M words", INDEX_WORDS)):
+        tiles_ = pk.pad_ids(real_ids[:w], n_roots=n_roots,
+                            block_w=INDEX_BLOCK)
+        n_tiles = tiles_.shape[0]
+        lane = torch.arange(INDEX_BLOCK, dtype=torch.int32, device=dev)
+        keys = (tiles_ * INDEX_BLOCK + lane).view(n_tiles, INDEX_BLOCK)
+        kern = dict(n_roots=n_roots, block_w=INDEX_BLOCK)
+        kernel = lambda: pk.postings_cuda(tiles_, **kern)
+        plain = lambda: pk.postings_plain(tiles_, **kern)
+        library = lambda: torch.sort(keys, dim=1)
+        check(same(kernel(), plain()) == 0,
+              f"timed shape {label}: K5 differs from its plain version")
+        k_call = call_ms(kernel, 100)
+        ms = device_ms(kernel, 100, k_call)
+        lib_ms = device_ms(library, 100, call_ms(library, 100))
+        plain_ms = call_ms(plain, 10)
+        log_bw = INDEX_BLOCK.bit_length() - 1
+        stages = log_bw * (log_bw + 1) // 2
+        n_ops = n_tiles * (K5_OPS_PER_WORD * INDEX_BLOCK
+                           + K5_OPS_PER_BIN * (n_roots + 1))
+        # ids in, rank and histogram out
+        bd = bound(4 * n_tiles * INDEX_BLOCK + 4 * n_tiles * INDEX_BLOCK
+                   + 4 * n_tiles * (n_roots + 1), n_ops)
+        times[("K5", label)] = dict(ms=ms, call_ms=k_call, plain_ms=plain_ms,
+                                    library_ms=lib_ms, **bd)
+        print(f"[times] K5 {label} ({w} words, {n_tiles} tiles of"
+              f" {INDEX_BLOCK}, {n_roots} roots, {stages} sort stages):"
+              f" {ms:.6f} ms on the card ({k_call:.6f} ms a call with the"
+              f" host), plain {plain_ms:.6f} ms a call, torch.sort of the"
+              f" same keys alone (library_ms) {lib_ms:.6f} ms, bound"
+              f" {bd['bound_ms']:.6f} ms by {bd['bound_by']}"
+              f" ({bd['n_bytes']} B, {bd['n_ops']} int32 ops)")
+    for persistent, (launches, serve_s, admit_s, n_w, n_b) in \
+            text_runs.items():
+        k4_busy = (launches["text_frontend_cuda"]
+                   * times[("K4", "request")]["ms"] * 1e-3 / serve_s)
+        print(f"[times] text serve, {'persistent' if persistent else 'resident'}:"
+              f" K4 ran for {k4_busy:.6f} of the wall time"
+              f" ({launches['text_frontend_cuda']} launches x its device"
+              f" time at a request's tile, over {serve_s:.6f} s)")
+    k5_busy = (k5_launches["postings_cuda"]
+               * times[("K5", "index chunk")]["ms"] * 1e-3 / index_s)
+    print(f"[times] index build: K5 ran for {k5_busy:.6f} of the wall time"
+          f" ({k5_launches['postings_cuda']} launches x its device time at"
+          f" an index chunk, over {index_s:.6f} s)")
+
     serve_b = SERVE_REQUEST_WORDS
     for label, kernel, launches, serve_s in (
             ("K1, resident serve", "K1", sum(k1_launches.values()),
@@ -703,13 +1166,13 @@ def main() -> int:
     print(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(card_line())
 
-    def entry(name, key, source, replaces, launches, err):
-        t = times[(key, serve_b)]
+    def entry(name, key, source, replaces, launches, err, shape=serve_b):
+        t = times[(key, shape)]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                "library_ms": None}
+                "library_ms": t.get("library_ms")}
 
     csrc = "src/repro_torch/kernels/csrc/"
     ref = "src/repro/kernels/stem_fused.py:"
@@ -724,6 +1187,13 @@ def main() -> int:
         entry("persistent_streamed", "K3 streamed",
               csrc + "stem_persistent.cu", ref + "364",
               k3s_launches["persistent_streamed_cuda"], k3_err),
+        entry("text_frontend", "K4", csrc + "text_frontend.cu",
+              "src/repro/kernels/text_frontend.py:41",
+              text_runs[False][0]["text_frontend_cuda"], k4_err,
+              shape="request"),
+        entry("postings", "K5", csrc + "postings.cu",
+              "src/repro/kernels/postings.py:92",
+              k5_launches["postings_cuda"], k5_err, shape="index chunk"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -159,7 +159,7 @@ def encode_corpus(words: list[str]) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# Corpus-scale word streams
+# Corpus-scale word and document streams
 # ---------------------------------------------------------------------------
 # build_corpus() materialises python string lists — fine at 20K words,
 # hopeless at 10M. The streaming generator below samples from a prebuilt
@@ -269,3 +269,31 @@ def stream_corpus_words(n_words: int, *, seed: int = 0,
                           doc_ids=gwi // words_per_doc,
                           positions=(gwi % words_per_doc).astype(np.int32),
                           start_word=w0)
+
+
+def stream_corpus_docs(n_words: int, *, seed: int = 0,
+                       chunk_words: int = 65536, words_per_doc: int = 100,
+                       table: TokenTable | None = None):
+    """The same corpus as :func:`stream_corpus_words` (same seed, the same
+    token sequence) rendered as raw text: yields ``(doc0, docs)`` per
+    chunk, ``docs`` the chunk's document strings and ``doc0`` the global
+    id of ``docs[0]``.
+
+    ``chunk_words`` must be a multiple of ``words_per_doc`` so documents
+    never straddle a text chunk (the text index path attributes words to
+    documents per chunk). Each document round-trips the front end to
+    exactly the word rows the words stream emits.
+    """
+    if chunk_words % words_per_doc:
+        raise ValueError(
+            f"chunk_words ({chunk_words}) must be a multiple of"
+            f" words_per_doc ({words_per_doc}) for the document stream")
+    if table is None:
+        table = build_token_table()
+    for c, w0 in enumerate(range(0, n_words, chunk_words)):
+        n = min(chunk_words, n_words - w0)
+        rng = np.random.default_rng([seed, c])
+        tok = rng.choice(table.n_tokens, size=n, p=table.probs)
+        docs = [" ".join(table.texts[t] for t in tok[d0:d0 + words_per_doc])
+                for d0 in range(0, n, words_per_doc)]
+        yield w0 // words_per_doc, docs

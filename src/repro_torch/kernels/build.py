@@ -9,8 +9,9 @@ rebuilds and an unchanged one loads the library already built. Builds
 run under a file lock: parallel test workers or processes build once.
 
 ``host_datapath`` compiles the ``__host__ __device__`` headers (the
-datapath and the streamed sweep) with ``g++`` for the CPU tests; nothing
-on the port's CPU path uses it.
+datapath, the streamed sweep, the text front end's per-word rules and the
+postings tile steps) with ``g++`` for the CPU tests; nothing on the port's
+CPU path uses it.
 """
 from __future__ import annotations
 
@@ -84,6 +85,43 @@ def codes_header() -> str:
     ])
 
 
+def text_header() -> str:
+    """text_codes.h: the text front end's windows and clitic tables,
+    generated from ``core.textnorm``."""
+    from repro_torch.core import textnorm as tn
+
+    def patterns(pats) -> str:
+        rows = []
+        for pat in pats:
+            if not 1 <= len(pat) <= 3:
+                raise ValueError(f"clitic {pat} outside 1..3 letters")
+            codes = list(pat) + [0] * (3 - len(pat))
+            rows.append("{" + ", ".join(str(int(c)) for c in
+                                        [len(pat)] + codes) + "}")
+        return "{" + ", ".join(rows) + "}"
+
+    return "\n".join([
+        "// Generated from repro_torch/core/textnorm.py by kernels/build.py.",
+        "#pragma once",
+        f"#define RT_TEXT_MAX_RAW {tn.MAX_RAW}",
+        f"#define RT_TEXT_CMAX {tn.CMAX}",
+        f"#define RT_TEXT_MIN_STEM {tn.MIN_STEM}",
+        f"#define RT_TEXT_FW_MAXLEN {tn.FW_MAXLEN}",
+        f"#define RT_TEXT_MAX_PRO {max(len(p) for p in tn.PROCLITIC_CODES)}",
+        f"#define RT_TEXT_N_PRO {len(tn.PROCLITIC_CODES)}",
+        f"#define RT_TEXT_N_ENC {len(tn.ENCLITIC_CODES)}",
+        "// {length, code 0, code 1, code 2} per clitic, longest first",
+        f"#define RT_TEXT_PROCLITICS {patterns(tn.PROCLITIC_CODES)}",
+        f"#define RT_TEXT_ENCLITICS {patterns(tn.ENCLITIC_CODES)}",
+        "",
+    ])
+
+
+def generated_headers() -> dict[str, str]:
+    """Every header the build generates, by file name."""
+    return {"stem_codes.h": codes_header(), "text_codes.h": text_header()}
+
+
 @dataclass(frozen=True)
 class _Spec:
     name: str
@@ -91,9 +129,9 @@ class _Spec:
     compiler: tuple             # argv prefix
     out_dir: Path
 
-    def digest(self, header: str) -> str:
+    def digest(self, headers: dict) -> str:
         h = hashlib.sha256()
-        for part in (self.compiler, header):
+        for part in (self.compiler, sorted(headers.items())):
             h.update(repr(part).encode())
         for f in sorted(CSRC.iterdir()):
             if f.suffix in (".cu", ".cuh", ".cpp", ".h"):
@@ -132,13 +170,13 @@ def _build(specs: list[_Spec]) -> list[Path]:
     together; -> the library paths. Each build holds its lock file until
     its compiler has finished; compiler output goes to a .log beside each
     library."""
-    header = codes_header()
+    headers = generated_headers()
     paths, failed = [], []
     with contextlib.ExitStack() as stack:
         jobs = []
         for spec in specs:
             spec.out_dir.mkdir(parents=True, exist_ok=True)
-            lib = spec.out_dir / f"lib{spec.name}-{spec.digest(header)}.so"
+            lib = spec.out_dir / f"lib{spec.name}-{spec.digest(headers)}.so"
             paths.append(lib)
             if lib.exists():
                 continue
@@ -149,7 +187,8 @@ def _build(specs: list[_Spec]) -> list[Path]:
                 continue
             gen = spec.out_dir / f"gen-{lib.stem}"
             gen.mkdir(exist_ok=True)
-            (gen / "stem_codes.h").write_text(header)
+            for fname, text in headers.items():
+                (gen / fname).write_text(text)
             tmp = lib.with_suffix(f".tmp{os.getpid()}")
             argv = [*spec.compiler, "-I", str(gen), "-I", str(CSRC),
                     "-o", str(tmp), str(CSRC / spec.source)]
@@ -170,7 +209,8 @@ def _build(specs: list[_Spec]) -> list[Path]:
     return paths
 
 
-CUDA_LIBRARIES = ("stem_fused", "stem_streamed", "stem_persistent")
+CUDA_LIBRARIES = ("stem_fused", "stem_streamed", "stem_persistent",
+                  "text_frontend", "postings")
 
 
 def build_cuda() -> tuple[float, dict[str, Path]]:
@@ -181,7 +221,7 @@ def build_cuda() -> tuple[float, dict[str, Path]]:
     return time.perf_counter() - t0, dict(zip(CUDA_LIBRARIES, paths))
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures of each library's launch functions
 _SIGNATURES = {
     "stem_fused": {
@@ -197,6 +237,10 @@ _SIGNATURES = {
         "persistent_streamed_launch": [_P, _I, _P, _I, _P, _I, _P, _P, _P,
                                        _P, _I, _I, _I, _I, _I, _I, _I, _P,
                                        ctypes.POINTER(_I)]},
+    "text_frontend": {
+        "text_frontend_launch": [_P, _LL, _P, _P, _I, _P, _P, _I, _P, _I,
+                                 _P]},
+    "postings": {"postings_launch": [_P, _I, _I, _I, _P, _P, _P]},
 }
 
 
@@ -232,6 +276,16 @@ def stem_persistent_library() -> ctypes.CDLL:
     return _cuda_library("stem_persistent")
 
 
+def text_frontend_library() -> ctypes.CDLL:
+    """K4, the text front end (csrc/text_frontend.cu)."""
+    return _cuda_library("text_frontend")
+
+
+def postings_library() -> ctypes.CDLL:
+    """K5, the postings reduction (csrc/postings.cu)."""
+    return _cuda_library("postings")
+
+
 def _host_library() -> ctypes.CDLL:
     lib = _LOADED.get("host_datapath")
     if lib is None:
@@ -242,6 +296,11 @@ def _host_library() -> ctypes.CDLL:
         lib.host_stem_streamed.argtypes = [_P, _I, _P, _I, _P, _P, _I, _I,
                                            _I, _I, _I, _I, _P, _P]
         lib.host_stem_streamed.restype = None
+        lib.host_text_frontend.argtypes = [_P, _LL, _P, _P, _I, _P, _P, _I,
+                                           _P]
+        lib.host_text_frontend.restype = None
+        lib.host_postings.argtypes = [_P, _I, _I, _I, _P, _P]
+        lib.host_postings.restype = None
         _LOADED["host_datapath"] = lib
     return lib
 
@@ -286,6 +345,47 @@ def host_stem_streamed(words: np.ndarray, stream: np.ndarray,
                            n_groups, match, root.ctypes.data,
                            source.ctypes.data)
     return root, source
+
+
+def host_text_frontend(chars: np.ndarray, starts: np.ndarray,
+                       lens: np.ndarray) -> np.ndarray:
+    """The g++ build of text_frontend.cuh, every row through the per-word
+    rules: chars int32[t], starts/lens int32[wp] -> words int32[wp, 16]."""
+    from repro_torch.core import textnorm as tn
+
+    lib = _host_library()
+    chars = np.ascontiguousarray(chars, dtype=np.int32)
+    starts = np.ascontiguousarray(starts, dtype=np.int32)
+    lens = np.ascontiguousarray(lens, dtype=np.int32)
+    if chars.ndim != 1 or chars.size == 0 or starts.shape != lens.shape:
+        raise ValueError(f"chars {chars.shape}, starts {starts.shape}, lens"
+                         f" {lens.shape}: want a non-empty tile and"
+                         " matching geometry")
+    lut = np.ascontiguousarray(tn.CLASS_LUT, dtype=np.int32)
+    fw = np.ascontiguousarray(tn.FW_FLAT, dtype=np.int32)
+    words = np.zeros((starts.shape[0], ab.MAXLEN), np.int32)
+    lib.host_text_frontend(chars.ctypes.data, chars.size, starts.ctypes.data,
+                           lens.ctypes.data, starts.shape[0], lut.ctypes.data,
+                           fw.ctypes.data, fw.size, words.ctypes.data)
+    return words
+
+
+def host_postings(ids: np.ndarray, *, n_roots: int,
+                  block_w: int) -> tuple[np.ndarray, np.ndarray]:
+    """The g++ build of postings.cuh, tile by tile: padded ids
+    int32[n_tiles * block_w] -> (hist int32[n_tiles, n_roots + 1], rank
+    int32[n_tiles * block_w])."""
+    lib = _host_library()
+    ids = np.ascontiguousarray(ids, dtype=np.int32).reshape(-1)
+    if block_w < 1 or block_w & (block_w - 1) or ids.size % block_w:
+        raise ValueError(f"{ids.size} ids are not whole tiles of a pow2"
+                         f" block_w={block_w}")
+    n_tiles = ids.size // block_w
+    hist = np.zeros((n_tiles, n_roots + 1), np.int32)
+    rank = np.zeros(ids.size, np.int32)
+    lib.host_postings(ids.ctypes.data, n_tiles, block_w, n_roots + 1,
+                      hist.ctypes.data, rank.ctypes.data)
+    return hist, rank
 
 
 def _host_words(words: np.ndarray) -> np.ndarray:

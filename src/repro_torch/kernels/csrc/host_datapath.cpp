@@ -1,14 +1,18 @@
-// Host build of the kernels' per-word headers, for the CPU tests: g++
-// compiles the same stages 1-4 code (stem_datapath.cuh) and the same
-// streamed per-tile compare (stem_sweep.cuh) that the CUDA kernels run,
-// and the tests hold them bit for bit against the plain PyTorch versions.
+// Host build of the kernels' per-word and per-tile headers, for the CPU
+// tests: g++ compiles the same stages 1-4 code (stem_datapath.cuh), the
+// same streamed per-tile compare (stem_sweep.cuh), the same text front-end
+// rules (text_frontend.cuh) and the same postings sort and searches
+// (postings.cuh) that the CUDA kernels run, and the tests hold them bit
+// for bit against the plain PyTorch versions.
 #include <stddef.h>
 #include <stdint.h>
 
 #include <vector>
 
+#include "postings.cuh"
 #include "stem_datapath.cuh"
 #include "stem_sweep.cuh"
+#include "text_frontend.cuh"
 
 // words int32[n, 16] -> keys int32[n, 30], valid int32[n, 30] (0/1).
 extern "C" void host_candidate_columns(const int32_t* words, int n,
@@ -103,4 +107,52 @@ extern "C" void host_stem_streamed(const int32_t* words, int n_words,
                         : streamed_tiles<rt::kMatchBank, 2>);
   run(words, n_words, stream, n_tiles, n_visits, visit_idx, block_b, tile_n,
       tri_tiles, quad_tiles, root, source);
+}
+
+// The text front end's contract (text_frontend_launch), on the host, every
+// row through the per-word rules (empty rows too): chars int32[t],
+// starts/lens int32[wp], lut int32[256], fw int32[fw_n] -> words
+// int32[wp, 16].
+extern "C" void host_text_frontend(const int32_t* chars, long long t,
+                                   const int32_t* starts,
+                                   const int32_t* lens, int wp,
+                                   const int32_t* lut, const int32_t* fw,
+                                   int fw_n, int32_t* words) {
+  const long long tp = (t + 127) / 128 * 128;
+  const int steps = tf::ceil_log2(fw_n);
+  for (int r = 0; r < wp; ++r) {
+    tf::word_row(chars, t, tp, starts[r], lens[r], lut, fw, fw_n, steps,
+                 words + size_t(r) * tf::kRow);
+  }
+}
+
+// The postings kernel's contract (postings_launch), on the host, one tile
+// at a time through the same network, stage by stage: ids int32[n_tiles,
+// block_w] -> hist int32[n_tiles, n_roots_pad], rank int32[n_tiles,
+// block_w].
+extern "C" void host_postings(const int32_t* ids, int n_tiles, int block_w,
+                              int n_roots_pad, int32_t* hist,
+                              int32_t* rank) {
+  int log_bw = 0;
+  while ((1 << log_bw) < block_w) ++log_bw;
+  std::vector<int32_t> keys(block_w);
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int32_t* tile_ids = ids + size_t(tile) * block_w;
+    for (int l = 0; l < block_w; ++l) keys[l] = tile_ids[l] * block_w + l;
+    for (int k = 2; k <= block_w; k <<= 1) {
+      for (int j = k >> 1; j > 0; j >>= 1) {
+        for (int p = 0; p < block_w / 2; ++p) pk::exchange(keys.data(), k, j, p);
+      }
+    }
+    for (int r = 0; r < n_roots_pad; ++r) {
+      hist[size_t(tile) * n_roots_pad + r] =
+          pk::bucket(keys.data(), block_w, log_bw, r);
+    }
+    for (int p = 0; p < block_w; ++p) {
+      int lane;
+      int32_t rk;
+      pk::rank_of(keys.data(), block_w, log_bw, p, &lane, &rk);
+      rank[size_t(tile) * block_w + lane] = rk;
+    }
+  }
 }

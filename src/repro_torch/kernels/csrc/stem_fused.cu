@@ -15,7 +15,8 @@
 // bound by integer instructions and shared-memory latency, not bytes.
 //
 // What the design does about it:
-//   - one thread per word, block_b words per block, the word row read as
+//   - block_b words per block (the logical tile), min(block_b, 512)
+//     threads, each striding over the tile's words; the word row read as
 //     four 16-byte loads; the datapath and all 30 keys stay in registers;
 //   - the padded tri/quad/bi tables are copied into dynamic shared memory
 //     once per block, so every probe is a shared-memory load (bank
@@ -37,30 +38,56 @@ namespace {
 
 using rt::kMatchBank;
 using rt::kMatchBsearch;
-using rt::kMaxBlock;
+using rt::kMaxThreads;
 
+// One word of the tile: stages 1-5 and the store.
 template <int MATCH, bool SHARED, int N_GROUPS>
-__global__ void __launch_bounds__(kMaxBlock)
+__device__ __forceinline__ void fused_word(const int4* __restrict__ words,
+                                           int n_words, int i,
+                                           const int32_t* const dict[3],
+                                           const int len[3],
+                                           int4* __restrict__ root,
+                                           int32_t* __restrict__ source) {
+  int32_t word[rt::kMaxLen];
+  rt::load_word(words, i, n_words, word);
+  int steps[3];
+  rt::table_steps<MATCH, N_GROUPS>(len, steps);
+  int32_t chosen, src;
+  rt::resident_word<MATCH, SHARED, N_GROUPS>(word, dict, len, steps, chosen,
+                                             src);
+  rt::store_root(root, source, i, chosen, src);
+}
+
+// WIDE: block_b exceeds the block's threads, which stride over the tile.
+// Otherwise each thread has at most one word. The two are separate
+// instances: the strided loop raises the register count (40 -> 64 for the
+// bsearch, 5-group instances), which costs occupancy on narrow tiles.
+template <int MATCH, bool SHARED, int N_GROUPS, bool WIDE>
+__global__ void __launch_bounds__(kMaxThreads)
 stem_fused_kernel(const int4* __restrict__ words, int n_words,
                   const int32_t* __restrict__ tri, int tri_n,
                   const int32_t* __restrict__ quad, int quad_n,
                   const int32_t* __restrict__ bi, int bi_n,
-                  int4* __restrict__ root, int32_t* __restrict__ source) {
+                  int4* __restrict__ root, int32_t* __restrict__ source,
+                  int block_b) {
   const int32_t* dict[3] = {tri, quad, bi};
   const int len[3] = {tri_n, quad_n, bi_n};
   if constexpr (SHARED) rt::stage_tables<N_GROUPS>(dict, len);
 
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_words) return;
-
-  int32_t w[rt::kMaxLen];
-  rt::load_word(words, i, n_words, w);
-  int steps[3];
-  rt::table_steps<MATCH, N_GROUPS>(len, steps);
-  int32_t chosen, src;
-  rt::resident_word<MATCH, SHARED, N_GROUPS>(w, dict, len, steps, chosen,
-                                             src);
-  rt::store_root(root, source, i, chosen, src);
+  if constexpr (WIDE) {
+    // the grid covers n_words, so base < n_words and every index fits
+    const int base = blockIdx.x * block_b;
+    const int rows = min(block_b, n_words - base);
+    for (int w = threadIdx.x; w < rows; w += blockDim.x) {
+      fused_word<MATCH, SHARED, N_GROUPS>(words, n_words, base + w, dict, len,
+                                          root, source);
+    }
+  } else {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n_words) return;
+    fused_word<MATCH, SHARED, N_GROUPS>(words, n_words, i, dict, len, root,
+                                        source);
+  }
 }
 
 struct Args {
@@ -78,24 +105,30 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int MATCH, bool SHARED, int N_GROUPS>
+template <int MATCH, bool SHARED, int N_GROUPS, bool WIDE>
 int launch(const Args& a) {
-  auto kernel = stem_fused_kernel<MATCH, SHARED, N_GROUPS>;
+  auto kernel = stem_fused_kernel<MATCH, SHARED, N_GROUPS, WIDE>;
   const size_t smem =
       rt::resident_smem_bytes<SHARED, N_GROUPS>(a.tri_n, a.quad_n, a.bi_n);
   const cudaError_t e = rt::allow_smem(kernel, smem);
   if (e != cudaSuccess) return int(e);
   const unsigned grid = unsigned((a.n_words + a.block_b - 1) / a.block_b);
-  kernel<<<grid, a.block_b, smem, a.stream>>>(
+  kernel<<<grid, rt::block_threads(a.block_b), smem, a.stream>>>(
       a.words, a.n_words, a.tri, a.tri_n, a.quad, a.quad_n, a.bi, a.bi_n,
-      a.root, a.source);
+      a.root, a.source, a.block_b);
   return int(cudaGetLastError());
+}
+
+template <int MATCH, bool SHARED, int N_GROUPS>
+int launch_width(const Args& a) {
+  return a.block_b > kMaxThreads ? launch<MATCH, SHARED, N_GROUPS, true>(a)
+                                 : launch<MATCH, SHARED, N_GROUPS, false>(a);
 }
 
 template <int MATCH, bool SHARED>
 int launch_groups(const Args& a, int n_groups) {
-  return n_groups == 5 ? launch<MATCH, SHARED, 5>(a)
-                       : launch<MATCH, SHARED, 2>(a);
+  return n_groups == 5 ? launch_width<MATCH, SHARED, 5>(a)
+                       : launch_width<MATCH, SHARED, 2>(a);
 }
 
 template <int MATCH>
@@ -118,7 +151,7 @@ extern "C" int stem_fused_launch(const void* words, int n_words,
                                  int n_groups, int match, int dict_in_shared,
                                  void* stream) {
   if (n_words <= 0) return 0;
-  if (block_b < 1 || block_b > kMaxBlock) return int(cudaErrorInvalidValue);
+  if (block_b < 1) return int(cudaErrorInvalidValue);
   if (n_groups != 2 && n_groups != 5) return int(cudaErrorInvalidValue);
   if (match != kMatchBsearch && match != kMatchBank) {
     return int(cudaErrorInvalidValue);

@@ -16,6 +16,10 @@
 // output writes (__threadfence) before the barrier after which one thread
 // writes the flag, so a flag that reads set proves its tile's rows.
 //
+// A block runs min(block_b, 512) threads, which stride over a
+// descriptor's block_b-word tile (the streamed variant takes passes over
+// wider tiles, stem_sweep.cuh).
+//
 // Two variants, as template instances:
 //   - resident: the padded tables are staged into shared memory once per
 //     block per launch (not once per tile, as the megakernel does), or
@@ -38,7 +42,7 @@ namespace {
 
 using rt::kMatchBank;
 using rt::kMatchBsearch;
-using rt::kMaxBlock;
+using rt::kMaxThreads;
 
 // Publish descriptor d as done: every thread's output writes are fenced
 // device-wide before the barrier, then one thread stores the flag.
@@ -53,14 +57,15 @@ __device__ __forceinline__ void retire(const int32_t* __restrict__ desc,
 }
 
 template <int MATCH, bool SHARED, int N_GROUPS>
-__global__ void __launch_bounds__(kMaxBlock)
+__global__ void __launch_bounds__(kMaxThreads)
 persistent_resident_kernel(const int4* __restrict__ words, int n_words,
                            const int32_t* __restrict__ desc, int n_desc,
                            const int32_t* __restrict__ tri, int tri_n,
                            const int32_t* __restrict__ quad, int quad_n,
                            const int32_t* __restrict__ bi, int bi_n,
                            int4* __restrict__ root,
-                           int32_t* __restrict__ source, int32_t* flags) {
+                           int32_t* __restrict__ source, int32_t* flags,
+                           int block_b) {
   const int32_t* dict[3] = {tri, quad, bi};
   const int len[3] = {tri_n, quad_n, bi_n};
   if constexpr (SHARED) rt::stage_tables<N_GROUPS>(dict, len);
@@ -68,13 +73,15 @@ persistent_resident_kernel(const int4* __restrict__ words, int n_words,
   rt::table_steps<MATCH, N_GROUPS>(len, steps);
 
   for (int d = blockIdx.x; d < n_desc; d += gridDim.x) {
-    const long long i = (long long)__ldg(desc + 3 * d) + threadIdx.x;
-    if (i < n_words) {
-      int32_t w[rt::kMaxLen];
-      rt::load_word(words, i, n_words, w);
+    const long long tile0 = __ldg(desc + 3 * d);
+    for (int w = threadIdx.x; w < block_b; w += blockDim.x) {
+      const long long i = tile0 + w;
+      if (i >= n_words) break;
+      int32_t word[rt::kMaxLen];
+      rt::load_word(words, i, n_words, word);
       int32_t chosen, src;
-      rt::resident_word<MATCH, SHARED, N_GROUPS>(w, dict, len, steps, chosen,
-                                                 src);
+      rt::resident_word<MATCH, SHARED, N_GROUPS>(word, dict, len, steps,
+                                                 chosen, src);
       rt::store_root(root, source, i, chosen, src);
     }
     retire(desc, d, flags);
@@ -82,45 +89,33 @@ persistent_resident_kernel(const int4* __restrict__ words, int n_words,
 }
 
 template <int MATCH, int N_GROUPS, int NB>
-__global__ void __launch_bounds__(kMaxBlock)
+__global__ void __launch_bounds__(kMaxThreads)
 persistent_streamed_kernel(const int4* __restrict__ words, int n_words,
                            const int32_t* __restrict__ desc, int n_desc,
                            const int32_t* __restrict__ stream, int n_tiles,
                            const int32_t* __restrict__ visit_idx,
                            int4* __restrict__ root,
                            int32_t* __restrict__ source, int32_t* flags,
-                           int tile_n, int tri_tiles, int quad_tiles) {
+                           int block_b, int tile_n, int tri_tiles,
+                           int quad_tiles) {
   extern __shared__ int4 smem4[];
   int32_t* bufs = reinterpret_cast<int32_t*>(smem4);
-  const int steps = rt::sweep_log2(tile_n);
-
   for (int d = blockIdx.x; d < n_desc; d += gridDim.x) {
-    const long long i = (long long)__ldg(desc + 3 * d) + threadIdx.x;
-    int32_t w[rt::kMaxLen];
-    rt::load_word(words, i, n_words, w);   // pad rows: the zero word
-    int32_t keys[rt::kSlots];
-    bool valid[rt::kSlots];
-    rt::candidate_columns(w, keys, valid);
-    const uint32_t mask = rt::sweep<MATCH, N_GROUPS, NB>(
-        stream, visit_idx + size_t(d) * n_tiles, __ldg(desc + 3 * d + 1),
-        tile_n, steps, tri_tiles, quad_tiles, bufs, keys,
-        rt::live_mask<N_GROUPS>(valid));
-    if (i < n_words) {
-      int32_t chosen, src;
-      rt::first_hit(keys, mask, chosen, src);
-      rt::store_root(root, source, i, chosen, src);
-    }
+    rt::streamed_tile<MATCH, N_GROUPS, NB>(
+        words, n_words, __ldg(desc + 3 * d), block_b, stream,
+        visit_idx + size_t(d) * n_tiles, __ldg(desc + 3 * d + 1), tile_n,
+        tri_tiles, quad_tiles, bufs, root, source);
     retire(desc, d, flags);
   }
 }
 
 // Blocks of `kernel` the card keeps resident at once, at most n_desc.
 template <typename Kernel>
-cudaError_t resident_grid(Kernel kernel, int block_b, size_t smem,
+cudaError_t resident_grid(Kernel kernel, int threads, size_t smem,
                           int n_desc, int* grid) {
   int per_sm = 0, dev = 0, sms = 0;
   cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel, block_b, smem);
+      &per_sm, kernel, threads, smem);
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess) {
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -155,15 +150,16 @@ int launch_resident(const ResidentArgs& a) {
   auto kernel = persistent_resident_kernel<MATCH, SHARED, N_GROUPS>;
   const size_t smem =
       rt::resident_smem_bytes<SHARED, N_GROUPS>(a.tri_n, a.quad_n, a.bi_n);
+  const int threads = rt::block_threads(a.block_b);
   cudaError_t e = rt::allow_smem(kernel, smem);
   int grid = 0;
-  if (e == cudaSuccess) e = resident_grid(kernel, a.block_b, smem, a.n_desc,
+  if (e == cudaSuccess) e = resident_grid(kernel, threads, smem, a.n_desc,
                                           &grid);
   if (e != cudaSuccess) return int(e);
   if (a.grid_out) *a.grid_out = grid;
-  kernel<<<grid, a.block_b, smem, a.stream>>>(
+  kernel<<<grid, threads, smem, a.stream>>>(
       a.words, a.n_words, a.desc, a.n_desc, a.tri, a.tri_n, a.quad, a.quad_n,
-      a.bi, a.bi_n, a.root, a.source, a.flags);
+      a.bi, a.bi_n, a.root, a.source, a.flags, a.block_b);
   return int(cudaGetLastError());
 }
 
@@ -202,15 +198,17 @@ template <int MATCH, int N_GROUPS, int NB>
 int launch_streamed(const StreamedArgs& a) {
   auto kernel = persistent_streamed_kernel<MATCH, N_GROUPS, NB>;
   const size_t smem = sizeof(int32_t) * size_t(NB) * a.tile_n;
+  const int threads = rt::block_threads(a.block_b);
   cudaError_t e = rt::allow_smem(kernel, smem);
   int grid = 0;
-  if (e == cudaSuccess) e = resident_grid(kernel, a.block_b, smem, a.n_desc,
+  if (e == cudaSuccess) e = resident_grid(kernel, threads, smem, a.n_desc,
                                           &grid);
   if (e != cudaSuccess) return int(e);
   if (a.grid_out) *a.grid_out = grid;
-  kernel<<<grid, a.block_b, smem, a.stream_>>>(
+  kernel<<<grid, threads, smem, a.stream_>>>(
       a.words, a.n_words, a.desc, a.n_desc, a.stream, a.n_tiles, a.visit_idx,
-      a.root, a.source, a.flags, a.tile_n, a.tri_tiles, a.quad_tiles);
+      a.root, a.source, a.flags, a.block_b, a.tile_n, a.tri_tiles,
+      a.quad_tiles);
   return int(cudaGetLastError());
 }
 
@@ -231,7 +229,7 @@ int streamed_groups(const StreamedArgs& a, int n_groups, int num_buffers) {
 }
 
 bool bad_common(int n_desc, int block_b, int n_groups, int match) {
-  return n_desc < 0 || block_b < 1 || block_b > kMaxBlock ||
+  return n_desc < 0 || block_b < 1 ||
          (n_groups != 2 && n_groups != 5) ||
          (match != kMatchBsearch && match != kMatchBank);
 }

@@ -17,7 +17,14 @@
 
 namespace rt {
 
-constexpr int kMaxBlock = 512;
+// Threads a block launches: block_b (the logical tile: checksum tiles,
+// visit lists, descriptor rows) may be any size; a block runs
+// min(block_b, kMaxThreads) threads, each striding over the tile's words.
+constexpr int kMaxThreads = 512;
+
+__host__ __device__ __forceinline__ int block_threads(int block_b) {
+  return block_b < kMaxThreads ? block_b : kMaxThreads;
+}
 
 template <bool SHARED>
 __device__ __forceinline__ int32_t dict_at(const int32_t* d, int i) {

@@ -3,12 +3,12 @@
 //
 // Replaces repro/kernels/stem_fused.py:_fused_pipeline_kernel with its
 // _ladder_sweep (the streamed layout of stem_fused_pallas). One block per
-// block_b-word tile, one thread per word: stages 1-4 (stem_datapath.cuh)
-// leave 30 keys and a live-slot mask in registers; the block then walks
-// its own visit list (n_visits[i] entries of row i of visit_idx, written
-// by the torch pre-pass kernels/stem_fused.py:_visit_tables) through the
-// cp.async ring of stem_sweep.cuh, and the first hit in slot order is the
-// root.
+// block_b-word tile, min(block_b, 512) threads, one word a thread (passes
+// cover wider tiles): stages 1-4 (stem_datapath.cuh) leave 30 keys and a
+// live-slot mask in registers; the block then walks its own visit list
+// (n_visits[i] entries of row i of visit_idx, written by the torch
+// pre-pass kernels/stem_fused.py:_visit_tables) through the cp.async ring
+// of stem_sweep.cuh, and the first hit in slot order is the root.
 //
 // What bounds it on an H100: per word, 64 B in and 20 B out; per visited
 // tile, dict_block_r * 512 bytes copied into shared memory by the block
@@ -34,36 +34,23 @@ namespace {
 
 using rt::kMatchBank;
 using rt::kMatchBsearch;
-using rt::kMaxBlock;
+using rt::kMaxThreads;
 
 template <int MATCH, int N_GROUPS, int NB>
-__global__ void __launch_bounds__(kMaxBlock)
+__global__ void __launch_bounds__(kMaxThreads)
 stem_streamed_kernel(const int4* __restrict__ words, int n_words,
                      const int32_t* __restrict__ stream, int n_tiles,
                      const int32_t* __restrict__ n_visits,
                      const int32_t* __restrict__ visit_idx,
                      int4* __restrict__ root, int32_t* __restrict__ source,
-                     int tile_n, int tri_tiles, int quad_tiles) {
+                     int block_b, int tile_n, int tri_tiles,
+                     int quad_tiles) {
   extern __shared__ int4 smem4[];
-  int32_t* bufs = reinterpret_cast<int32_t*>(smem4);
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-
-  int32_t w[rt::kMaxLen];
-  rt::load_word(words, i, n_words, w);   // pad rows: the zero word
-  int32_t keys[rt::kSlots];
-  bool valid[rt::kSlots];
-  rt::candidate_columns(w, keys, valid);
-  const uint32_t live = rt::live_mask<N_GROUPS>(valid);
-
-  const uint32_t mask = rt::sweep<MATCH, N_GROUPS, NB>(
-      stream, visit_idx + size_t(blockIdx.x) * n_tiles,
-      __ldg(n_visits + blockIdx.x), tile_n, rt::sweep_log2(tile_n),
-      tri_tiles, quad_tiles, bufs, keys, live);
-  if (i < n_words) {
-    int32_t chosen, src;
-    rt::first_hit(keys, mask, chosen, src);
-    rt::store_root(root, source, i, chosen, src);
-  }
+  rt::streamed_tile<MATCH, N_GROUPS, NB>(
+      words, n_words, (long long)blockIdx.x * block_b, block_b, stream,
+      visit_idx + size_t(blockIdx.x) * n_tiles, __ldg(n_visits + blockIdx.x),
+      tile_n, tri_tiles, quad_tiles, reinterpret_cast<int32_t*>(smem4), root,
+      source);
 }
 
 struct Args {
@@ -89,9 +76,9 @@ int launch(const Args& a) {
   const cudaError_t e = rt::allow_smem(kernel, smem);
   if (e != cudaSuccess) return int(e);
   const unsigned grid = unsigned((a.n_words + a.block_b - 1) / a.block_b);
-  kernel<<<grid, a.block_b, smem, a.stream_>>>(
+  kernel<<<grid, rt::block_threads(a.block_b), smem, a.stream_>>>(
       a.words, a.n_words, a.stream, a.n_tiles, a.n_visits, a.visit_idx,
-      a.root, a.source, a.tile_n, a.tri_tiles, a.quad_tiles);
+      a.root, a.source, a.block_b, a.tile_n, a.tri_tiles, a.quad_tiles);
   return int(cudaGetLastError());
 }
 
@@ -128,7 +115,7 @@ extern "C" int stem_streamed_launch(const void* words, int n_words,
                                     int tri_tiles, int quad_tiles,
                                     int n_groups, int match, void* stream_) {
   if (n_words <= 0) return 0;
-  if (block_b < 1 || block_b > kMaxBlock || dict_block_r < 1 ||
+  if (block_b < 1 || dict_block_r < 1 ||
       num_buffers < 1 || num_buffers > 4 || (n_groups != 2 && n_groups != 5) ||
       (match != kMatchBsearch && match != kMatchBank)) {
     return int(cudaErrorInvalidValue);

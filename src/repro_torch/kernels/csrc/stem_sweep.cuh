@@ -185,6 +185,51 @@ __device__ __forceinline__ uint32_t sweep(
   return mask;
 }
 
+// Stages 1-5 of one block_b-word tile starting at row tile0, against its
+// visit list: a thread holds one word at a time, and a tile wider than
+// the block is covered in passes of blockDim.x words, each a sweep of the
+// whole visit list (every thread runs the same number of passes, so the
+// sweep's barriers stay uniform). Holding two words a thread in one sweep
+// instead was 1.7x slower at 1M words on an H100 (chip_ab.py).
+// Rows past the tile or past n_words are zero words with no live slot.
+template <int MATCH, int N_GROUPS, int NB>
+__device__ __forceinline__ void streamed_tile(
+    const int4* __restrict__ words, int n_words, long long tile0,
+    int block_b, const int32_t* __restrict__ stream,
+    const int32_t* __restrict__ vis, int n, int tile_n, int tri_tiles,
+    int quad_tiles, int32_t* bufs, int4* __restrict__ root,
+    int32_t* __restrict__ source) {
+  const int steps = sweep_log2(tile_n);
+  for (int pass = 0; pass < block_b; pass += blockDim.x) {
+    const int w = pass + threadIdx.x;
+    const long long row = w < block_b && tile0 + w < n_words ? tile0 + w
+                                                             : -1;
+    int32_t word[kMaxLen];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int4 v = row >= 0 ? __ldg(words + 4 * row + k)
+                              : make_int4(0, 0, 0, 0);
+      word[4 * k + 0] = v.x;
+      word[4 * k + 1] = v.y;
+      word[4 * k + 2] = v.z;
+      word[4 * k + 3] = v.w;
+    }
+    int32_t keys[kSlots];
+    bool valid[kSlots];
+    candidate_columns(word, keys, valid);
+    const uint32_t mask = sweep<MATCH, N_GROUPS, NB>(
+        stream, vis, n, tile_n, steps, tri_tiles, quad_tiles, bufs, keys,
+        live_mask<N_GROUPS>(valid));
+    if (row >= 0) {
+      int32_t chosen, src;
+      first_hit(keys, mask, chosen, src);
+      root[row] = make_int4((chosen >> 18) & 63, (chosen >> 12) & 63,
+                            (chosen >> 6) & 63, chosen & 63);
+      source[row] = src;
+    }
+  }
+}
+
 #endif  // __CUDACC__
 
 }  // namespace rt

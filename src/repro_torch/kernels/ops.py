@@ -1,9 +1,12 @@
 """Public entry points of the port's kernels.
 
-The counterpart of ``repro.kernels.ops`` for the main path: the stemmer
-megakernels (:func:`extract_roots_fused`), the persistent serving kernel
-(:func:`extract_roots_persistent`), their launch counter, and the
-per-tile integrity checksum the serving ring verifies at retire.
+The counterpart of ``repro.kernels.ops``: the stemmer megakernels
+(:func:`extract_roots_fused`), the persistent serving kernel
+(:func:`extract_roots_persistent`), the text front end
+(:func:`text_to_words`, :func:`extract_roots_text`), the corpus index
+(:func:`build_root_index`, :func:`build_root_index_text`), the launch
+counter over every kernel, and the per-tile integrity checksum the
+serving ring verifies at retire.
 """
 from __future__ import annotations
 
@@ -11,22 +14,35 @@ import numpy as np
 import torch
 
 from repro_torch import device as devmod
+from repro_torch.core import pyref
 from repro_torch.core import stemmer as core_stemmer
+from repro_torch.core import textnorm as tn
+from repro_torch.kernels import postings as pk
 from repro_torch.kernels import stem_fused as sf
+from repro_torch.kernels import text_frontend as tf
+
+# every CUDA wrapper of the port; each counts its own launches
+CUDA_WRAPPERS = sf.CUDA_WRAPPERS + tf.CUDA_WRAPPERS + pk.CUDA_WRAPPERS
 
 
 # -- dispatch accounting -----------------------------------------------------
 def reset_dispatch_count() -> None:
-    """Zero the launch counters of every stemmer kernel (K1, K2, K3)."""
-    for wrapper in sf.CUDA_WRAPPERS:
+    """Zero the launch counters of every kernel (K1-K5)."""
+    for wrapper in CUDA_WRAPPERS:
         wrapper.launches = 0
 
 
 def dispatch_count() -> int:
-    """CUDA stemmer-kernel launches (K1, K2 and both K3 variants) since the
+    """CUDA kernel launches (K1, K2, both K3 variants, K4 and K5) since the
     last :func:`reset_dispatch_count`. Only real kernel launches count:
     the plain versions that run on the CPU launch nothing."""
-    return sum(wrapper.launches for wrapper in sf.CUDA_WRAPPERS)
+    return sum(wrapper.launches for wrapper in CUDA_WRAPPERS)
+
+
+def unpack_keys(keys: torch.Tensor) -> torch.Tensor:
+    """int32[...] packed keys -> int32[..., 4] char codes."""
+    return torch.stack([(keys >> 18) & 63, (keys >> 12) & 63,
+                        (keys >> 6) & 63, keys & 63], dim=-1).to(torch.int32)
 
 
 def _on_device(roots, dev: torch.device):
@@ -101,6 +117,161 @@ def extract_roots_persistent(words, roots, *, infix: bool = True,
                    persistent=True, version_slot=version_slot,
                    visit_budget=visit_budget, with_checksum=with_checksum,
                    device=device)
+
+
+# ---------------------------------------------------------------------------
+# Text in: the front end (K4) chained into the stemmer kernels
+# ---------------------------------------------------------------------------
+def text_to_words(chars, *, block_w: int = 128, max_words: int | None = None,
+                  device=devmod.DEFAULT_DEVICE):
+    """Text front end on ``device``: codepoint tile int32[T] (0-padded) ->
+    (words int32[Wp, 16], spans int32[Wp, 2], n_words int32[]).
+
+    The plain PyTorch geometry pre-pass (``textnorm.segment_geometry``:
+    word starts, lengths, byte spans) and then one K4 launch for the
+    per-word normalise/strip/pack work. Rows at and past ``n_words`` are
+    zero; bit-identical to ``textnorm.analyze_text_py`` on the decoded
+    text. Nothing is synchronised: ``n_words`` stays on the device.
+    """
+    dev = devmod.resolve(device)
+    chars = devmod.as_int32(chars, dev)
+    geo = tn.segment_geometry(chars, block_w=block_w, max_words=max_words)
+    words = tf.text_frontend(chars, geo.starts, geo.lens, block_w=block_w)
+    return words, geo.spans, geo.n_words
+
+
+def extract_roots_text(chars, roots, *, block_w: int = 128,
+                       max_words: int | None = None, infix: bool = True,
+                       match: str = "bsearch", block_b: int | None = None,
+                       residency: str = "auto", dict_block_r: int = 8,
+                       num_buffers: int = 2, skip_index: bool = True,
+                       visit_budget: int | None = None,
+                       device=devmod.DEFAULT_DEVICE):
+    """Text in, roots out: codepoint tile -> (roots int32[Wp, 4], sources
+    int32[Wp], spans int32[Wp, 2], n_words int32[]).
+
+    The front end (K4) chained into the stemmer kernels; the word rows stay
+    on the device between the two. ``block_b`` defaults to ``block_w`` so
+    the front end's padded rows feed the stemmer without re-tiling. Rows
+    past ``n_words`` are all-zero words and carry SRC_NONE.
+    """
+    words, spans, n_words = text_to_words(chars, block_w=block_w,
+                                          max_words=max_words, device=device)
+    root, source = extract_roots_fused(
+        words, roots, infix=infix, match=match, block_b=block_b or block_w,
+        residency=residency, dict_block_r=dict_block_r,
+        num_buffers=num_buffers, skip_index=skip_index,
+        visit_budget=visit_budget, device=device)
+    return root, source, spans, n_words
+
+
+# ---------------------------------------------------------------------------
+# Corpus indexing: stemmer kernels -> postings kernel (K5) -> CSR scatter
+# ---------------------------------------------------------------------------
+def _root_ids(root: torch.Tensor, source: torch.Tensor,
+              vocab: torch.Tensor) -> torch.Tensor:
+    """(root[W,4], source[W]) -> vocab ids int32[W]; unmatched and padding
+    words get the drop bucket id ``n_roots = vocab.shape[0]``."""
+    n_roots = vocab.shape[0]
+    key = core_stemmer.pack_keys(root).contiguous()
+    idx = torch.searchsorted(vocab, key).to(torch.int32)
+    found = vocab[idx.clamp(max=n_roots - 1).long()] == key
+    valid = found & (source != pyref.SRC_NONE)
+    return torch.where(valid, idx, torch.full_like(idx, n_roots))
+
+
+def build_root_index(words, roots, vocab, doc_ids, positions, *,
+                     mesh=None, infix: bool = True,
+                     match: str = "bsearch", block_b: int = 2048,
+                     residency: str = "auto", dict_block_r: int = 8,
+                     num_buffers: int = 2, skip_index: bool = True,
+                     visit_budget: int | None = None, block_w: int = 2048,
+                     device=devmod.DEFAULT_DEVICE):
+    """One corpus chunk -> one inverted-index partial, on ``device``.
+
+    words int32[W, 16], vocab int32[n_roots] (sorted packed root keys),
+    doc_ids/positions int32[W] -> ``(counts int32[n_roots],
+    docs int32[W_pad], poss int32[W_pad], n_postings int32[])`` with root
+    r's postings at ``[excl_cumsum(counts)[r], +counts[r])``, sorted by
+    global word index (CSR layout; see kernels/postings.py).
+
+    The stemmer kernels chained into the postings kernel (K5); the id map,
+    cumsums and final scatter are PyTorch ops between and after them, with
+    no per-word host loop and no host sync. ``roots`` accepts plain
+    RootDictArrays or a ResolvedRootDict handle, as everywhere.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "build_root_index(mesh=...): the sharded index is not ported"
+            " yet (ROADMAP §1 item 7, multiple GPUs); call it with"
+            " mesh=None")
+    dev = devmod.resolve(device)
+    words = devmod.as_int32(words, dev)
+    vocab = devmod.as_int32(vocab, dev)
+    root, source = extract_roots_fused(
+        words, roots, infix=infix, match=match, block_b=block_b,
+        residency=residency, dict_block_r=dict_block_r,
+        num_buffers=num_buffers, skip_index=skip_index,
+        visit_budget=visit_budget, device=dev)
+    ids = _root_ids(root, source, vocab)
+    n_roots = vocab.shape[0]
+    hist, rank = pk.postings(ids, n_roots=n_roots, block_w=block_w)
+    return pk.finish_postings(hist, rank, ids, devmod.as_int32(doc_ids, dev),
+                              devmod.as_int32(positions, dev),
+                              n_roots=n_roots, block_w=block_w)
+
+
+def build_root_index_text(chars, roots, vocab, byte_off, *, doc0: int = 0,
+                          word0_of_doc0: int = 0, block_w_text: int = 128,
+                          max_words: int | None = None, block_w: int = 2048,
+                          device=devmod.DEFAULT_DEVICE, **stem_kw):
+    """Raw-text variant: codepoint tile + per-doc byte offsets -> the same
+    inverted-index partial as :func:`build_root_index`.
+
+    ``chars`` is a coalesced codepoint tile (textnorm.coalesce_docs),
+    ``byte_off`` int64[D] each document's first utf-8 byte offset in it.
+    Word-to-document attribution and in-document positions come from the
+    front end's byte spans (a sorted search and a scatter-min on the
+    device). ``doc0`` offsets the emitted doc ids for chunked corpora;
+    ``word0_of_doc0`` is the global position of the chunk's first word
+    inside its (chunk-straddling) first document, 0 when documents never
+    straddle chunks.
+    """
+    dev = devmod.resolve(device)
+    root, source, spans, n_words = extract_roots_text(
+        chars, roots, block_w=block_w_text, max_words=max_words, device=dev,
+        **stem_kw)
+    return _finish_index_text(
+        root, source, spans, n_words, devmod.as_int32(vocab, dev),
+        torch.as_tensor(np.asarray(byte_off), dtype=torch.int64).to(dev),
+        doc0, word0_of_doc0, block_w=block_w)
+
+
+def _finish_index_text(root, source, spans, n_words, vocab, byte_off, doc0,
+                       word0_of_doc0, *, block_w: int):
+    wp = root.shape[0]
+    dev = root.device
+    arange = torch.arange(wp, dtype=torch.int32, device=dev)
+    in_tile = arange < n_words
+    # byte span start -> owning document (the serve/text.py retire rule)
+    doc_local = torch.searchsorted(byte_off, spans[:, 0].to(torch.int64),
+                                   right=True) - 1
+    doc_local = doc_local.clamp(min=0)
+    # first word index per document by scatter-min (rows past n_words
+    # carry arange >= n_words, so they never win the min)
+    first = torch.full((byte_off.shape[0],), wp, dtype=torch.int32,
+                       device=dev).scatter_reduce(0, doc_local, arange,
+                                                  "amin", include_self=True)
+    positions = arange - first[doc_local]
+    positions = torch.where(doc_local == 0, positions + int(word0_of_doc0),
+                            positions)
+    n_roots = vocab.shape[0]
+    ids = _root_ids(root, source, vocab)
+    ids = torch.where(in_tile, ids, torch.full_like(ids, n_roots))
+    hist, rank = pk.postings(ids, n_roots=n_roots, block_w=block_w)
+    return pk.finish_postings(hist, rank, ids,
+                              doc_local.to(torch.int32) + int(doc0),
+                              positions, n_roots=n_roots, block_w=block_w)
 
 
 # ---------------------------------------------------------------------------

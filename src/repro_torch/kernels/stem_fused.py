@@ -36,7 +36,10 @@ Each kernel has a plain PyTorch version beside its CUDA wrapper: a CUDA
 tensor launches the kernel (or raises), a CPU tensor runs the plain
 version. Streamed launches are chunked along the batch axis so that each
 launch's visit table stays within ``visit_budget`` entries, exactly as
-the reference chunks its scalar-prefetch table.
+the reference chunks its scalar-prefetch table. ``block_b`` is the logical
+tile (checksum tiles, visit lists, descriptor rows), not the thread count:
+the kernels run min(block_b, 512) threads a block, which stride over the
+tile, so every ``block_b >= 1`` runs on the card as on the CPU.
 """
 from __future__ import annotations
 
@@ -77,7 +80,6 @@ _KEY_NOWHERE = -(1 << 31)  # lands in no tile: below every tile's min
 VISIT_SMEM_BUDGET = 1 << 14
 # Shared memory one block may opt into on an H100 (232,448 bytes).
 SMEM_BLOCK_BYTES = 227 * 1024
-MAX_BLOCK_B = 512          # __launch_bounds__ of the kernels
 _BANK_CHUNK = 1 << 24      # plain comparator bank: elements per compare
 
 
@@ -496,9 +498,8 @@ def _check_words(words: torch.Tensor, block_b: int) -> torch.device:
     if words.shape[1] != ab.MAXLEN:
         raise ValueError(f"words must be [B, {ab.MAXLEN}], got"
                          f" {tuple(words.shape)}")
-    if not 1 <= block_b <= MAX_BLOCK_B:
-        raise ValueError(f"block_b must be in 1..{MAX_BLOCK_B} on CUDA,"
-                         f" got {block_b}")
+    if block_b < 1:
+        raise ValueError(f"block_b must be >= 1, got {block_b}")
     return dev
 
 

@@ -1,9 +1,12 @@
-"""Serving launcher: the stemmer workload through the port's Engine.
+"""Serving launcher: the stemmer and text workloads through the port's
+Engine.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --workload stemmer --requests 16
   PYTHONPATH=src python -m repro_torch.launch.serve --workload stemmer --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --workload stemmer \
       --megabatch 4 --persistent
+  PYTHONPATH=src python -m repro_torch.launch.serve --workload text \
+      --requests 16 --words-per-request 256 [--frontend kernel|reference|host]
 
 Runs on the CUDA device unless ``--device cpu`` is given; with no CUDA
 device present the default raises instead of falling back to the CPU.
@@ -14,7 +17,8 @@ import argparse
 import time
 
 from repro_torch.core import corpus, stemmer
-from repro_torch.serve import DictStore, Engine, StemmerWorkload
+from repro_torch.serve import (DictStore, Engine, StemmerWorkload,
+                               TextAnalysisWorkload)
 
 
 def serve_stemmer(args) -> None:
@@ -51,9 +55,91 @@ def serve_stemmer(args) -> None:
         print(f"  req {rid}: {req.n_words} roots, dict v{req.dict_version}")
 
 
+def build_documents(n_docs: int, words_per_doc: int, seed: int = 1):
+    """Synthesise raw Arabic documents from the conjugated corpus: words
+    joined with spaces, an Arabic comma after every 8th word, and a
+    rotating proclitic attached to every third word so that the front
+    end's stripping path is exercised end to end."""
+    words, _, _ = corpus.build_corpus(n_words=n_docs * words_per_doc,
+                                      seed=seed)
+    pro = ("وال", "ب", "ف", "لل", "ك")
+    docs = []
+    for i in range(n_docs):
+        chunk = words[i * words_per_doc:(i + 1) * words_per_doc]
+        toks = [pro[j % len(pro)] + w if j % 3 == 0 else w
+                for j, w in enumerate(chunk)]
+        toks = [t + "،" if j % 8 == 7 else t for j, t in enumerate(toks)]
+        docs.append(" ".join(toks))
+    return docs
+
+
+def edge_documents() -> list[str]:
+    """Documents that walk every rule of the text front end: every
+    function word, proclitic and enclitic (alone and combined), every
+    diacritic and tatweel inside a word, the alef and taa-marbuta
+    variants, words longer than MAX_RAW codepoints and than 16 letters,
+    stems too short to strip, and empty, whitespace-only, punctuation-only
+    and non-Arabic documents."""
+    from repro_torch.core import alphabet as ab
+    from repro_torch.core import textnorm as tn
+
+    marks = sorted(ab.DIACRITICS) + [ab.TATWEEL]
+    return [
+        " ".join(tn.FUNCTION_WORDS),
+        " ".join(p + "مكتبة" for p in tn.PROCLITICS),
+        " ".join("مكتب" + e for e in tn.ENCLITICS),
+        " ".join(p + "كاتب" + e for p in tn.PROCLITICS for e in tn.ENCLITICS),
+        " ".join("ك" + chr(m) + "ت" + chr(m) + "ب" for m in marks),
+        "كـــتـــب الـــكـــتـــاب " + "ـ" * 40,
+        " ".join(chr(cp) + "كل" + chr(cp) for cp in sorted(ab.NORMALISE)),
+        "ا" * 40 + " " + "ب" * 17 + " " + "كتب" * 12 + " و" + "سـ" * 20,
+        "ك" + "\u0651" * 40 + "تب " + "وال" + "م" * 30 + "هما",
+        "وكل بها لله ولها فهم كم هما",
+        "", " ", "\n\t  \u00a0", "،؛؟!.,«»", "abc 123 ٣٤٥ xyz",
+        "كتب،كتب؛كتب. كتب?كتب",
+    ]
+
+
+def serve_text(args) -> None:
+    d = corpus.build_dictionary(n_tri=1000, n_quad=120, seed=0)
+    store = DictStore(stemmer.RootDictArrays.from_rootdict(
+        d, device=args.device), dict_block_r=args.dict_block_r,
+        device=args.device)
+    eng = Engine(TextAnalysisWorkload(store, block_b=args.block_b,
+                                      char_block=args.char_block,
+                                      frontend=args.frontend,
+                                      dict_block_r=args.dict_block_r,
+                                      num_buffers=args.num_buffers,
+                                      skip_index=not args.full_sweep,
+                                      max_inflight=args.inflight,
+                                      megabatch_tiles=args.megabatch,
+                                      persistent=args.persistent))
+
+    docs = build_documents(args.requests, args.words_per_request)
+    n_bytes = sum(len(doc.encode("utf-8")) for doc in docs)
+    t0 = time.time()
+    rids = [eng.submit(doc) for doc in docs]
+    rep = eng.run_until_drained()
+    dt = time.time() - t0
+    n_words = sum(eng.result(r).n_words for r in rids)
+    print(f"served {args.requests} documents / {n_bytes} bytes /"
+          f" {n_words} words in {dt:.2f}s ({n_bytes / dt:.0f} B/s,"
+          f" {n_words / dt:.1f} Wps, {rep.ticks} ticks,"
+          f" {eng.workload.ticks_launched} launches,"
+          f" frontend {args.frontend}, megabatch {args.megabatch}"
+          f"{', persistent' if args.persistent else ''},"
+          f" inflight {args.inflight})")
+    for rid in rids[:2]:
+        req = eng.result(rid)
+        root, src, span = req.analyses()[0][0]
+        print(f"  req {rid}: {req.n_words} tokens, first root {root!r}"
+              f" (src {src}, bytes {span})")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--workload", choices=("stemmer",), default="stemmer")
+    ap.add_argument("--workload", choices=("stemmer", "text"),
+                    default="stemmer")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--words-per-request", type=int, default=64)
     ap.add_argument("--block-b", type=int, default=256)
@@ -74,13 +160,23 @@ def main(argv=None):
     ap.add_argument("--persistent", action="store_true",
                     help="persistent serving kernel: one launch walks a"
                          " descriptor ring over the megabatch's tiles")
+    ap.add_argument("--char-block", type=int, default=2048,
+                    help="codepoint-tile bucket for the text front end"
+                         " (requests round up to a pow2 multiple)")
+    ap.add_argument("--frontend", choices=("kernel", "reference", "host"),
+                    default="kernel",
+                    help="text front end: the kernel (K4), the plain"
+                         " scatter-based reference, or the Python oracle")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="cuda runs the CUDA kernels; cpu their plain"
                          " PyTorch versions")
     args = ap.parse_args(argv)
     if args.requests < 1 or args.words_per_request < 1:
         ap.error("--requests and --words-per-request must be >= 1")
-    serve_stemmer(args)
+    if args.workload == "text":
+        serve_text(args)
+    else:
+        serve_stemmer(args)
 
 
 if __name__ == "__main__":

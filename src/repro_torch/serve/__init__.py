@@ -1,12 +1,15 @@
-"""Serving core: Engine x StemmerWorkload over a versioned DictStore."""
+"""Serving core: Engine x StemmerWorkload (and TextAnalysisWorkload, text
+in) over a versioned DictStore."""
 from repro_torch.serve.dict_store import (DictStore, DictValidationError,
                                           DictVersion, validate_handle)
 from repro_torch.serve.engine import (DrainReport, Engine, EngineUndrained,
                                       InflightTile, StemmerWorkload,
                                       StemRequest, Workload)
+from repro_torch.serve.text import TextAnalysisWorkload, TextRequest
 
 __all__ = [
     "DictStore", "DictValidationError", "DictVersion", "DrainReport",
     "Engine", "EngineUndrained", "InflightTile", "StemRequest",
-    "StemmerWorkload", "Workload", "validate_handle",
+    "StemmerWorkload", "TextAnalysisWorkload", "TextRequest", "Workload",
+    "validate_handle",
 ]

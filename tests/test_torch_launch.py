@@ -50,6 +50,20 @@ def test_cli_persistent_and_streamed_flags_on_cpu():
                      r" persistent, inflight 2\)$", p.stdout, re.M), p.stdout
 
 
+def test_cli_serves_text_on_cpu():
+    for frontend in ("kernel", "host"):
+        p = _run("-m", "repro_torch.launch.serve", "--workload", "text",
+                 "--device", "cpu", "--requests", "3", "--words-per-request",
+                 "40", "--frontend", frontend, "--megabatch", "2",
+                 "--persistent")
+        assert p.returncode == 0, p.stderr
+        assert re.search(r"^served 3 documents / \d+ bytes / 120 words in"
+                         r" .* B/s, .* Wps, \d+ ticks, \d+ launches,"
+                         rf" frontend {frontend}, megabatch 2, persistent,"
+                         r" inflight 2\)$", p.stdout, re.M), p.stdout
+        assert "first root" in p.stdout
+
+
 def test_cli_default_device_without_cuda_raises():
     _no_cuda()
     p = _run("-m", "repro_torch.launch.serve", "--workload", "stemmer",
@@ -81,19 +95,32 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(len(names), "modules;", "forbidden:", bad)
 assert not bad, bad
+missing = sorted(set(NEW) - set(names))
+print("new modules missing:", missing)
+assert not missing, missing
 """
+
+# the modules of the text and index slice, which the walk must reach
+_NEW_MODULES = ("repro_torch.core.textnorm", "repro_torch.core.corpus",
+                "repro_torch.kernels.text_frontend",
+                "repro_torch.kernels.postings", "repro_torch.kernels.ops",
+                "repro_torch.index", "repro_torch.index.builder",
+                "repro_torch.index.reference", "repro_torch.serve.text",
+                "repro_torch.launch.serve")
 
 
 def test_port_imports_without_jax_or_repro():
-    p = _run("-c", _IMPORT_ALL)
+    p = _run("-c", f"NEW = {_NEW_MODULES!r}\n" + _IMPORT_ALL)
     assert p.returncode == 0, p.stdout + p.stderr
     assert "forbidden: []" in p.stdout
+    assert "new modules missing: []" in p.stdout
 
 
 def test_port_sources_never_import_jax_or_repro():
     forbidden = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)[\s.])",
                            re.M)
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                          ROOT / "chip_ab.py"]
     assert len(files) > 10
     for f in files:
         m = forbidden.search(f.read_text())
