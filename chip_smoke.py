@@ -33,9 +33,33 @@ kernels and the postings kernel — at a realistic size. Phases:
                path's block_w 2048; a ~7M-codepoint tile of 1,048,576
                words, whose rows equal the word stream's
   5c. K5       the postings kernel against its plain version, identical
-               hist and rank, at block_w {128, 1024, 2048, 8192}: all ids
+               hist and rank, at block_w {128, 1024, 2048, 8192, 65536}
+               (the last sorts in global-memory scratch rows): all ids
                dropped, one root, the realistic vocabulary's ids; the
                overflow guard raises
+  5f. K6-K8    the staged Compare path's kernels against their plain
+               versions, bit for bit: K6 (the standalone datapath) over
+               batch sizes {0, 1, 257, 65536} x block_b {64, 256, 1024},
+               zero pad columns; K7 (the comparator bank) over (block_n,
+               block_r) {(1,1), (2,8), (4,2), (16,200)} x tables with and
+               without padding, with the padding-hit keys -2, -1 and the
+               sentinel; K8 (the sorted search) on the realistic tables
+               (shared memory), a 32,768-entry table and the 262,144-key
+               grown dictionary's tables (global memory)
+  5g. staged   1,048,576 words through stem_batch(backend="pallas") (5 K7
+               launches), ops.extract_roots_multilaunch (1 K6 + 5 K7) and
+               extract_roots(backend="fused", extended=True) (7 K8), each
+               with the launch counters set to 0 just before it: equal to
+               the fused path, the fused path and the plain sorted
+               extended path; Table-6 recall through the bank, exactly
+  5h. models   the paper's three execution models from configs.paper
+               PRESETS, words/s each: software (stem_sequential, dense,
+               the first 4096 words), non_pipelined (stem_batch, dense, in
+               batches of 65,536), pipelined (stem_pipelined, the bank,
+               microbatches of 4096, 1,048,576 words), pipelined_sorted;
+               each equal to the fused path; the pipelined/software ratio
+               and the repo's fused_vs_multilaunch ratio (reported, not
+               claimed)
   5d. index    build_corpus_index over 1,048,576 corpus words (block_b =
                block_w = 2048), launches counted from zero, bit-identical
                to the host build; the same corpus from text through
@@ -60,9 +84,11 @@ kernels and the postings kernel — at a realistic size. Phases:
                1,048,576 words (K4: a served request's tile and the
                1,048,576-word tile; K5: an index chunk of 131,072 words and
                1,048,576 words, with torch.sort of the same keys beside
-               it), its wall time per call with the host's share, the
-               plain version's wall time per call, the tile visits of the
-               streamed kernels and their host pre-pass, and a bound
+               it; K7 and K8: the tri group's 6 keys a word, with
+               torch.isin of the same keys beside them), its wall time per
+               call with the host's share, the plain version's wall time
+               per call, the tile visits of the streamed kernels and their
+               host pre-pass, and a bound
 
 Imports nothing of jax or of the ``repro`` package. Any failed check
 raises, so the script exits non-zero and prints no result line; it also
@@ -105,7 +131,15 @@ K3_BATCHES = (1, 257, 65536)
 K3_VERSION_SLOTS = (0, 5)
 WIDE_BLOCKS = (1024, 2048)          # the block_b repair: tiles > 512 threads
 K4_BLOCK_WS = (128, 256, 1024, 2048)
-K5_BLOCK_WS = (128, 1024, 2048, 8192)
+K5_BLOCK_WS = (128, 1024, 2048, 8192, 65536)
+K6_BATCHES = (0, 1, 257, 65536)
+K6_BLOCKS = (64, 256, 1024)
+K7_BLOCKS = ((1, 1), (2, 8), (4, 2), (16, 200))
+K8_BLOCK_NS = (1, 8)
+SOFTWARE_WORDS = 4096               # stem_sequential: one word a step
+# bytes a word through the standalone datapath (K6): the word row in, two
+# int32[32] rows (keys, valid) out
+K6_BYTES_PER_WORD = 16 * 4 + 2 * 32 * 4
 INDEX_WORDS = 1 << 20
 INDEX_CHUNK = 1 << 17
 INDEX_WORDS_PER_DOC = 512
@@ -185,8 +219,31 @@ def device_ms(fn, n: int, host_ms: float) -> float:
     raise RuntimeError("chip_smoke: the host never got ahead of the card")
 
 
+def event_ms(fn, n: int) -> float:
+    """Device time per call for a function that synchronizes inside (as
+    torch.isin does), so no spacer can hold its launches back: CUDA events
+    around n back-to-back calls after a warm-up; the host's time between
+    its kernels counts."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / n
+
+
 def same(got, want) -> int:
-    """Rows or entries that differ between two output tuples."""
+    """Rows or entries that differ between two output tuples (or two
+    tensors)."""
+    if not isinstance(got, (tuple, list)):
+        got, want = (got,), (want,)
     bad = 0
     for g, w in zip(got, want):
         d = g != w
@@ -533,6 +590,217 @@ def k5_phase(pk, real_ids, n_roots):
     return worst
 
 
+def k6_phase(sdp, ops, words):
+    """The standalone datapath against its plain version on the card."""
+    import torch
+
+    t0 = time.perf_counter()
+    worst, cases = 0, 0
+    for b in K6_BATCHES:
+        w = words[:b]
+        if b == 0:   # the wrapper returns early, no launch
+            before = ops.dispatch_count()
+            keys, valid = sdp.stem_datapath(w)
+            check(keys.shape == valid.shape == (0, sdp.N_OUT)
+                  and ops.dispatch_count() == before,
+                  "K6 B=0 must return empty outputs, no launch")
+            continue
+        want = sdp.stem_datapath_plain(w)
+        for block_b in K6_BLOCKS:
+            got = sdp.stem_datapath_cuda(w, block_b=block_b)
+            torch.cuda.synchronize()
+            bad = same(got, want)
+            worst = max(worst, max_err(got, want))
+            cases += 1
+            check(bad == 0 and not got[0][:, 30:].any()
+                  and not got[1][:, 30:].any(),
+                  f"K6 vs plain: {bad} rows differ (B={b}, block_b="
+                  f"{block_b}), or a pad column is not zero")
+    print(f"[K6] B in {K6_BATCHES} x block_b in {K6_BLOCKS}: {cases}"
+          f" launches identical to the plain version, pad columns zero,"
+          f" max_abs_err {worst} ({time.perf_counter() - t0:.1f} s)")
+    return worst
+
+
+def padded_keys(sm, keys, table):
+    """The stemmer's candidate keys with the keys that hit only padding,
+    and one that hits the table, in front."""
+    import torch
+
+    edge = torch.tensor([sm.DICT_PAD, sm.KEY_PAD, sm.DICT_SENTINEL,
+                         int(table[0])], dtype=torch.int32,
+                        device=keys.device)
+    return torch.cat([edge, keys])
+
+
+def k7_phase(sm, keys, tables):
+    """The comparator bank against its plain version on the card, with the
+    padding-hit key -2 hitting exactly when the table was padded."""
+    import torch
+
+    t0 = time.perf_counter()
+    worst, cases = 0, 0
+    for name, table in tables:
+        k = padded_keys(sm, keys, table)
+        for block_n, block_r in K7_BLOCKS:
+            got = sm.dict_match_cuda(k, table, block_n=block_n,
+                                     block_r=block_r)
+            torch.cuda.synchronize()
+            want = sm.dict_match_plain(k, table, block_n=block_n,
+                                       block_r=block_r)
+            bad = same(got, want)
+            worst = max(worst, max_err((got.int(),), (want.int(),)))
+            cases += 1
+            padded = table.shape[0] % (block_r * sm.LANE) != 0
+            check(bad == 0 and bool(got[0]) == (padded or bool(
+                      (table == sm.DICT_PAD).any()))
+                  and bool(got[1]) == bool((table == sm.KEY_PAD).any())
+                  and bool(got[3]),
+                  f"K7 vs plain: {bad} flags differ ({name},"
+                  f" block_n={block_n}, block_r={block_r}), or the padding"
+                  " hits differ from the reference's rule")
+        print(f"[K7] {name} ({table.shape[0]} entries): {k.shape[0]} keys x"
+              f" (block_n, block_r) in {K7_BLOCKS}: identical, -2 hits"
+              " exactly where the table was padded")
+    print(f"[K7] {cases} launches identical to the plain version,"
+          f" max_abs_err {worst} ({time.perf_counter() - t0:.1f} s)")
+    return worst
+
+
+def k8_phase(sm, sf, keys, tables):
+    """The sorted search against its plain version on the card, tables in
+    shared and in global memory, with the sentinel hitting exactly when
+    the table was padded."""
+    import torch
+
+    t0 = time.perf_counter()
+    worst, cases = 0, 0
+    for name, table in tables:
+        k = padded_keys(sm, keys, table)
+        rp = sm.pad_dict_sorted(table).numel()
+        where = "shared" if 4 * rp <= sf.SMEM_BLOCK_BYTES else "global"
+        want = sm.dict_match_bsearch_plain(k, table)
+        for block_n in K8_BLOCK_NS:
+            got = sm.dict_match_bsearch_cuda(k, table, block_n=block_n)
+            torch.cuda.synchronize()
+            bad = same(got, want)
+            worst = max(worst, max_err((got.int(),), (want.int(),)))
+            cases += 1
+            check(bad == 0 and bool(got[2]) == (rp != table.shape[0])
+                  and bool(got[1]) == bool((table == sm.KEY_PAD).any())
+                  and bool(got[3]),
+                  f"K8 vs plain: {bad} flags differ ({name}, block_n="
+                  f"{block_n}), or the sentinel hit differs from the"
+                  " reference's rule")
+        print(f"[K8] {name} ({table.shape[0]} keys, padded {rp}, {where}"
+              f" memory): {k.shape[0]} keys x block_n in {K8_BLOCK_NS}:"
+              " identical")
+    print(f"[K8] {cases} launches identical to the plain version,"
+          f" max_abs_err {worst} ({time.perf_counter() - t0:.1f} s)")
+    return worst
+
+
+def launch_counts(ops) -> dict:
+    return {w.__name__: w.launches for w in ops.CUDA_WRAPPERS if w.launches}
+
+
+def staged_phase(ops, stemmer, arrays, words, fused, sorted_ext):
+    """The staged Compare path over 1M words, three ways, each after a
+    warm-up with the launch counters set to 0 just before and read just
+    after -> {label: (launches, seconds)}."""
+    import torch
+
+    runs = (
+        ("stem_batch(backend='pallas')", "K7",
+         lambda: stemmer.stem_batch(words, arrays, backend="pallas",
+                                    device=DEVICE),
+         {"dict_match_cuda": 5}, fused, "the fused path"),
+        ("ops.extract_roots_multilaunch", "K6+K7",
+         lambda: ops.extract_roots_multilaunch(words, arrays, device=DEVICE),
+         {"stem_datapath_cuda": 1, "dict_match_cuda": 5}, fused,
+         "the fused path"),
+        ("extract_roots(backend='fused', extended=True)", "K8",
+         lambda: stemmer.extract_roots(words, arrays, backend="fused",
+                                       extended=True, device=DEVICE),
+         {"dict_match_bsearch_cuda": 7}, sorted_ext,
+         "the plain sorted extended path"),
+    )
+    out = {}
+    for label, kernels, run, want_launches, want, want_name in runs:
+        run()                                   # warm-up: allocations
+        torch.cuda.synchronize()
+        ops.reset_dispatch_count()
+        t = time.perf_counter()
+        got = run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches = launch_counts(ops)
+        check(launches == want_launches,
+              f"{label}: launches {launches}, want {want_launches}")
+        bad = same(got, want)
+        check(bad == 0, f"{label}: {bad} words differ from {want_name}")
+        n = words.shape[0]
+        print(f"[staged] {label}: {n} words in {secs:.6f} s ({n / secs:.0f}"
+              f" words/s, launches {launches}), equal to {want_name}")
+        out[kernels] = (launches, secs)
+    return out
+
+
+def models_phase(ops, stemmer, presets, arrays, words, fused):
+    """The paper's three execution models (and pipelined_sorted) from the
+    presets, each after a warm-up, checked against the fused path ->
+    {name: words/s}."""
+    import torch
+
+    def batched(w, cfg):
+        outs = [stemmer.stem_batch(w[c0:c0 + cfg.batch], arrays,
+                                   infix=cfg.infix, backend=cfg.backend,
+                                   device=DEVICE)
+                for c0 in range(0, w.shape[0], cfg.batch)]
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+
+    models = {
+        "software": (lambda w, cfg: stemmer.stem_sequential(
+            w, arrays, infix=cfg.infix, backend=cfg.backend, device=DEVICE),
+            SOFTWARE_WORDS),
+        "non_pipelined": (batched, words.shape[0]),
+        "pipelined": (lambda w, cfg: stemmer.stem_pipelined(
+            w, arrays, infix=cfg.infix, backend=cfg.backend,
+            microbatch=cfg.microbatch, device=DEVICE), words.shape[0]),
+        "pipelined_sorted": (lambda w, cfg: stemmer.stem_pipelined(
+            w, arrays, infix=cfg.infix, backend=cfg.backend,
+            microbatch=cfg.microbatch, device=DEVICE), words.shape[0]),
+    }
+    rates = {}
+    for name, (run, n) in models.items():
+        cfg = presets[name]
+        w = words[:n]
+        run(w[:64 if name == "software" else 2 * cfg.microbatch], cfg)
+        torch.cuda.synchronize()
+        ops.reset_dispatch_count()
+        t = time.perf_counter()
+        got = run(w, cfg)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches = launch_counts(ops)
+        bad = same(got, tuple(x[:n] for x in fused))
+        check(bad == 0, f"execution model {name}: {bad} words differ from"
+              " the fused path")
+        if cfg.backend == "pallas":
+            want = -(-n // cfg.microbatch) * 5
+            check(launches == {"dict_match_cuda": want},
+                  f"{name}: launches {launches}, want {want} K7 launches")
+        rates[name] = n / secs
+        print(f"[models] {name} (backend {cfg.backend!r}, batch {cfg.batch},"
+              f" microbatch {cfg.microbatch}): {n} words in {secs:.6f} s,"
+              f" {n / secs:.0f} words/s, launches {launches or 'none'}; equal"
+              " to the fused path")
+    ratio = rates["pipelined"] / rates["software"]
+    print(f"[models] pipelined / software: {ratio:.3f}x words/s (reported,"
+          " not claimed)")
+    return rates
+
+
 def index_phase(ops, ix, corpus, tn, arrays, table):
     """The corpus index over 1M words, words path then text path, launches
     counted from zero for each; bit-identical to the host build."""
@@ -826,7 +1094,9 @@ def main() -> int:
     from repro_torch.core import accuracy, corpus, stemmer
     from repro_torch.core import textnorm as tn
     from repro_torch.kernels import build, ops
+    from repro_torch.configs.paper import PRESETS
     from repro_torch.kernels import postings as pk
+    from repro_torch.kernels import stem_datapath as sdp
     from repro_torch.kernels import stem_fused as sf
     from repro_torch.kernels import stem_match as sm
     from repro_torch.kernels import text_frontend as tf
@@ -834,6 +1104,14 @@ def main() -> int:
 
     dev = torch.device(DEVICE)
     t_all = time.perf_counter()
+    laps = [t_all]
+
+    def lap(name: str) -> None:
+        """Seconds the phase that just ended took, and the run so far."""
+        now = time.perf_counter()
+        print(f"[lap] {name}: {now - laps[-1]:.1f} s (run {now - t_all:.1f}"
+              " s)")
+        laps.append(now)
 
     # ---- 1. card ---------------------------------------------------------
     card = card_line()
@@ -866,6 +1144,8 @@ def main() -> int:
         max(K1_BATCHES), seed=0, chunk_words=max(K1_BATCHES))).words
     words = torch.from_numpy(words_np).to(dev)
 
+    lap("card, build and inputs")
+
     # ---- 3-5. kernels against their plain versions -----------------------
     k1_err = k1_phase(sf, ops, realistic, grown60k, words)
     k2_err = k2_phase(sf, sm, ops, (("realistic", realistic),
@@ -873,6 +1153,8 @@ def main() -> int:
     k3_err = k3_phase(sf, ops, (("realistic", realistic),
                                 ("grown", grown60k)),
                       (("realistic", realistic), ("grown", grown)), words)
+
+    lap("K1-K3 parity")
 
     # ---- 5b-5c. the text front end and the postings kernel ---------------
     table = corpus.build_token_table()
@@ -897,6 +1179,27 @@ def main() -> int:
     real_ids = ops._root_ids(*sf.stem_fused(big_words, realistic,
                                             block_b=INDEX_BLOCK), vocab_t)
     k5_err = k5_phase(pk, real_ids, len(vocab))
+
+    lap("K4-K5 parity")
+
+    # ---- 5f. the staged Compare path's kernels ---------------------------
+    k6_err = k6_phase(sdp, ops, words)
+    cand = sdp.stem_datapath_cuda(words)[0][:, :30].reshape(-1).contiguous()
+    placeholder = torch.tensor([-1], dtype=torch.int32, device=dev)
+    unpadded = torch.unique(cand)[:1024].contiguous()
+    k7_err = k7_phase(sm, cand, (("realistic tri", realistic.tri),
+                                 ("realistic bi", realistic.bi),
+                                 ("1024-entry table", unpadded),
+                                 ("placeholder [-1]", placeholder)))
+    k8_err = k8_phase(sm, sf, cand, (
+        ("realistic tri", realistic.tri), ("realistic quad", realistic.quad),
+        ("realistic bi", realistic.bi),
+        ("32,768-entry table", torch.unique(torch.cat(
+            [grown.tri, grown.quad]))[:32768].contiguous()),
+        ("grown tri", grown.tri), ("grown quad", grown.quad),
+        ("placeholder [-1]", placeholder)))
+
+    lap("K6-K8 parity")
 
     # ---- 6. serve --------------------------------------------------------
     serve_words = np.concatenate([c.words for c in corpus.stream_corpus_words(
@@ -934,6 +1237,8 @@ def main() -> int:
           f" dictionary, {float((want_real[1] > 0).mean()):.4f} on the"
           " realistic one")
 
+    lap("serve")
+
     # ---- 7. extract_roots through K2 -------------------------------------
     stemmer.extract_roots(serve_words, grown, backend="fused",
                           device=dev)       # warm-up: allocations at size
@@ -957,9 +1262,13 @@ def main() -> int:
           f" ({SERVE_WORDS / extract_s:.0f} words/s, {k2_launches} K2"
           f" launches = planned {planned}), equal to the plain stemmer")
 
+    lap("extract")
+
     # ---- 7b. the corpus index, words and text --------------------------
     k5_launches, index_s, index_text_s = index_phase(ops, ix, corpus, tn,
                                                      realistic, table)
+
+    lap("index")
 
     # ---- 7c. text serving -------------------------------------------------
     text_docs = build_documents(TEXT_REQUESTS * TEXT_DOCS_PER_REQUEST,
@@ -970,13 +1279,49 @@ def main() -> int:
             ops, stemmer, tn, realistic, text_docs,
             persistent=persistent)
 
+    lap("text serving")
+
+    # ---- 7d. the staged Compare path and the three execution models -------
+    staged_words = torch.from_numpy(serve_words).to(dev)
+    fused_out = stemmer.extract_roots(staged_words, realistic,
+                                      backend="fused", device=dev)
+    sorted_ext = stemmer.extract_roots(staged_words, realistic,
+                                       backend="sorted", extended=True,
+                                       device=dev)
+    staged = staged_phase(ops, stemmer, realistic, staged_words, fused_out,
+                          sorted_ext)
+    for name in PRESETS:
+        cfg = PRESETS[name]
+        check((cfg.dict_tri, cfg.dict_quad) == (2000, 200),
+              f"preset {name} is not the realistic dictionary")
+    rates = models_phase(ops, stemmer, PRESETS, realistic, staged_words,
+                         fused_out)
+    fused_call = lambda: ops.extract_roots_fused(  # noqa: E731
+        staged_words, realistic, match="bsearch", device=dev)
+    multi_call = lambda: ops.extract_roots_multilaunch(  # noqa: E731
+        staged_words, realistic, device=dev)
+    fused_wall, multi_wall = call_ms(fused_call, 10), call_ms(multi_call, 10)
+    print(f"[models] fused_vs_multilaunch: {multi_wall / fused_wall:.3f}x"
+          f" (extract_roots_fused, bsearch, {fused_wall:.6f} ms a call;"
+          f" extract_roots_multilaunch {multi_wall:.6f} ms a call;"
+          f" {staged_words.shape[0]} words, wall with a sync; reported, not"
+          " claimed)")
+
+    lap("staged path and execution models")
+
     # ---- 8. accuracy -----------------------------------------------------
-    t6 = accuracy.table6(n_words=2000, seed=0, backend="fused", device=dev)
-    rw, ro = t6["with_infix"].root_recall, t6["without_infix"].root_recall
-    print(f"[accuracy] table6 root recall with infix {rw!r},"
-          f" without {ro!r}")
-    check(rw == RECALL_WITH_INFIX and ro == RECALL_WITHOUT_INFIX,
-          "table6 recall differs from the reference")
+    for backend in ("fused", "pallas"):
+        t6 = accuracy.table6(n_words=2000, seed=0, backend=backend,
+                             device=dev)
+        rw = t6["with_infix"].root_recall
+        ro = t6["without_infix"].root_recall
+        print(f"[accuracy] table6 root recall (backend {backend!r}) with"
+              f" infix {rw!r}, without {ro!r}")
+        check(rw == RECALL_WITH_INFIX and ro == RECALL_WITHOUT_INFIX,
+              f"table6 recall (backend {backend!r}) differs from the"
+              " reference")
+
+    lap("accuracy")
 
     # ---- 9. times --------------------------------------------------------
     real_tables = sf.padded_tables(realistic, match="bsearch", infix=True)
@@ -1137,6 +1482,65 @@ def main() -> int:
               f" same keys alone (library_ms) {lib_ms:.6f} ms, bound"
               f" {bd['bound_ms']:.6f} ms by {bd['bound_by']}"
               f" ({bd['n_bytes']} B, {bd['n_ops']} int32 ops)")
+    # K6 at 4096 and 1M words; K7 and K8 on the tri group's keys of those
+    # words (6 a word, against the realistic tri table), as the staged path
+    # gives them, with torch.isin of the same keys beside them
+    tri_bank = sm.pad_dict_bank(realistic.tri, 8).numel()
+    tri_sorted = sm.pad_dict_sorted(realistic.tri).numel()
+    tri_steps = (tri_sorted - 1).bit_length()
+    for b in (SERVE_REQUEST_WORDS, SERVE_WORDS):
+        w = staged_words[:b]
+        k = sdp.stem_datapath_cuda(w)[0][:, :6].reshape(-1).contiguous()
+        n = k.shape[0]
+        n_k = 200 if b == SERVE_REQUEST_WORDS else 10
+        n_p = 10 if b == SERVE_REQUEST_WORDS else 2
+        # membership needs the keys read once, the flags (1 B) written
+        # once and the table read once; its operations are those of a
+        # sorted search, ceil(log2 Rp) probes a key, whatever computes it
+        member_ops = n * tri_steps * OPS_PER_PROBE
+        runs = {
+            "K6": (lambda: sdp.stem_datapath_cuda(w),
+                   lambda: sdp.stem_datapath_plain(w), None,
+                   bound(b * K6_BYTES_PER_WORD, b * DATAPATH_OPS_PER_WORD),
+                   "no single PyTorch call computes stages 1-4"),
+            "K7": (lambda: sm.dict_match_cuda(k, realistic.tri),
+                   lambda: sm.dict_match_plain(k, realistic.tri),
+                   lambda: torch.isin(k, realistic.tri),
+                   bound(5 * n + 4 * tri_bank, member_ops),
+                   f"the bank's own cost {n * tri_bank} compares"),
+            "K8": (lambda: sm.dict_match_bsearch_cuda(k, realistic.tri),
+                   lambda: sm.dict_match_bsearch_plain(k, realistic.tri),
+                   lambda: torch.isin(k, realistic.tri),
+                   bound(5 * n + 4 * tri_sorted, member_ops),
+                   f"{n * (tri_steps + 1)} probes"),
+        }
+        for name, (kernel, plain, library, bd, note) in runs.items():
+            check(same(kernel(), plain()) == 0,
+                  f"timed shape B={b}: {name} differs from its plain version")
+            if library is not None:
+                check(torch.equal(kernel(), library()),
+                      f"timed shape B={b}: {name} differs from torch.isin")
+            k_call = call_ms(kernel, n_k)
+            ms = device_ms(kernel, n_k, k_call)
+            # torch.isin synchronizes inside: events around the calls
+            lib_ms = event_ms(library, n_k) if library is not None else None
+            plain_ms = call_ms(plain, n_p)
+            times[(name, b)] = dict(ms=ms, call_ms=k_call, plain_ms=plain_ms,
+                                    library_ms=lib_ms, **bd)
+            lib = (f"torch.isin of the same keys (library_ms) {lib_ms:.6f} ms"
+                   if lib_ms is not None else "library_ms null")
+            print(f"[times] {name} B={b} ({n} keys for K7/K8): {ms:.6f} ms"
+                  f" on the card ({k_call:.6f} ms a call with the host),"
+                  f" plain {plain_ms:.6f} ms a call, {lib}, bound"
+                  f" {bd['bound_ms']:.6f} ms by {bd['bound_by']}"
+                  f" ({bd['n_bytes']} B, {bd['n_ops']} int32 ops); {note}")
+    for label, (launches, secs) in staged.items():
+        key = "K8" if label == "K8" else "K7"
+        busy = (launches.get("dict_match_cuda", 0)
+                + launches.get("dict_match_bsearch_cuda", 0)) \
+            * times[(key, SERVE_WORDS)]["ms"] * 1e-3 / secs
+        print(f"[times] staged {label}: the Compare kernel ran for"
+              f" {busy:.6f} of the wall time ({secs:.6f} s)")
     for persistent, (launches, serve_s, admit_s, n_w, n_b) in \
             text_runs.items():
         k4_busy = (launches["text_frontend_cuda"]
@@ -1163,6 +1567,7 @@ def main() -> int:
         print(f"[times] {label}: the kernel ran for {busy:.6f} of the wall"
               f" time ({launches} launches x its device time at B={serve_b},"
               f" over {serve_s:.6f} s)")
+    lap("times")
     print(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(card_line())
 
@@ -1194,6 +1599,15 @@ def main() -> int:
         entry("postings", "K5", csrc + "postings.cu",
               "src/repro/kernels/postings.py:92",
               k5_launches["postings_cuda"], k5_err, shape="index chunk"),
+        entry("stem_candidates", "K6", csrc + "stem_candidates.cu",
+              "src/repro/kernels/stem_datapath.py:121",
+              staged["K6+K7"][0]["stem_datapath_cuda"], k6_err),
+        entry("dict_match_bank", "K7", csrc + "dict_match.cu",
+              "src/repro/kernels/stem_match.py:152",
+              staged["K7"][0]["dict_match_cuda"], k7_err),
+        entry("dict_match_bsearch", "K8", csrc + "dict_match.cu",
+              "src/repro/kernels/stem_match.py:208",
+              staged["K8"][0]["dict_match_bsearch_cuda"], k8_err),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

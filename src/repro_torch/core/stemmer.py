@@ -10,7 +10,9 @@ The counterpart of ``repro.core.stemmer``: the five FPGA pipeline stages
                                                truncation grid (VHDL Fig 12)
   stage 4  Filter by Size                   -> implicit in the static grid
   stage 5  Compare Stems & Extract Root     -> dictionary match (dense /
-                                               sorted search / the stemmer
+                                               sorted search / the
+                                               comparator-bank or sorted-
+                                               search kernel / the stemmer
                                                megakernel) + priority select
 
 Candidate grid: a stem is word[p+1 : p+1+L] for prefix cut p in {-1..4} and
@@ -237,13 +239,23 @@ def _match(keys, dict_keys, backend: str):
         return match_dense(keys, dict_keys)
     if backend == "sorted":
         return match_sorted(keys, dict_keys)
+    if backend in ("pallas", "fused"):
+        from repro_torch.kernels import ops  # lazy: kernels depend on core
+
+        # "pallas" is the comparator bank (K7); "fused" reaching stage 5
+        # on its own (the extended rule pool) uses the sorted search (K8).
+        # One launch a candidate group on a card.
+        strategy = "bsearch" if backend == "fused" else "bank"
+        shape = keys.shape
+        return ops.dict_match(keys.reshape(-1), dict_keys, strategy=strategy,
+                              device=keys.device).reshape(shape)
     raise ValueError(f"unknown match backend: {backend}")
 
 
 # ---------------------------------------------------------------------------
 # Full extraction
 # ---------------------------------------------------------------------------
-BACKENDS = ("dense", "sorted", "fused")
+BACKENDS = ("dense", "sorted", "pallas", "fused")
 
 
 def extract_roots(words, roots, *, infix: bool = True,
@@ -258,27 +270,23 @@ def extract_roots(words, roots, *, infix: bool = True,
     roots may be plain RootDictArrays or a ResolvedRootDict handle whose
     pinned residency then overrides the residency argument.
 
-    backend selects the Compare stage: "dense" / "sorted" (plain PyTorch)
-    or "fused" — the stage 1-5 stemmer megakernels (kernels/stem_fused.py),
-    which run the CUDA kernels on a CUDA device and their plain versions
-    on the CPU. For the fused backend, residency picks the dictionary
-    layout ("resident", "streamed", or "auto": resident while it fits);
-    ``num_buffers`` (copy pipeline depth) and ``skip_index`` (visit only
-    the tiles that can hit) tune the streamed sweep and are ignored
-    elsewhere.
+    backend selects the Compare stage: "dense" / "sorted" (plain PyTorch),
+    "pallas" (the comparator-bank kernel, one launch a candidate group) or
+    "fused" — the stage 1-5 stemmer megakernels (kernels/stem_fused.py).
+    Kernels run as CUDA kernels on a CUDA device and as their plain
+    versions on the CPU. For the fused backend, residency picks the
+    dictionary layout ("resident", "streamed", or "auto": resident while
+    it fits); ``num_buffers`` (copy pipeline depth) and ``skip_index``
+    (visit only the tiles that can hit) tune the streamed sweep and are
+    ignored elsewhere. The extended rule pool is not in the megakernel's
+    candidate grid, so extended=True keeps the staged path and runs stage
+    5 through the sorted-search kernel, one launch a group.
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r} (want one of"
-                         f" {BACKENDS}; the staged 'pallas' kernels are"
-                         " not ported yet, ROADMAP §2 K6-K8)")
+                         f" {BACKENDS})")
     dev = devmod.resolve(device)
-    if backend == "fused":
-        if extended:
-            raise NotImplementedError(
-                "extended=True with backend='fused' runs stage 5 through"
-                " the standalone sorted-search kernel (reference"
-                " stem_match._bsearch_kernel), not ported yet: ROADMAP §2"
-                " K8. Use backend='sorted'.")
+    if backend == "fused" and not extended:
         from repro_torch.kernels import ops  # lazy: kernels depend on core
 
         return ops.extract_roots_fused(words, roots, infix=infix,
@@ -342,6 +350,10 @@ def extract_roots(words, roots, *, infix: bool = True,
     return root, source.to(torch.int32)
 
 
+# ---------------------------------------------------------------------------
+# The paper's three execution models: each accepts the full (infix,
+# backend, extended, residency, num_buffers, skip_index) option set.
+# ---------------------------------------------------------------------------
 def stem_batch(words, roots, *, infix=True, backend="sorted", extended=False,
                residency="auto", num_buffers=2, skip_index=True,
                device=devmod.DEFAULT_DEVICE):
@@ -350,3 +362,49 @@ def stem_batch(words, roots, *, infix=True, backend="sorted", extended=False,
                          extended=extended, residency=residency,
                          num_buffers=num_buffers, skip_index=skip_index,
                          device=device)
+
+
+def stem_sequential(words, roots, *, infix=True, backend="sorted",
+                    extended=False, residency="auto", num_buffers=2,
+                    skip_index=True, device=devmod.DEFAULT_DEVICE):
+    """'Software implementation' analogue: one word at a time (the
+    reference's lax.scan is a Python loop here)."""
+    dev = devmod.resolve(device)
+    words = devmod.as_int32(words, dev)
+    outs = [extract_roots(words[i:i + 1], roots, infix=infix,
+                          backend=backend, extended=extended,
+                          residency=residency, num_buffers=num_buffers,
+                          skip_index=skip_index, device=dev)
+            for i in range(words.shape[0])]
+    if not outs:
+        return (torch.zeros((0, 4), dtype=torch.int32, device=dev),
+                torch.zeros((0,), dtype=torch.int32, device=dev))
+    return (torch.cat([o[0] for o in outs]),
+            torch.cat([o[1] for o in outs]))
+
+
+def stem_pipelined(words, roots, *, infix=True, backend="sorted",
+                   extended=False, residency="auto", num_buffers=2,
+                   skip_index=True, microbatch=256,
+                   device=devmod.DEFAULT_DEVICE):
+    """'Pipelined processor' analogue on one device: microbatched streaming.
+
+    The batch is padded with zero words to a multiple of ``microbatch``,
+    each microbatch goes through :func:`stem_batch` (queued behind the
+    last on the card's stream) and the outputs are concatenated and
+    trimmed. Bit-identical to stem_batch.
+    """
+    dev = devmod.resolve(device)
+    words = devmod.as_int32(words, dev)
+    b = words.shape[0]
+    pad = (-b) % microbatch
+    wp = torch.cat([words, words.new_zeros((pad, words.shape[1]))]) if pad \
+        else words
+    outs = [stem_batch(c, roots, infix=infix, backend=backend,
+                       extended=extended, residency=residency,
+                       num_buffers=num_buffers, skip_index=skip_index,
+                       device=dev)
+            for c in wp.reshape(-1, microbatch, words.shape[1])]
+    root = torch.cat([o[0] for o in outs])[:b]
+    source = torch.cat([o[1] for o in outs])[:b]
+    return root, source

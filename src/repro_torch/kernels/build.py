@@ -210,7 +210,8 @@ def _build(specs: list[_Spec]) -> list[Path]:
 
 
 CUDA_LIBRARIES = ("stem_fused", "stem_streamed", "stem_persistent",
-                  "text_frontend", "postings")
+                  "text_frontend", "postings", "stem_candidates",
+                  "dict_match")
 
 
 def build_cuda() -> tuple[float, dict[str, Path]]:
@@ -240,7 +241,11 @@ _SIGNATURES = {
     "text_frontend": {
         "text_frontend_launch": [_P, _LL, _P, _P, _I, _P, _P, _I, _P, _I,
                                  _P]},
-    "postings": {"postings_launch": [_P, _I, _I, _I, _P, _P, _P]},
+    "postings": {"postings_launch": [_P, _I, _I, _I, _P, _P, _P, _I, _P]},
+    "stem_candidates": {"stem_candidates_launch": [_P, _I, _P, _P, _I, _P]},
+    "dict_match": {
+        "dict_match_bank_launch": [_P, _I, _P, _I, _P, _I, _I, _P],
+        "dict_match_bsearch_launch": [_P, _I, _P, _I, _P, _I, _I, _P]},
 }
 
 
@@ -284,6 +289,17 @@ def text_frontend_library() -> ctypes.CDLL:
 def postings_library() -> ctypes.CDLL:
     """K5, the postings reduction (csrc/postings.cu)."""
     return _cuda_library("postings")
+
+
+def stem_candidates_library() -> ctypes.CDLL:
+    """K6, the standalone datapath (csrc/stem_candidates.cu)."""
+    return _cuda_library("stem_candidates")
+
+
+def dict_match_library() -> ctypes.CDLL:
+    """K7 and K8, the comparator bank and the sorted search
+    (csrc/dict_match.cu)."""
+    return _cuda_library("dict_match")
 
 
 def _host_library() -> ctypes.CDLL:

@@ -21,7 +21,12 @@
 // block_w / (2 * blockDim) compare-exchanges a stage, so every stage is
 // one barrier; the histogram and rank searches run on the sorted shared
 // keys with no further barrier. A tile of block_w keys needs 4 * block_w
-// bytes of shared memory, so block_w goes up to 32768.
+// bytes of shared memory, so tiles up to 32768 keys sort there. A wider
+// tile (the reference takes any power of two whose composite keys fit
+// int32) runs the same network, the same barriers and the same searches
+// on its keys in a global-memory scratch row of its own (template flag
+// GLOBAL): a 65,536-key tile is 256 KB and stays in the 50 MB L2, and a
+// barrier orders global as well as shared accesses within the block.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -31,12 +36,16 @@ namespace {
 
 constexpr int kMaxThreads = 1024;
 
+// GLOBAL: the tile's keys live in scratch[tile * block_w, + block_w)
+// instead of dynamic shared memory.
+template <bool GLOBAL>
 __global__ void __launch_bounds__(kMaxThreads)
 postings_kernel(const int32_t* __restrict__ ids, int32_t* __restrict__ hist,
-                int32_t* __restrict__ rank, int block_w, int log_bw,
-                int n_roots_pad) {
-  extern __shared__ int32_t keys[];
+                int32_t* __restrict__ rank, int32_t* scratch, int block_w,
+                int log_bw, int n_roots_pad) {
+  extern __shared__ int32_t smem_keys[];
   const size_t tile = blockIdx.x;
+  int32_t* keys = GLOBAL ? scratch + tile * block_w : smem_keys;
   const int32_t* tile_ids = ids + tile * block_w;
   for (int l = threadIdx.x; l < block_w; l += blockDim.x) {
     keys[l] = __ldg(tile_ids + l) * block_w + l;
@@ -69,11 +78,13 @@ postings_kernel(const int32_t* __restrict__ ids, int32_t* __restrict__ hist,
 // ids int32[n_tiles, block_w] in [0, n_roots_pad) (n_roots_pad - 1 is the
 // drop bucket; the caller pads with it), block_w a power of two with
 // n_roots_pad * block_w < 2^31 -> hist int32[n_tiles, n_roots_pad], rank
-// int32[n_tiles, block_w]. Launches on `stream` and returns the CUDA
-// error code (0 on success) of the launch.
+// int32[n_tiles, block_w]. scratch is int32[n_tiles, block_w] when
+// 4 * block_w exceeds max_smem bytes (the keys then sort there), else
+// unused and may be null. Launches on `stream` and returns the CUDA error
+// code (0 on success) of the launch.
 extern "C" int postings_launch(const void* ids, int n_tiles, int block_w,
                                int n_roots_pad, void* hist, void* rank,
-                               void* stream) {
+                               void* scratch, int max_smem, void* stream) {
   if (n_tiles <= 0) return 0;
   if (block_w < 1 || (block_w & (block_w - 1)) || n_roots_pad < 1 ||
       (long long)n_roots_pad * block_w >= (1ll << 31)) {
@@ -84,17 +95,20 @@ extern "C" int postings_launch(const void* ids, int n_tiles, int block_w,
   const int threads =
       block_w / 2 < 1 ? 1 : block_w / 2 < kMaxThreads ? block_w / 2
                                                       : kMaxThreads;
-  const size_t smem = sizeof(int32_t) * size_t(block_w);
+  const size_t tile_bytes = sizeof(int32_t) * size_t(block_w);
+  const bool global = tile_bytes > size_t(max_smem);
+  if (global && scratch == nullptr) return int(cudaErrorInvalidValue);
+  auto kernel = global ? postings_kernel<true> : postings_kernel<false>;
+  const size_t smem = global ? 0 : tile_bytes;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        postings_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        int(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (e != cudaSuccess) return int(e);
   }
-  postings_kernel<<<n_tiles, threads, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<n_tiles, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(ids), static_cast<int32_t*>(hist),
-      static_cast<int32_t*>(rank), block_w, log_bw, n_roots_pad);
+      static_cast<int32_t*>(rank), static_cast<int32_t*>(scratch), block_w,
+      log_bw, n_roots_pad);
   return int(cudaGetLastError());
 }
 

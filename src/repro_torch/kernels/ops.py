@@ -2,13 +2,19 @@
 
 The counterpart of ``repro.kernels.ops``: the stemmer megakernels
 (:func:`extract_roots_fused`), the persistent serving kernel
-(:func:`extract_roots_persistent`), the text front end
+(:func:`extract_roots_persistent`), the staged Compare path's kernels
+(:func:`stem_candidates`, :func:`dict_match`,
+:func:`extract_roots_multilaunch`), the megakernel autotuner
+(:func:`autotune_stem_fused`), the text front end
 (:func:`text_to_words`, :func:`extract_roots_text`), the corpus index
 (:func:`build_root_index`, :func:`build_root_index_text`), the launch
 counter over every kernel, and the per-tile integrity checksum the
 serving ring verifies at retire.
 """
 from __future__ import annotations
+
+import functools
+import time
 
 import numpy as np
 import torch
@@ -18,25 +24,63 @@ from repro_torch.core import pyref
 from repro_torch.core import stemmer as core_stemmer
 from repro_torch.core import textnorm as tn
 from repro_torch.kernels import postings as pk
+from repro_torch.kernels import stem_datapath as sdp
 from repro_torch.kernels import stem_fused as sf
+from repro_torch.kernels import stem_match as sm
 from repro_torch.kernels import text_frontend as tf
 
 # every CUDA wrapper of the port; each counts its own launches
-CUDA_WRAPPERS = sf.CUDA_WRAPPERS + tf.CUDA_WRAPPERS + pk.CUDA_WRAPPERS
+CUDA_WRAPPERS = (sf.CUDA_WRAPPERS + tf.CUDA_WRAPPERS + pk.CUDA_WRAPPERS
+                 + sdp.CUDA_WRAPPERS + sm.CUDA_WRAPPERS)
 
 
 # -- dispatch accounting -----------------------------------------------------
 def reset_dispatch_count() -> None:
-    """Zero the launch counters of every kernel (K1-K5)."""
+    """Zero the launch counters of every kernel (K1-K8)."""
     for wrapper in CUDA_WRAPPERS:
         wrapper.launches = 0
 
 
 def dispatch_count() -> int:
-    """CUDA kernel launches (K1, K2, both K3 variants, K4 and K5) since the
+    """CUDA kernel launches (K1, K2, both K3 variants, K4-K8) since the
     last :func:`reset_dispatch_count`. Only real kernel launches count:
     the plain versions that run on the CPU launch nothing."""
     return sum(wrapper.launches for wrapper in CUDA_WRAPPERS)
+
+
+def dict_match(keys, dict_keys, *, strategy: str = "bank",
+               device=devmod.DEFAULT_DEVICE, **kw) -> torch.Tensor:
+    """Membership of packed stem keys in a packed root dictionary, on
+    ``device``: keys int32[N], dict_keys int32[R] -> bool[N].
+
+    strategy="bank"    the comparator bank (K7): all-pairs compare against
+                       the table padded to ``block_r * 128`` entries
+    strategy="bsearch" the sorted search (K8): bisection of the sorted,
+                       pow2 sentinel-padded table; ``block_r`` is dropped
+    A CUDA device launches the kernel (one launch, none for N = 0); the
+    CPU runs its plain version.
+    """
+    dev = devmod.resolve(device)
+    keys = devmod.as_int32(keys, dev)
+    dict_keys = devmod.as_int32(dict_keys, dev)
+    on_cuda = dev.type == "cuda"
+    if strategy == "bank":
+        run = sm.dict_match_cuda if on_cuda else sm.dict_match_plain
+        return run(keys, dict_keys, **kw)
+    if strategy == "bsearch":
+        kw.pop("block_r", None)  # bsearch holds the whole dict resident
+        run = (sm.dict_match_bsearch_cuda if on_cuda
+               else sm.dict_match_bsearch_plain)
+        return run(keys, dict_keys, **kw)
+    raise ValueError(f"unknown match strategy: {strategy}")
+
+
+def stem_candidates(words, *, block_b: int = 256,
+                    device=devmod.DEFAULT_DEVICE):
+    """Stages 1-4 alone on ``device`` (K6 on a card): words int32[B,16] ->
+    (keys int32[B,32], valid int32[B,32])."""
+    dev = devmod.resolve(device)
+    return sdp.stem_datapath(devmod.as_int32(words, dev), block_b=block_b)
 
 
 def unpack_keys(keys: torch.Tensor) -> torch.Tensor:
@@ -117,6 +161,123 @@ def extract_roots_persistent(words, roots, *, infix: bool = True,
                    persistent=True, version_slot=version_slot,
                    visit_budget=visit_budget, with_checksum=with_checksum,
                    device=device)
+
+
+def extract_roots_multilaunch(words, roots, *, infix: bool = True,
+                              device=devmod.DEFAULT_DEVICE):
+    """The pre-megakernel pipeline on ``device``: the datapath kernel (K6),
+    then one comparator-bank launch (K7) per candidate group on its
+    ``[B, 6]`` slice of the keys, masked by ``valid``, then the priority
+    select; keys, flags and hit masks go through device memory between
+    the launches. The baseline the megakernel is compared against;
+    bit-identical to it.
+    """
+    dev = devmod.resolve(device)
+    words = devmod.as_int32(words, dev)
+    arrays, _, _ = core_stemmer.unwrap_dict(roots)
+    arrays = arrays.to(dev)
+    keys, valid = sdp.stem_datapath(words)
+    b = words.shape[0]
+    n_groups = 5 if infix else 2
+    hits = []
+    for g, name in enumerate(sf.GROUP_DICTS[:n_groups]):
+        cols = slice(g * sf.N_CAND, (g + 1) * sf.N_CAND)
+        hit = dict_match(keys[:, cols].reshape(-1), getattr(arrays, name),
+                         strategy="bank", device=dev).reshape(b, sf.N_CAND)
+        hits.append(hit & (valid[:, cols] > 0))
+    all_hits = torch.cat(hits, dim=1)
+    first = torch.argmax(all_hits.to(torch.int32), dim=1)      # first True
+    found = all_hits.any(dim=1)
+    chosen = torch.gather(keys[:, :n_groups * sf.N_CAND], 1,
+                          first[:, None])[:, 0]
+    root = torch.where(found[:, None], unpack_keys(chosen), 0)
+    tags = torch.tensor([t for t in sf.GROUP_TAGS[:n_groups]
+                         for _ in range(sf.N_CAND)], dtype=torch.int32,
+                        device=dev)
+    source = torch.where(found, tags[first], pyref.SRC_NONE)
+    return root.to(torch.int32), source.to(torch.int32)
+
+
+def _seconds_per_call(call, iters: int, dev: torch.device) -> float:
+    """One warm-up call, then ``iters`` calls timed: with CUDA events on a
+    card, with the host clock on the CPU."""
+    call()
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            call()
+        return (time.perf_counter() - t0) / iters
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(dev)
+    start.record()
+    for _ in range(iters):
+        call()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) * 1e-3 / iters
+
+
+def autotune_stem_fused(words, roots, *, infix: bool = True,
+                        block_bs=(128, 256, 512), matches=("bank", "bsearch"),
+                        residencies=("resident", "streamed"),
+                        dict_block_rs=(4, 8, 16),
+                        num_bufferss=(1, 2, 4), skip_indexes=(True,),
+                        iters: int = 2, device=devmod.DEFAULT_DEVICE):
+    """Time the megakernels over (block_b, match, residency, dict tile
+    rows, copy pipeline depth, skip index) on ``device`` and return the
+    best config.
+
+    Returns ``{"block_b": int, "match": str, "residency": str,
+    "dict_block_r": int, "num_buffers": int, "skip_index": bool,
+    "timings": {(block_b, match, residency, dict_block_r, num_buffers,
+    skip_index): seconds}}``. Each config has one warm-up call, then
+    ``iters`` timed calls (CUDA events on a card, the host clock on the
+    CPU). Resident configs use ``dict_block_r=0`` / ``num_buffers=0`` in
+    the timing key (the knobs only exist on the streamed path) and are
+    skipped when the dictionaries exceed the resident budget (counting
+    only the tables ``infix`` loads).
+    """
+    dev = devmod.resolve(device)
+    words = devmod.as_int32(words, dev)
+    roots, _, _ = core_stemmer.unwrap_dict(roots)
+    resident_ok = (sf.choose_residency(roots, "auto", infix=infix)
+                   == "resident")
+    timings = {}
+    # clamp tiles to the batch (small batches still tune over strategies)
+    bbs = sorted({min(bb, words.shape[0]) for bb in block_bs})
+    for bb in bbs:
+        for m in matches:
+            for res in residencies:
+                if res == "resident" and not resident_ok:
+                    continue
+                # dict tiling / pipeline depth / skip are no-op knobs on
+                # the resident path
+                streamed = res == "streamed"
+                drs = dict_block_rs if streamed else (0,)
+                nbs = num_bufferss if streamed else (0,)
+                sks = skip_indexes if streamed else (True,)
+                for dr in drs:
+                    for nb in nbs:
+                        for sk in sks:
+                            call = functools.partial(
+                                extract_roots_fused, words, roots,
+                                infix=infix, match=m, block_b=bb,
+                                residency=res, dict_block_r=dr or 8,
+                                num_buffers=nb or 2, skip_index=sk,
+                                device=dev)
+                            timings[(bb, m, res, dr, nb, sk)] = \
+                                _seconds_per_call(call, iters, dev)
+    if not timings:
+        raise ValueError(
+            "autotune_stem_fused: no runnable config — the dictionaries"
+            f" exceed the VMEM residency budget ({sf.MAX_RESIDENT_KEYS}"
+            " keys) and residencies excludes 'streamed'")
+    best = min(timings, key=timings.get)
+    best_bb, best_m, best_res, best_dr, best_nb, best_sk = best
+    return {"block_b": best_bb, "match": best_m, "residency": best_res,
+            "dict_block_r": best_dr or 8, "num_buffers": best_nb or 2,
+            "skip_index": best_sk, "timings": timings}
 
 
 # ---------------------------------------------------------------------------

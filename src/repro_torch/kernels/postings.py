@@ -19,7 +19,8 @@ its kernel.
                   bound by the sort's barriers (66 stages at
                   block_w=2048), so the keys stay in shared memory for the
                   whole network and each stage is one compare-exchange a
-                  thread and one barrier
+                  thread and one barrier; a tile wider than MAX_BLOCK_W
+                  runs the same network in a global-memory scratch row
 
 :func:`postings` takes the plain version for a CPU tensor only; a CUDA
 tensor launches the kernel or raises.
@@ -34,14 +35,14 @@ from repro_torch.kernels.stem_fused import (SMEM_BLOCK_BYTES, _check_cuda,
 
 # int32 composite keys: id * block_w + lane must not overflow.
 MAX_COMPOSITE = 1 << 31
-# The kernel sorts a tile's keys in one block's shared memory (4 B a key):
-# the largest pow2 tile that fits.
+# The largest pow2 tile whose keys (4 B each) the kernel sorts in one
+# block's shared memory; wider tiles sort in a global-memory scratch row.
 MAX_BLOCK_W = 1 << ((SMEM_BLOCK_BYTES // 4).bit_length() - 1)
 
 
 def check_block_w(block_w: int, n_roots: int) -> None:
-    """The reference's guards (pow2, int32 composite keys) and the port's
-    shared-memory limit on the tile."""
+    """The reference's guards: a power of two, and composite keys that fit
+    int32."""
     if block_w < 1 or block_w & (block_w - 1):
         raise ValueError(f"block_w must be a power of two, got {block_w}")
     n_roots_pad = n_roots + 1                  # +1: the drop bucket
@@ -49,10 +50,6 @@ def check_block_w(block_w: int, n_roots: int) -> None:
         raise ValueError(
             f"composite sort keys overflow int32: ({n_roots} roots + drop)"
             f" * block_w {block_w} >= 2^31 — lower block_w")
-    if block_w > MAX_BLOCK_W:
-        raise ValueError(
-            f"block_w {block_w} exceeds {MAX_BLOCK_W}, the largest tile"
-            " whose keys fit one block's shared memory")
 
 
 def pad_ids(ids: torch.Tensor, *, n_roots: int, block_w: int) -> torch.Tensor:
@@ -99,11 +96,17 @@ def postings_cuda(tiles: torch.Tensor, *, n_roots: int, block_w: int):
     rank = torch.empty((n_tiles * block_w,), dtype=torch.int32, device=dev)
     if n_tiles == 0:
         return hist, rank
+    # tiles past MAX_BLOCK_W sort in a scratch row each
+    scratch = torch.empty(tiles.shape if block_w > MAX_BLOCK_W else (0,),
+                          dtype=torch.int32, device=dev)
     lib = build.postings_library()
     with torch.cuda.device(dev):
         err = lib.postings_launch(tiles.data_ptr(), n_tiles, block_w,
                                   n_roots + 1, hist.data_ptr(),
-                                  rank.data_ptr(), _cuda_stream(dev))
+                                  rank.data_ptr(),
+                                  scratch.data_ptr() if scratch.numel()
+                                  else None, 4 * MAX_BLOCK_W,
+                                  _cuda_stream(dev))
     _raise_on(err, lib, "postings")
     postings_cuda.launches += 1
     return hist, rank

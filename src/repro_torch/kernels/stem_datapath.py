@@ -7,6 +7,21 @@ candidate keys and validity flags. The CUDA megakernel runs the same
 per-word logic from ``csrc/stem_datapath.cuh``; this module is its plain
 version, which the CPU path and the tests use.
 
+The standalone datapath kernel (K6) runs stages 1-4 alone and writes the
+candidates to device memory, for the staged Compare path
+(``ops.stem_candidates``, ``ops.extract_roots_multilaunch``):
+
+  stem_datapath_plain  the plain PyTorch version (the CPU path)
+  stem_datapath_cuda   the CUDA kernel, ``csrc/stem_candidates.cu``
+                       (replaces ``repro/kernels/stem_datapath.py:121``,
+                       ``_datapath_kernel``), one thread per word over the
+                       same ``csrc/stem_datapath.cuh`` functions K1 runs
+  stem_datapath        takes the kernel for a CUDA tensor and the plain
+                       version for a CPU tensor
+
+Each writes ``keys, valid int32[B, 32]``: the 30 slots below, then two
+zero pad columns.
+
 Candidate layout (30 slots), matching ``core.stemmer`` group order:
   [ 0: 6)  trilateral     (dict: tri)
   [ 6:12)  quadrilateral  (dict: quad)
@@ -22,6 +37,7 @@ from repro_torch.core import alphabet as ab
 
 N_GROUPS = 5
 N_CAND = 6
+N_OUT = 32  # 30 candidates padded to a power-of-two minor dim
 
 
 def _member(x: torch.Tensor, codes) -> torch.Tensor:
@@ -98,3 +114,64 @@ def candidate_columns(w: torch.Tensor):
     val_cols = [v.to(torch.int32)
                 for v in tri_v + quad_v + rest_v + dq_v + dt_v]
     return key_cols, val_cols
+
+
+# ---------------------------------------------------------------------------
+# the standalone datapath kernel (K6)
+# ---------------------------------------------------------------------------
+def _check_block_b(block_b: int) -> None:
+    if block_b < 1:
+        raise ValueError(f"block_b must be >= 1, got {block_b}")
+
+
+def stem_datapath_plain(words: torch.Tensor, *, block_b: int = 256):
+    """K6's plain PyTorch version, on any device: words int32[B,16] ->
+    (keys int32[B,32], valid int32[B,32]), 30 slots and two zero pads.
+    Each row depends on its word alone, so the kernel's tile (block_b)
+    does not change the result."""
+    _check_block_b(block_b)
+    key_cols, val_cols = candidate_columns(words)
+    zero = torch.zeros((words.shape[0],), dtype=torch.int32,
+                       device=words.device)
+    return (torch.stack(key_cols + [zero, zero], dim=1),
+            torch.stack(val_cols + [zero, zero], dim=1))
+
+
+def stem_datapath_cuda(words: torch.Tensor, *, block_b: int = 256):
+    """Launch K6 (``csrc/stem_candidates.cu``) on the current stream: same
+    contract as :func:`stem_datapath_plain`, for CUDA tensors. Adds one to
+    ``stem_datapath_cuda.launches`` per launch."""
+    from repro_torch.kernels import build  # lazy: builds at first launch
+    from repro_torch.kernels import stem_fused as sf  # lazy: sf imports us
+
+    dev = sf._check_words(words, block_b)
+    b = words.shape[0]
+    keys = torch.empty((b, N_OUT), dtype=torch.int32, device=dev)
+    valid = torch.empty((b, N_OUT), dtype=torch.int32, device=dev)
+    if b == 0:
+        return keys, valid
+    lib = build.stem_candidates_library()
+    with torch.cuda.device(dev):
+        err = lib.stem_candidates_launch(words.data_ptr(), b,
+                                         keys.data_ptr(), valid.data_ptr(),
+                                         block_b, sf._cuda_stream(dev))
+    sf._raise_on(err, lib, "stem_candidates")
+    stem_datapath_cuda.launches += 1
+    return keys, valid
+
+
+stem_datapath_cuda.launches = 0
+CUDA_WRAPPERS = (stem_datapath_cuda,)
+
+
+def stem_datapath(words: torch.Tensor, *, block_b: int = 256):
+    """Stages 1-4 alone: words int32[B,16] -> (keys int32[B,32], valid
+    int32[B,32]) on the words' device. A CUDA tensor launches K6 (one
+    launch, none for B = 0) or raises; a CPU tensor runs the plain
+    version."""
+    _check_block_b(block_b)
+    if words.device.type == "cuda":
+        return stem_datapath_cuda(words, block_b=block_b)
+    if words.device.type != "cpu":
+        raise ValueError(f"no stem_datapath path for device {words.device}")
+    return stem_datapath_plain(words, block_b=block_b)

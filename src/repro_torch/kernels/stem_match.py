@@ -1,16 +1,29 @@
-"""Dictionary layouts and the in-kernel sorted search, in plain PyTorch.
+"""Dictionary layouts, the in-kernel sorted search, and the standalone
+Compare kernels.
 
-The counterpart of the helpers in ``repro.kernels.stem_match`` that the
-stemmer kernels use: the padding constants, the padded table layouts
-(lane-padded for the comparator bank, pow2 sentinel-padded for the sorted
-search, and the tiled ``[tri | quad | bi]`` stream of the streamed
-layout, :class:`DictTileSet`) and ``bsearch_hit``, the branchless
-bisection that the CUDA kernels (``csrc/stem_resident.cuh``) run per
-candidate key.
+The counterpart of ``repro.kernels.stem_match``: the padding constants,
+the padded table layouts (lane-padded for the comparator bank, pow2
+sentinel-padded for the sorted search, and the tiled ``[tri | quad |
+bi]`` stream of the streamed layout, :class:`DictTileSet`),
+``bsearch_hit``, the branchless bisection that the CUDA kernels
+(``csrc/stem_resident.cuh``) run per candidate key, and the two
+membership kernels of the staged Compare path, each beside its plain
+PyTorch version (``csrc/dict_match.cu``):
 
-Padding never matches: candidate keys are >= 0, the bank pads with
+  dict_match_plain / dict_match_cuda (K7, replaces
+      ``repro/kernels/stem_match.py:152``, ``_match_kernel``): the
+      comparator bank, all-pairs equality against the table padded with
+      DICT_PAD to a multiple of ``block_r * 128``;
+  dict_match_bsearch_plain / dict_match_bsearch_cuda (K8, replaces
+      ``:208``, ``_bsearch_kernel``): ``bsearch_hit`` against the sorted
+      table of :func:`pad_dict_sorted`.
+
+Padding never matches a candidate key, which is >= 0: the bank pads with
 DICT_PAD = -2, and the sorted layout pads on the right with a sentinel
-larger than any packed 24-bit key, which keeps the table sorted.
+larger than any packed 24-bit key, which keeps the table sorted. Other
+keys may: as in the reference, a key equal to -2 hits the bank whenever
+the table was padded, and a key equal to DICT_SENTINEL hits the sorted
+search whenever R is not already the padded size. The port keeps both.
 """
 from __future__ import annotations
 
@@ -22,6 +35,10 @@ LANE = 128
 KEY_PAD = -1
 DICT_PAD = -2
 DICT_SENTINEL = 1 << 28
+# the plain comparator bank's all-pairs temporary, in bytes (bool)
+_BANK_TEMP_BYTES = 1 << 28
+# shared memory the bank stages a dictionary tile in (entries: 48 KB)
+_BANK_TILE_MAX = 12 * 1024
 
 
 def _ceil_log2(n: int) -> int:
@@ -130,3 +147,117 @@ def bsearch_hit(flat_dict: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
         hi = torch.where(ge, mid, hi)
         lo = torch.where(ge, lo, mid + 1)
     return take(lo) == keys
+
+
+# ---------------------------------------------------------------------------
+# the standalone Compare kernels: comparator bank (K7), sorted search (K8)
+# ---------------------------------------------------------------------------
+def _check_blocks(block_n: int, block_r: int = 1) -> None:
+    if block_n < 1 or block_r < 1:
+        raise ValueError(f"block_n and block_r must be >= 1, got {block_n},"
+                         f" {block_r}")
+
+
+def pad_dict_bank(dict_keys: torch.Tensor, block_r: int) -> torch.Tensor:
+    """The bank's flat table: padded with DICT_PAD to a multiple of
+    ``block_r * LANE`` entries, as ``dict_match_pallas`` pads it."""
+    r = dict_keys.shape[0]
+    return _pad_right(dict_keys, r + (-r) % (block_r * LANE), DICT_PAD)
+
+
+def dict_match_plain(keys: torch.Tensor, dict_keys: torch.Tensor, *,
+                     block_n: int = 2, block_r: int = 8) -> torch.Tensor:
+    """K7's plain PyTorch version, on any device: keys int32[N], dict_keys
+    int32[R] in any order -> bool[N], each key against every entry of the
+    padded table. The keys go in chunks so that the all-pairs temporary
+    stays under 256 MB."""
+    _check_blocks(block_n, block_r)
+    table = pad_dict_bank(dict_keys, block_r)
+    n = keys.shape[0]
+    out = torch.zeros((n,), dtype=torch.bool, device=keys.device)
+    chunk = max(1, _BANK_TEMP_BYTES // max(1, table.shape[0]))
+    for c0 in range(0, n, chunk):
+        k = keys[c0:c0 + chunk]
+        out[c0:c0 + chunk] = (k[:, None] == table[None, :]).any(dim=1)
+    return out
+
+
+def dict_match_bsearch_plain(keys: torch.Tensor, dict_keys: torch.Tensor, *,
+                             block_n: int = 8) -> torch.Tensor:
+    """K8's plain PyTorch version, on any device: keys int32[N], dict_keys
+    int32[R] sorted -> bool[N], ``bsearch_hit`` against the pow2
+    sentinel-padded table."""
+    _check_blocks(block_n)
+    return bsearch_hit(pad_dict_sorted(dict_keys).reshape(-1), keys)
+
+
+def _check_match_args(keys, dict_keys):
+    """-> (keys, dict_keys, device): contiguous int32 vectors on one card."""
+    from repro_torch.kernels import stem_fused as sf  # lazy: sf imports us
+
+    keys = keys.contiguous()
+    dev = keys.device
+    sf._check_cuda("keys", keys, 1, dev, align=4)
+    sf._check_cuda("dict_keys", dict_keys, 1, dev, align=4)
+    return keys, dev
+
+
+def dict_match_cuda(keys: torch.Tensor, dict_keys: torch.Tensor, *,
+                    block_n: int = 2, block_r: int = 8) -> torch.Tensor:
+    """Launch K7 (``csrc/dict_match.cu``) on the current stream: same
+    contract as :func:`dict_match_plain`, for CUDA tensors. Adds one to
+    ``dict_match_cuda.launches`` per launch."""
+    from repro_torch.kernels import build  # lazy: builds at first launch
+    from repro_torch.kernels import stem_fused as sf
+
+    _check_blocks(block_n, block_r)
+    keys, dev = _check_match_args(keys, dict_keys)
+    n = keys.shape[0]
+    out = torch.empty((n,), dtype=torch.bool, device=dev)
+    if n == 0:
+        return out
+    table = pad_dict_bank(dict_keys, block_r)
+    # a staged tile of block_r * 128 entries, or the largest 128 multiple
+    # that fits the shared-memory budget (the answer is the same)
+    tile_n = LANE * min(block_r, _BANK_TILE_MAX // LANE)
+    lib = build.dict_match_library()
+    with torch.cuda.device(dev):
+        err = lib.dict_match_bank_launch(
+            keys.data_ptr(), n, table.data_ptr(), table.shape[0],
+            out.data_ptr(), block_n * LANE, tile_n, sf._cuda_stream(dev))
+    sf._raise_on(err, lib, "dict_match_bank")
+    dict_match_cuda.launches += 1
+    return out
+
+
+def dict_match_bsearch_cuda(keys: torch.Tensor, dict_keys: torch.Tensor, *,
+                            block_n: int = 8) -> torch.Tensor:
+    """Launch K8 (``csrc/dict_match.cu``) on the current stream: same
+    contract as :func:`dict_match_bsearch_plain`, for CUDA tensors. The
+    table sits in shared memory while it fits one block's budget. Adds
+    one to ``dict_match_bsearch_cuda.launches`` per launch."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import stem_fused as sf
+
+    _check_blocks(block_n)
+    keys, dev = _check_match_args(keys, dict_keys)
+    n = keys.shape[0]
+    out = torch.empty((n,), dtype=torch.bool, device=dev)
+    if n == 0:
+        return out
+    table = pad_dict_sorted(dict_keys).reshape(-1)
+    shared = 4 * table.shape[0] <= sf.SMEM_BLOCK_BYTES
+    lib = build.dict_match_library()
+    with torch.cuda.device(dev):
+        err = lib.dict_match_bsearch_launch(
+            keys.data_ptr(), n, table.data_ptr(), table.shape[0],
+            out.data_ptr(), block_n * LANE, int(shared),
+            sf._cuda_stream(dev))
+    sf._raise_on(err, lib, "dict_match_bsearch")
+    dict_match_bsearch_cuda.launches += 1
+    return out
+
+
+CUDA_WRAPPERS = (dict_match_cuda, dict_match_bsearch_cuda)
+for _wrapper in CUDA_WRAPPERS:
+    _wrapper.launches = 0

@@ -100,13 +100,17 @@ print("new modules missing:", missing)
 assert not missing, missing
 """
 
-# the modules of the text and index slice, which the walk must reach
+# the modules of the text, index and staged-Compare slices, which the walk
+# must reach
 _NEW_MODULES = ("repro_torch.core.textnorm", "repro_torch.core.corpus",
                 "repro_torch.kernels.text_frontend",
                 "repro_torch.kernels.postings", "repro_torch.kernels.ops",
                 "repro_torch.index", "repro_torch.index.builder",
                 "repro_torch.index.reference", "repro_torch.serve.text",
-                "repro_torch.launch.serve")
+                "repro_torch.launch.serve", "repro_torch.kernels.stem_match",
+                "repro_torch.kernels.stem_datapath", "repro_torch.configs",
+                "repro_torch.configs.paper", "repro_torch.data",
+                "repro_torch.data.pipeline")
 
 
 def test_port_imports_without_jax_or_repro():

@@ -100,13 +100,56 @@ def test_guards_match_reference():
 
 
 def test_block_w_limit():
-    """The port's known difference: a tile must fit one block's shared
-    memory; past that every device raises, naming the limit."""
+    """No limit past the reference's guards: a tile wider than one
+    block's shared memory (MAX_BLOCK_W) is taken on every device, and the
+    kernel sorts it in a global-memory scratch row."""
     assert tpk.MAX_BLOCK_W == 32768
     ids = torch.zeros(8, dtype=torch.int32)
-    tpk.postings(ids, n_roots=3, block_w=tpk.MAX_BLOCK_W)
-    with pytest.raises(ValueError, match="exceeds 32768"):
-        tpk.postings(ids, n_roots=3, block_w=2 * tpk.MAX_BLOCK_W)
+    for block_w in (tpk.MAX_BLOCK_W, 2 * tpk.MAX_BLOCK_W, 1 << 19):
+        hist, rank = tpk.postings(ids, n_roots=3, block_w=block_w)
+        assert hist.tolist() == [[8, 0, 0, block_w - 8]]
+        assert rank[:8].tolist() == list(range(8))
+    with pytest.raises(ValueError, match="overflow"):
+        tpk.postings(ids, n_roots=2231, block_w=1 << 20)
+
+
+def test_wide_tile_matches_pallas():
+    """block_w = 65536 (two tiles, the realistic vocabulary) against the
+    interpret-mode Pallas kernel, and the finished postings."""
+    n_roots, w, block_w = 2231, 70_000, 1 << 16
+    ids = _ids(n_roots, w, seed=6)
+    want_h, want_r = rpk.postings_pallas(jnp.asarray(ids), n_roots=n_roots,
+                                         block_w=block_w, interpret=True)
+    got_h, got_r = tpk.postings(torch.from_numpy(ids), n_roots=n_roots,
+                                block_w=block_w)
+    np.testing.assert_array_equal(got_h.numpy(), np.asarray(want_h))
+    np.testing.assert_array_equal(got_r.numpy(), np.asarray(want_r))
+    docs = (np.arange(w) // 100).astype(np.int32)
+    poss = (np.arange(w) % 100).astype(np.int32)
+    want = rpk.finish_postings(want_h, want_r, jnp.asarray(ids),
+                               jnp.asarray(docs), jnp.asarray(poss),
+                               n_roots=n_roots, block_w=block_w)
+    got = tpk.finish_postings(got_h, got_r, torch.from_numpy(ids),
+                              torch.from_numpy(docs), torch.from_numpy(poss),
+                              n_roots=n_roots, block_w=block_w)
+    for g, x in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(x))
+
+
+@pytest.mark.parametrize("block_w", [1 << 16, 1 << 17])
+def test_host_build_takes_wide_tiles(block_w):
+    """The g++ build of csrc/postings.cuh at tiles past MAX_BLOCK_W: the
+    same network and searches the scratch-row kernel runs."""
+    n_roots = 2231
+    ids = _ids(n_roots, 2 * block_w + 5, seed=block_w)
+    tiles = tpk.pad_ids(torch.from_numpy(ids), n_roots=n_roots,
+                        block_w=block_w)
+    want_h, want_r = tpk.postings_plain(tiles, n_roots=n_roots,
+                                        block_w=block_w)
+    got_h, got_r = build.host_postings(tiles.numpy(), n_roots=n_roots,
+                                       block_w=block_w)
+    np.testing.assert_array_equal(got_h, want_h.numpy())
+    np.testing.assert_array_equal(got_r, want_r.numpy())
 
 
 def test_empty_and_cpu_wrapper():
@@ -124,7 +167,7 @@ def test_empty_and_cpu_wrapper():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("block_w", [128, 1024, 2048, 8192])
+@pytest.mark.parametrize("block_w", [128, 1024, 2048, 8192, 1 << 16, 1 << 17])
 def test_postings_kernel_matches_plain_on_card(block_w):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")

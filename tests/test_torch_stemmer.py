@@ -117,4 +117,4 @@ def test_resolved_handle_pins_residency(dicts):
         tstemmer.unwrap_dict(h, "streamed")
     with pytest.raises(ValueError, match="unknown backend"):
         tstemmer.extract_roots(np.zeros((1, 16), np.int32), tda,
-                               backend="pallas", device="cpu")
+                               backend="bogus", device="cpu")
