@@ -7,8 +7,10 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
 drives its main paths — root extraction served through
 ``repro_torch.serve.Engine`` + ``StemmerWorkload`` onto the stemmer
 kernels, text served through ``TextAnalysisWorkload`` onto the text front
-end and the stemmer kernels, and a corpus index built through the stemmer
-kernels and the postings kernel — at a realistic size. Phases:
+end and the stemmer kernels, a corpus index built through the stemmer
+kernels and the postings kernel, flash attention (K9) on a full-width
+LM's attention, and that LM served through ``LMDecodeWorkload`` — at a
+realistic size. Phases:
 
   1. card      name and power limit (nvidia-smi)
   2. build     nvcc build of every kernel library, with its seconds
@@ -80,6 +82,25 @@ kernels and the postings kernel — at a realistic size. Phases:
                (backend "fused") on the 262,144-key dictionary, which
                streams them through K2
   8. accuracy  Table-6 root recall through the megakernel, exactly
+  8b. K9       flash attention against its plain version, fp32 (rtol =
+               atol = 1e-5) and bf16 (2e-2): the reference test's grid
+               (B=2, H=3, D=64, T/block_q/block_k (128,128,128),
+               (256,128,128), (256,64,128), (512,128,64), causal and not),
+               head_dim 32-256, llama3-8b's [1, 32, 4096, 128] and
+               gemma-2b's head_dim 256 at T=2048
+  8c. LM       llama3-8b at full width (32 layers, d 4096, fp32 weights
+               drawn from a seeded CUDA generator, bf16 compute): K9
+               through its entry point on layer 0's q, k, v after rope over
+               4096 random tokens (K/V repeat_interleave'd to 32 heads),
+               launches counted from zero, against the port's
+               _attend_chunked (chunk 512) at fp32; then 8 requests of 32
+               prompt tokens and 16 new served by Engine + LMDecodeWorkload
+               on 4 slots (376 full-batch decode steps, prefill-by-decode):
+               tokens/s, the wall, decode_step's share, a profile of two
+               decode steps by kernel; every request max_new tokens, every
+               logit finite, no kernel launched; prefill against
+               prefill-by-decode checked in bf16 and fp32 on the same
+               weights cut to 2 layers, reported at all 32
   9. times     each kernel's device time with CUDA events at 4096 and
                1,048,576 words (K4: a served request's tile and the
                1,048,576-word tile; K5: an index chunk of 131,072 words and
@@ -88,7 +109,9 @@ kernels and the postings kernel — at a realistic size. Phases:
                torch.isin of the same keys beside them), its wall time per
                call with the host's share, the plain version's wall time
                per call, the tile visits of the streamed kernels and their
-               host pre-pass, and a bound
+               host pre-pass, and a bound; K9 at llama3-8b's attention
+               shape, bf16 and fp32, with scaled_dot_product_attention of
+               the same tensors beside it
 
 Imports nothing of jax or of the ``repro`` package. Any failed check
 raises, so the script exits non-zero and prints no result line; it also
@@ -164,6 +187,35 @@ K4_OPS_PER_EMPTY_ROW = 5
 # (a bitonic network and bisections) is more; it is not the bound.
 K5_OPS_PER_WORD = 4
 K5_OPS_PER_BIN = 2
+# K9: the reference test's grid (B=2, H=3, D=64) and head dims, llama3-8b's
+# prefill attention at train_4k's length and gemma-2b's head_dim 256;
+# tolerances rtol = atol, the reference test's own
+K9_GRID = ((128, 128, 128), (256, 128, 128), (256, 64, 128), (512, 128, 64))
+K9_HEAD_DIMS = (32, 64, 128, 256)
+K9_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# H100 SXM dense peaks for K9's bound: bf16 tensor cores; plain fp32 (the
+# reference's 1e-5 tolerance rules out TF32)
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# the dense LM path at full width: llama3-8b, layer 0's attention over
+# 4096 tokens (_chunk_q(4096) = 512), and serving 8 requests of a 32-token
+# prompt and 16 new tokens on 4 slots (cache_len = 32 + 16 - 1)
+LM_ARCH = "llama3-8b"
+LM_ATTN_T = 4096
+LM_SLOTS = 4
+LM_REQUESTS = 8
+LM_PROMPT = 32
+LM_NEW = 16
+LM_CACHE = LM_PROMPT + LM_NEW - 1
+# K9 against the LM's attention: relative to the largest |output|
+LM_ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# prefill against prefill-by-decode, relative to the largest |logit|, on
+# the full-width weights cut to LM_CHECK_LAYERS layers: the two paths
+# round their products over matrices of other shapes, and at this random
+# init (scores with a std of about 250, a nearly one-hot softmax) each
+# layer multiplies such a difference about five times, so at 32 layers
+# even fp32 rounding grows to O(1) (reported, not checked)
+LM_CHECK_LAYERS = 2
+LM_PREFILL_TOL = {"float32": 5e-4, "bfloat16": 2e-2}
 BLOCK_B = 256
 DEVICE = "cuda"
 
@@ -971,6 +1023,48 @@ def text_serve_phase(ops, stemmer, tn, arrays, docs, *,
     return launches, serve_s, admit_s, n_words, n_bytes
 
 
+def k9_phase(fa):
+    """K9 against its plain version on the card over the reference test's
+    grid, its head dims, llama3-8b's [1, 32, 4096, 128] and gemma-2b's
+    head_dim 256 at T = 2048, fp32 and bf16 -> the largest |K9 - plain|."""
+    import torch
+
+    t0 = time.perf_counter()
+    cases = []
+    for t, bq, bk in K9_GRID:
+        cases += [(f"grid T={t} block_q={bq} block_k={bk}", (2, 3, t, 64),
+                   causal, bq, bk) for causal in (True, False)]
+    cases += [(f"head_dim {d}", (1, 2, 128, d), True, 128, 128)
+              for d in K9_HEAD_DIMS]
+    cases += [("llama3-8b prefill", (1, 32, LM_ATTN_T, 128), True, 128, 128),
+              ("gemma-2b head_dim 256", (1, 8, 2048, 256), True, 128, 128)]
+    g = torch.Generator(DEVICE).manual_seed(0)
+    worst, n = 0.0, 0
+    for dtype, tol in K9_TOL.items():
+        for label, shape, causal, bq, bk in cases:
+            q, k, v = ((torch.randn(shape, generator=g, device=DEVICE) * 0.5)
+                       .to(getattr(torch, dtype)) for _ in range(3))
+            got = fa.flash_attention(q, k, v, causal=causal, block_q=bq,
+                                     block_k=bk, device=DEVICE)
+            torch.cuda.synchronize()
+            want = fa.flash_attention_plain(q, k, v, causal=causal).float()
+            err = (got.float() - want).abs()
+            check(bool((err <= tol + tol * want.abs()).all()),
+                  f"K9 {label} {dtype} causal={causal}: max error"
+                  f" {float(err.max())} beyond rtol = atol = {tol}")
+            worst = max(worst, float(err.max()))
+            n += 1
+            if shape[2] >= 2048:
+                print(f"[K9] {label} {list(shape)} {dtype} causal={causal}:"
+                      f" max |K9 - plain| {float(err.max()):.3e}"
+                      f" (rtol = atol = {tol})")
+    print(f"[K9] {n} cases (the grid, head dims {K9_HEAD_DIMS}, both"
+          f" dtypes) within rtol = atol = 1e-5 (fp32) and 2e-2 (bf16) of"
+          f" the plain version, largest |K9 - plain| {worst:.3e}, in"
+          f" {time.perf_counter() - t0:.1f} s")
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # the main paths
 # ---------------------------------------------------------------------------
@@ -1034,6 +1128,248 @@ def serve_phase(label, ops, sf, arrays, serve_words, want, *,
           f" tiles checksum-verified, {wl.flag_tiles} flag-verified,"
           f" residency {handle.residency})")
     return ran, serve_s
+
+
+def lm_attention_phase(ops, fa, ta, tl, tm, cfg, params):
+    """K9 through its entry point on the full-width LM's own tensors: layer
+    0's q, k, v after rope from 4096 random tokens, K/V expanded to every
+    query head (head h reads KV head h // n_rep: repeat_interleave) and
+    moved to [B, H, T, D], held against the port's _attend_chunked (chunk
+    512) on the same tensors. Launch counters are set to 0 just before
+    the two K9 calls (bf16, and fp32 on the same values) and read just
+    after -> (launches, [B, H, T, D] bf16 q, k, v for the timings)."""
+    import torch
+
+    g = torch.Generator(DEVICE).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (1, LM_ATTN_T), generator=g,
+                         device=DEVICE)
+    dt = tm.compute_dtype(cfg)
+    lp = tm._layer(params["blocks"], 0)
+    hn = tl.rmsnorm(lp["norm1"], tm.embed_tokens(params, cfg, toks, dt),
+                    cfg.rms_eps)
+    q, k, v = ta._qkv(lp["attn"], hn, cfg, dt)
+    q, k = ta._rope_qk(q, k, torch.arange(LM_ATTN_T, device=DEVICE), cfg)
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    chunk = 512
+
+    def heads(x):   # [B, T, H, D] <-> [B, H, T, D]
+        return x.transpose(1, 2).contiguous()
+
+    qh, kh, vh = (heads(x) for x in (q, k.repeat_interleave(n_rep, dim=2),
+                                     v.repeat_interleave(n_rep, dim=2)))
+    lm = {"bfloat16": ta._attend_chunked(q, k, v, cfg, n_rep, chunk),
+          "float32": ta._attend_chunked(q.float(), k.float(), v.float(), cfg,
+                                        n_rep, chunk)}
+    torch.cuda.synchronize()
+    ops.reset_dispatch_count()
+    k9 = {"bfloat16": heads(fa.flash_attention(qh, kh, vh, device=DEVICE)),
+          "float32": heads(fa.flash_attention(qh.float(), kh.float(),
+                                              vh.float(), device=DEVICE))}
+    torch.cuda.synchronize()
+    launches = launch_counts(ops)
+    check(launches == {"flash_attention_cuda": 2},
+          f"K9 on the LM's attention: launches {launches}, want 2 of K9")
+    ref = lm["float32"]
+    scale = float(ref.abs().max())
+
+    def rel(a, b):
+        d = (a.float() - b.float())
+        return float(d.abs().max()) / scale, float(d.norm() / b.float().norm())
+
+    # the fp32 attention of the LM is the reference value; K9 in bf16
+    # computes in fp32 from the same bf16 values and rounds its output once
+    for dtype, tol in LM_ATTN_TOL.items():
+        err, norm = rel(k9[dtype], ref)
+        check(err <= tol, f"K9 ({dtype}) differs from the LM's fp32"
+              f" attention by {err} of its scale (tolerance {tol})")
+        print(f"[lm-attn] K9 {dtype} vs the LM's _attend_chunked at fp32:"
+              f" max error {err:.3e} of the largest |output| {scale:.3f}"
+              f" (tolerance {tol}), norm {norm:.3e}")
+    # head 0's scores over the first 256 positions: their spread is why
+    # bf16-rounded scores move the nearly one-hot softmax
+    s0 = torch.einsum("th,sh->ts", q[0, :256, 0].float(),
+                      k[0, :256, 0].float()) * cfg.head_dim ** -0.5
+    for label, (a, b) in (("the LM's own bf16 attention vs its fp32",
+                           (lm["bfloat16"], ref)),
+                          ("K9 bf16 vs the LM's bf16 attention",
+                           (k9["bfloat16"], lm["bfloat16"]))):
+        err, norm = rel(a, b)
+        print(f"[lm-attn] {label}: max error {err:.3e} of the scale, norm"
+              f" {norm:.3e} (reported, not checked: the LM rounds its"
+              " scores to bf16 before the softmax; their std here is"
+              f" {float(s0.std()):.1f}, a bf16 step at that size is"
+              " 1-2, so near-ties in the nearly one-hot softmax move)")
+    print(f"[lm-attn] K9 bf16 equals K9 fp32 rounded to bf16:"
+          f" {torch.equal(k9['bfloat16'], k9['float32'].bfloat16())};"
+          f" launches {launches}")
+    return launches["flash_attention_cuda"], (qh, kh, vh)
+
+
+def decode_profile(tm, cfg, params, caches, steps: int = 2) -> None:
+    """Device time of full-width decode steps by kernel (torch.profiler),
+    beside the wall time of the same steps."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    tok = torch.zeros((LM_SLOTS, 1), dtype=torch.int32, device=DEVICE)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(steps):
+            tm.decode_step(params, cfg, tok, caches, i)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3 / steps
+    by_name: dict = {}
+    n_kernels = 0
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            key = ev.name[:60]
+            by_name[key] = (by_name.get(key, 0.0)
+                            + ev.time_range.elapsed_us() / 1e3)
+            n_kernels += 1
+    busy = sum(by_name.values()) / steps
+    if not busy:
+        print("[lm-serve] profiler: no device time in the trace (not"
+              " measured)")
+        return
+    print(f"[lm-serve] profile of {steps} decode steps (B={LM_SLOTS}):"
+          f" {busy:.3f} ms of kernels a step ({n_kernels // steps} kernels"
+          f" a step) in {wall:.3f} ms of wall (with the profiler on)")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"[lm-serve]   {ms / steps:9.3f} ms a step ({ms / steps / busy:.4f}"
+              f" of kernel time)  {name}")
+
+
+def lm_serve_phase(ops, serve, tm, pm, cfg, params) -> dict:
+    """Serving at full width: Engine + LMDecodeWorkload serve LM_REQUESTS
+    requests through prefill-by-decode on LM_SLOTS slots, the launch
+    counters set to 0 just before and read just after (the model reaches
+    no kernel, as the reference's reaches no pallas_call). Checks every
+    request's token count and every step's logits finite; then holds the
+    prefill forward's last logits against prefill-by-decode for request
+    0 on the same weights cut to LM_CHECK_LAYERS layers, in bf16 and fp32
+    (fp32 caches), and reports the same at all layers."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    def recording(wl, log):
+        decode = wl._decode
+
+        def step(p, tok, caches, pos):
+            t = time.perf_counter()
+            logits, new = decode(p, tok, caches, pos)
+            torch.cuda.synchronize()
+            log.append((time.perf_counter() - t, torch.isfinite(
+                logits).all(), logits[0, -1].float()))
+            return logits, new
+        wl._decode = step
+
+    wl = serve.LMDecodeWorkload(cfg, params, max_batch=LM_SLOTS,
+                                cache_len=LM_CACHE, device=DEVICE)
+    decode_profile(tm, cfg, wl.params, wl.caches)   # also the warm-up
+    log: list = []
+    recording(wl, log)
+    eng = serve.Engine(wl)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, LM_PROMPT)
+               for _ in range(LM_REQUESTS)]
+    torch.cuda.synchronize()
+    ops.reset_dispatch_count()
+    t = time.perf_counter()
+    rids = [eng.submit(pr, max_new=LM_NEW) for pr in prompts]
+    rep = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = launch_counts(ops)
+    check(not launches, f"the LM path launched {launches}; its model calls"
+          " no kernel")
+    outs = [eng.result(r).tokens_out for r in rids]
+    check([len(o) for o in outs] == [LM_NEW] * LM_REQUESTS,
+          f"token counts {[len(o) for o in outs]}, want {LM_NEW} each")
+    steps = LM_REQUESTS * (LM_PROMPT + LM_NEW - 1)
+    check(len(log) == steps, f"{len(log)} decode steps, want {steps}")
+    check(bool(torch.stack([f for _, f, _ in log]).all()),
+          "non-finite logits in a decode step")
+    decode_s = sum(s for s, _, _ in log)
+    tokens = sum(len(o) for o in outs)
+    print(f"[lm-serve] {cfg.name} at full width ({cfg.n_layers} layers, d"
+          f" {cfg.d_model}, vocab {cfg.vocab}, bf16 compute on fp32"
+          f" weights): {LM_REQUESTS} requests of {LM_PROMPT} prompt tokens"
+          f" and {LM_NEW} new on {LM_SLOTS} slots (cache_len {LM_CACHE}),"
+          f" {tokens} tokens in {wall:.6f} s ({tokens / wall:.6f} tokens/s,"
+          f" {steps} decode steps, {decode_s / steps * 1e3:.6f} ms a step,"
+          f" decode_step {decode_s / wall:.6f} of the wall, {rep.ticks}"
+          " ticks, kernel launches 0); every request returned"
+          f" {LM_NEW} tokens, every logit finite")
+    print(f"[lm-serve] request 0: {outs[0]}")
+
+    # request 0's prefill-by-decode emitted at step LM_PROMPT (slot 0)
+    prompt = torch.from_numpy(prompts[0][None]).to(DEVICE)
+
+    def prefill_vs_decode(cfg_, params_, by_decode=None):
+        """-> (max error / scale, norm, argmax equal where the top-2 gap
+        is clear of tol, the prefill caches' and the decode caches' k)."""
+        fp32 = cfg_.compute_dtype == "float32"
+        pre = tm.forward(params_, cfg_, prompt, mode="prefill")
+        k_dec = None
+        if by_decode is None:
+            wl_ = serve.LMDecodeWorkload(cfg_, params_, max_batch=LM_SLOTS,
+                                         cache_len=LM_CACHE, device=DEVICE)
+            if fp32:
+                wl_.caches = tm.init_caches(cfg_, LM_SLOTS, LM_CACHE,
+                                            dt=torch.float32, device=DEVICE)
+            log_: list = []
+            recording(wl_, log_)
+            wl_.admit(wl_.make_request(0, prompts[0], max_new=1))
+            by_decode = log_[-1][2]
+            k_dec = wl_.caches["blocks"].kv.k[:, 0, :LM_PROMPT].float()
+        a, b = pre.logits[0, -1].float(), by_decode
+        scale = float(a.abs().max())
+        err = float((a - b).abs().max()) / scale
+        norm = float((a - b).norm() / a.norm())
+        top2 = a.topk(2).values
+        tol = LM_PREFILL_TOL[cfg_.compute_dtype]
+        clear = float(top2[0] - top2[1]) > tol * scale
+        same_top = not clear or int(a.argmax()) == int(b.argmax())
+        return err, norm, same_top, pre.caches["blocks"].kv.k[:, 0].float(), \
+            k_dec
+
+    cut = dict(params, blocks=pm.tree_map(lambda x: x[:LM_CHECK_LAYERS],
+                                          params["blocks"]))
+    for dtype in ("bfloat16", "float32"):
+        cfg_cut = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS,
+                                      compute_dtype=dtype)
+        err, norm, same_top, _, _ = prefill_vs_decode(cfg_cut, cut)
+        tol = LM_PREFILL_TOL[dtype]
+        print(f"[lm-serve] {dtype}, full width cut to {LM_CHECK_LAYERS}"
+              f" layers: prefill vs prefill-by-decode, max error {err:.3e}"
+              f" of the largest |logit| (tolerance {tol}), norm {norm:.3e},"
+              f" same argmax where the top-2 gap is clear: {same_top}")
+        check(err <= tol and same_top, f"{dtype} prefill and prefill-by-"
+              f"decode differ by {err} of the logits' scale at"
+              f" {LM_CHECK_LAYERS} layers")
+    err, norm, same_top, _, _ = prefill_vs_decode(cfg, params,
+                                                  log[LM_PROMPT - 1][2])
+    print(f"[lm-serve] bfloat16, all {cfg.n_layers} layers (the served"
+          f" run): prefill vs prefill-by-decode, max error {err:.3e} of the"
+          f" scale, norm {norm:.3e}, same clear argmax {same_top}"
+          " (reported, not checked)")
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    err, norm, same_top, k_pre, k_dec = prefill_vs_decode(cfg32, params)
+    growth = [float((k_pre[i] - k_dec[i]).abs().max() / k_pre[i].abs().max())
+              for i in range(cfg.n_layers)]
+    print(f"[lm-serve] float32, all {cfg.n_layers} layers: prefill vs"
+          f" prefill-by-decode, max error {err:.3e} of the scale, norm"
+          f" {norm:.3e}, same clear argmax {same_top} (reported, not"
+          " checked); the two caches' k differ, relative to the layer's"
+          " largest |k|, by " + ", ".join(
+              f"{g:.1e}" for g in growth[:8]) + f" ... {growth[-1]:.1e}"
+          " from layer 0 on")
+    return dict(tokens=tokens, wall=wall, steps=steps, decode_s=decode_s)
 
 
 def bound(n_bytes: int, n_ops: int) -> dict:
@@ -1101,6 +1437,12 @@ def main() -> int:
     from repro_torch.kernels import stem_match as sm
     from repro_torch.kernels import text_frontend as tf
     from repro_torch.launch.serve import build_documents, edge_documents
+    from repro_torch import configs, serve
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention as ta
+    from repro_torch.models import layers as tl
+    from repro_torch.models import model as tm
+    from repro_torch.models import params as pm
 
     dev = torch.device(DEVICE)
     t_all = time.perf_counter()
@@ -1118,6 +1460,10 @@ def main() -> int:
     print(f"[card] {card}")
     print(f"[card] torch {torch.__version__} cuda {torch.version.cuda}"
           f" python {sys.version.split()[0]}")
+    # fp32 matrix products and convolutions in full fp32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("[card] TF32 off for fp32 matrix products and convolutions")
 
     # ---- 2. build --------------------------------------------------------
     build_s, libs = build.build_cuda()
@@ -1322,6 +1668,30 @@ def main() -> int:
               " reference")
 
     lap("accuracy")
+
+    # ---- 8b. K9 against its plain version --------------------------------
+    k9_err = k9_phase(fa)
+
+    lap("K9 parity")
+
+    # ---- 8c. the dense LM path at full width -----------------------------
+    lm_cfg = configs.get_config(LM_ARCH)
+    lm_params = pm.init_params(tm.model_spec(lm_cfg),
+                               torch.Generator(dev).manual_seed(0),
+                               device=dev)
+    print(f"[lm] {LM_ARCH} at full width: {pm.count_params(lm_params)}"
+          f" parameters, {torch.cuda.memory_allocated() / 1e9:.3f} GB on"
+          " the card")
+    k9_launches, k9_inputs = lm_attention_phase(ops, fa, ta, tl, tm, lm_cfg,
+                                                lm_params)
+    lap("K9 on the LM's attention")
+    lm_run = lm_serve_phase(ops, serve, tm, pm, lm_cfg, lm_params)
+    print(f"[lm] peak memory {torch.cuda.max_memory_allocated() / 1e9:.3f}"
+          " GB")
+    del lm_params
+    torch.cuda.empty_cache()
+
+    lap("LM serving")
 
     # ---- 9. times --------------------------------------------------------
     real_tables = sf.padded_tables(realistic, match="bsearch", infix=True)
@@ -1567,6 +1937,40 @@ def main() -> int:
         print(f"[times] {label}: the kernel ran for {busy:.6f} of the wall"
               f" time ({launches} launches x its device time at B={serve_b},"
               f" over {serve_s:.6f} s)")
+    # K9 at llama3-8b's prefill attention shape, on the LM's own tensors,
+    # with scaled_dot_product_attention of the same tensors beside it
+    for dtype in ("bfloat16", "float32"):
+        q, k, v = (x.to(getattr(torch, dtype)) for x in k9_inputs)
+        kernel = lambda: fa.flash_attention_cuda(q, k, v)  # noqa: E731
+        plain = lambda: fa.flash_attention_plain(q, k, v)  # noqa: E731
+        library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, is_causal=True)
+        lib_diff = float((library().float() - kernel().float()).abs().max())
+        k_call = call_ms(kernel, 5)
+        ms = device_ms(kernel, 10, k_call)
+        lib_ms = device_ms(library, 10, call_ms(library, 5))
+        plain_ms = call_ms(plain, 3)
+        b_, h_, t_, d_ = q.shape
+        flops = 4 * b_ * h_ * d_ * t_ * (t_ + 1) // 2
+        n_bytes = 4 * b_ * h_ * t_ * d_ * q.element_size()
+        t_ops, t_bytes = flops / PEAK_FLOPS[dtype], n_bytes / PEAK_BYTES_S
+        bd = dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                  bound_by="operations" if t_ops > t_bytes else "bytes",
+                  n_bytes=n_bytes, n_ops=flops)
+        times[("K9", dtype)] = dict(ms=ms, call_ms=k_call, plain_ms=plain_ms,
+                                    library_ms=lib_ms, **bd)
+        print(f"[times] K9 {dtype} {list(q.shape)} causal (llama3-8b layer"
+              f" 0): {ms:.6f} ms on the card ({k_call:.6f} ms a call with"
+              f" the host), plain {plain_ms:.6f} ms a call,"
+              f" scaled_dot_product_attention(is_causal=True) of the same"
+              f" tensors (library_ms) {lib_ms:.6f} ms (max |difference|"
+              f" {lib_diff:.3e}), bound {bd['bound_ms']:.6f} ms by"
+              f" {bd['bound_by']} ({n_bytes} B, {flops} flops at"
+              f" {PEAK_FLOPS[dtype] / 1e12:.0f} TFLOP/s); {flops / ms / 1e9:.3f}"
+              " TFLOP/s achieved")
+    print(f"[times] LM serve: {lm_run['steps']} decode steps,"
+          f" {lm_run['decode_s'] / lm_run['steps'] * 1e3:.6f} ms a step,"
+          f" {lm_run['tokens'] / lm_run['wall']:.6f} tokens/s")
     lap("times")
     print(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(card_line())
@@ -1608,6 +2012,9 @@ def main() -> int:
         entry("dict_match_bsearch", "K8", csrc + "dict_match.cu",
               "src/repro/kernels/stem_match.py:208",
               staged["K8"][0]["dict_match_bsearch_cuda"], k8_err),
+        entry("flash_attention", "K9", csrc + "flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:26", k9_launches, k9_err,
+              shape="bfloat16"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,17 @@
+"""llama3-8b [dense] — GQA, 128k vocab [arXiv:2407.21783]."""
+from repro_torch.configs.base import ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="llama3-8b",
+        n_layers=32,
+        d_model=4096,
+        n_heads=32,
+        n_kv_heads=8,
+        head_dim=128,
+        d_ff=14336,
+        vocab=128256,
+        family="dense",
+        rope_theta=500000.0,
+    )

@@ -211,7 +211,7 @@ def _build(specs: list[_Spec]) -> list[Path]:
 
 CUDA_LIBRARIES = ("stem_fused", "stem_streamed", "stem_persistent",
                   "text_frontend", "postings", "stem_candidates",
-                  "dict_match")
+                  "dict_match", "flash_attention")
 
 
 def build_cuda() -> tuple[float, dict[str, Path]]:
@@ -246,6 +246,9 @@ _SIGNATURES = {
     "dict_match": {
         "dict_match_bank_launch": [_P, _I, _P, _I, _P, _I, _I, _P],
         "dict_match_bsearch_launch": [_P, _I, _P, _I, _P, _I, _I, _P]},
+    "flash_attention": {
+        "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   ctypes.c_float, _P]},
 }
 
 
@@ -300,6 +303,11 @@ def dict_match_library() -> ctypes.CDLL:
     """K7 and K8, the comparator bank and the sorted search
     (csrc/dict_match.cu)."""
     return _cuda_library("dict_match")
+
+
+def flash_attention_library() -> ctypes.CDLL:
+    """K9, fused softmax attention (csrc/flash_attention.cu)."""
+    return _cuda_library("flash_attention")
 
 
 def _host_library() -> ctypes.CDLL:

@@ -23,6 +23,7 @@ from repro_torch import device as devmod
 from repro_torch.core import pyref
 from repro_torch.core import stemmer as core_stemmer
 from repro_torch.core import textnorm as tn
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import postings as pk
 from repro_torch.kernels import stem_datapath as sdp
 from repro_torch.kernels import stem_fused as sf
@@ -31,18 +32,18 @@ from repro_torch.kernels import text_frontend as tf
 
 # every CUDA wrapper of the port; each counts its own launches
 CUDA_WRAPPERS = (sf.CUDA_WRAPPERS + tf.CUDA_WRAPPERS + pk.CUDA_WRAPPERS
-                 + sdp.CUDA_WRAPPERS + sm.CUDA_WRAPPERS)
+                 + sdp.CUDA_WRAPPERS + sm.CUDA_WRAPPERS + fa.CUDA_WRAPPERS)
 
 
 # -- dispatch accounting -----------------------------------------------------
 def reset_dispatch_count() -> None:
-    """Zero the launch counters of every kernel (K1-K8)."""
+    """Zero the launch counters of every kernel (K1-K9)."""
     for wrapper in CUDA_WRAPPERS:
         wrapper.launches = 0
 
 
 def dispatch_count() -> int:
-    """CUDA kernel launches (K1, K2, both K3 variants, K4-K8) since the
+    """CUDA kernel launches (K1, K2, both K3 variants, K4-K9) since the
     last :func:`reset_dispatch_count`. Only real kernel launches count:
     the plain versions that run on the CPU launch nothing."""
     return sum(wrapper.launches for wrapper in CUDA_WRAPPERS)

@@ -1,6 +1,7 @@
-"""Serving launcher: the stemmer and text workloads through the port's
+"""Serving launcher: the LM, stemmer and text workloads through the port's
 Engine.
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --workload lm --arch llama3-8b
   PYTHONPATH=src python -m repro_torch.launch.serve --workload stemmer --requests 16
   PYTHONPATH=src python -m repro_torch.launch.serve --workload stemmer --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --workload stemmer \
@@ -8,17 +9,64 @@ Engine.
   PYTHONPATH=src python -m repro_torch.launch.serve --workload text \
       --requests 16 --words-per-request 256 [--frontend kernel|reference|host]
 
-Runs on the CUDA device unless ``--device cpu`` is given; with no CUDA
-device present the default raises instead of falling back to the CPU.
+The LM workload (the default, as in the reference) serves the reduced
+same-family config (``configs.smoke_config``) of ``--arch`` with weights
+drawn from seed 0. Runs on the CUDA device unless ``--device cpu`` is
+given; with no CUDA device present the default raises instead of falling
+back to the CPU.
 """
 from __future__ import annotations
 
 import argparse
 import time
 
+import numpy as np
+import torch
+
+from repro_torch import configs
+from repro_torch import device as devmod
 from repro_torch.core import corpus, stemmer
-from repro_torch.serve import (DictStore, Engine, StemmerWorkload,
-                               TextAnalysisWorkload)
+from repro_torch.models import model as model_mod
+from repro_torch.models import params as pm
+from repro_torch.serve import (DictStore, Engine, LMDecodeWorkload,
+                               StemmerWorkload, TextAnalysisWorkload)
+
+
+def required_cache_len(prompt_len: int, max_new: int) -> int:
+    """KV positions a request writes: prompt_len prefill steps plus
+    max_new - 1 decode steps (the last emitted token is never fed back)."""
+    return prompt_len + max_new - 1
+
+
+def serve_lm(args) -> None:
+    need = required_cache_len(args.prompt_len, args.max_new)
+    cache_len = args.cache_len if args.cache_len else need
+    if cache_len < need:
+        raise SystemExit(
+            f"--cache-len {cache_len} would overflow: prompt_len"
+            f" {args.prompt_len} + max_new {args.max_new} needs >= {need}"
+            " cache positions")
+
+    dev = devmod.resolve(args.device)
+    cfg = configs.smoke_config(configs.get_config(args.arch))
+    params = pm.init_params(model_mod.model_spec(cfg),
+                            torch.Generator(dev).manual_seed(0), device=dev)
+    eng = Engine(LMDecodeWorkload(cfg, params, max_batch=args.max_batch,
+                                  cache_len=cache_len, device=dev))
+
+    rng = np.random.default_rng(0)
+    t0 = time.time()
+    rids = [eng.submit(rng.integers(0, cfg.vocab, args.prompt_len),
+                       max_new=args.max_new)
+            for _ in range(args.requests)]
+    rep = eng.run_until_drained()
+    dt = time.time() - t0
+    total_tokens = sum(len(eng.result(r).tokens_out) for r in rids)
+    print(f"served {args.requests} requests / {total_tokens} tokens in "
+          f"{dt:.2f}s ({total_tokens / dt:.1f} tok/s, {rep.ticks} ticks, "
+          f"cache_len {cache_len})")
+    for rid in rids[:4]:
+        print(f"  req {rid}: {eng.result(rid).tokens_out}")
 
 
 def serve_stemmer(args) -> None:
@@ -138,9 +186,19 @@ def serve_text(args) -> None:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--workload", choices=("stemmer", "text"),
-                    default="stemmer")
+    ap.add_argument("--workload", choices=("lm", "stemmer", "text"),
+                    default="lm")
     ap.add_argument("--requests", type=int, default=8)
+    # lm knobs
+    ap.add_argument("--arch", default="llama3-8b")
+    ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=8)
+    ap.add_argument("--cache-len", type=int, default=0,
+                    help="KV cache positions per slot (default: derived"
+                         " from --prompt-len + --max-new; explicit values"
+                         " too small for that are rejected)")
+    # stemmer and text knobs
     ap.add_argument("--words-per-request", type=int, default=64)
     ap.add_argument("--block-b", type=int, default=256)
     ap.add_argument("--inflight", type=int, default=2,
@@ -175,8 +233,10 @@ def main(argv=None):
         ap.error("--requests and --words-per-request must be >= 1")
     if args.workload == "text":
         serve_text(args)
-    else:
+    elif args.workload == "stemmer":
         serve_stemmer(args)
+    else:
+        serve_lm(args)
 
 
 if __name__ == "__main__":

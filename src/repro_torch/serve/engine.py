@@ -1,9 +1,11 @@
-"""Serving core: queue/admit/finish continuous batching of stemmer requests.
+"""Serving core: queue/admit/finish continuous batching of stemmer and LM
+decode requests.
 
-The counterpart of ``repro.serve.engine``'s ``Engine`` and
-``StemmerWorkload``. The scheduler (:class:`Engine`) owns the FIFO
-request queue, rid allocation, admission and the finished table; what a
-tick of work means is delegated to a :class:`Workload`.
+The counterpart of ``repro.serve.engine``'s ``Engine``,
+``StemmerWorkload``, ``LMDecodeWorkload`` and the ``ServeEngine`` facade
+(Engine + LMDecodeWorkload). The scheduler (:class:`Engine`) owns the
+FIFO request queue, rid allocation, admission and the finished table;
+what a tick of work means is delegated to a :class:`Workload`.
 
 :class:`StemmerWorkload` coalesces queued word-batch requests into
 megabatches of up to ``megabatch_tiles`` ``[block_b, 16]`` tiles, each
@@ -32,6 +34,10 @@ pins the DictStore version it acquired at dispatch, so a hot swap landing
 between dispatch and retire stays exact per word. On the CPU the launch
 runs synchronously and a tile is ready as soon as it is dispatched.
 
+:class:`LMDecodeWorkload` runs greedy decode of the dense-attention LMs,
+one slot per request (its ``expire`` and ``cancel_pending`` are there for
+a caller; the port's Engine calls neither yet).
+
 Not ported yet (ROADMAP §1): deadlines, admission caps, retries,
 bisection and quarantine (a checksum or flag mismatch raises), the
 journal, the watchdog and salvage-on-stall, the health ladder and
@@ -39,14 +45,17 @@ multi-device launches.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Protocol, runtime_checkable
 
 import numpy as np
 import torch
 
+from repro_torch import device as devmod
 from repro_torch.core import alphabet as ab
 from repro_torch.kernels import ops
+from repro_torch.models import model as model_mod
+from repro_torch.models import params as pm
 
 
 @runtime_checkable
@@ -435,3 +444,165 @@ class StemmerWorkload:
             req.dict_versions[r0:r0 + take] = entry.version
             req.served += take
         self._free_slots.append(entry.slot)
+
+
+# ---------------------------------------------------------------------------
+# LM decode workload
+# ---------------------------------------------------------------------------
+@dataclass
+class FailureInfo:
+    """Terminal failure attached to a request: ``code`` is ``deadline``
+    (its deadline passed while it decoded) or ``cancelled`` (torn down by
+    ``cancel_pending``); ``detail`` says how far it got."""
+
+    rid: int
+    code: str
+    detail: str = ""
+
+
+@dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray          # int32 [T]
+    max_new: int = 16
+    tokens_out: list = field(default_factory=list)
+    done: bool = False
+    deadline: float | None = None       # absolute time.monotonic() bound
+    failure: FailureInfo | None = None  # set iff terminally failed
+
+
+class LMDecodeWorkload:
+    """Slot-per-request greedy decode over ``models.model.decode_step``.
+
+    Requests enter a fixed pool of B slots. A request's prompt runs
+    through decode steps into its slot's rows of the batched cache
+    (prefill-by-decode); every tick decodes one token for each live slot;
+    a finished slot frees at once for the next queued request. Each step
+    runs the whole batch at the slot's position and keeps only the slot's
+    rows of the new cache, as the reference does. Runs on ``device``.
+    """
+
+    def __init__(self, cfg, params, *, max_batch: int = 4,
+                 cache_len: int = 128, device=devmod.DEFAULT_DEVICE):
+        self.cfg = cfg
+        self.device = devmod.resolve(device)
+        self.params = pm.tree_map(lambda x: x.to(self.device), params)
+        self.B = max_batch
+        self.cache_len = cache_len
+        self.caches = model_mod.init_caches(cfg, max_batch, cache_len,
+                                            device=self.device)
+        self.slot_req: list[Request | None] = [None] * max_batch
+        self.slot_pos = np.zeros(max_batch, np.int32)   # next position
+
+        self._decode = (lambda p, tok, caches, pos: model_mod.decode_step(
+            p, cfg, tok, caches, pos))
+
+    # -- workload protocol -------------------------------------------------
+    def make_request(self, rid: int, prompt, *, max_new: int = 16) -> Request:
+        if max_new < 1:
+            # prefill always emits the first generated token, so the engine
+            # cannot return fewer than one token per request
+            raise ValueError(f"max_new must be >= 1, got {max_new}")
+        return Request(rid, np.asarray(prompt, np.int32), max_new)
+
+    def has_capacity(self) -> bool:
+        return any(r is None for r in self.slot_req)
+
+    def admit(self, req: Request):
+        self._prefill_into_slot(self.slot_req.index(None), req)
+
+    @property
+    def active(self) -> int:
+        return sum(r is not None for r in self.slot_req)
+
+    def pending_rids(self) -> list[int]:
+        return [r.rid for r in self.slot_req if r is not None]
+
+    def tick(self) -> list[Request]:
+        """Decode one token for every live slot.
+
+        Doneness is checked BEFORE decoding: a request admitted this tick
+        already holds its prefill-emitted token, so with max_new=1 it frees
+        its slot without an extra decode.
+        """
+        finished = []
+        for slot in range(self.B):
+            req = self.slot_req[slot]
+            if req is None:
+                continue
+            if len(req.tokens_out) >= req.max_new:
+                finished.append(self._finish_slot(slot, req))
+                continue
+            self._step_slot(slot, req.tokens_out[-1], emit=True)
+            if len(req.tokens_out) >= req.max_new:
+                finished.append(self._finish_slot(slot, req))
+        return finished
+
+    def expire(self, now: float) -> list[Request]:
+        """Free + fail slots whose request deadline passed; partial
+        tokens stay on the request for the caller to inspect."""
+        out = []
+        for slot in range(self.B):
+            req = self.slot_req[slot]
+            if (req is not None and req.deadline is not None
+                    and now > req.deadline):
+                req.failure = FailureInfo(
+                    req.rid, "deadline",
+                    detail=f"{len(req.tokens_out)}/{req.max_new} tokens"
+                           " decoded")
+                out.append(self._finish_slot(slot, req))
+        return out
+
+    def cancel_pending(self) -> list[Request]:
+        out = []
+        for slot in range(self.B):
+            req = self.slot_req[slot]
+            if req is not None:
+                req.failure = FailureInfo(
+                    req.rid, "cancelled",
+                    detail="slot torn down with the request decoding")
+                out.append(self._finish_slot(slot, req))
+        return out
+
+    # -- decode machinery --------------------------------------------------
+    def _prefill_into_slot(self, slot: int, req: Request):
+        """Prompt tokens run through decode steps into this slot's cache;
+        the last prompt token emits the first generated token."""
+        self.slot_req[slot] = req
+        self.slot_pos[slot] = 0
+        for tok in req.prompt[:-1]:
+            self._step_slot(slot, int(tok), emit=False)
+        self._step_slot(slot, int(req.prompt[-1]), emit=True)
+
+    def _step_slot(self, slot: int, token: int, emit: bool):
+        toks = torch.zeros((self.B, 1), dtype=torch.int32, device=self.device)
+        toks[slot] = token
+        logits, new_caches = self._decode(self.params, toks, self.caches,
+                                          int(self.slot_pos[slot]))
+        # keep only this slot's cache rows (positions differ per slot)
+        _merge_slot(self.caches, new_caches, slot)
+        self.slot_pos[slot] += 1
+        if emit:
+            nxt = int(torch.argmax(logits[slot, -1], dim=-1))
+            self.slot_req[slot].tokens_out.append(nxt)
+
+    def _finish_slot(self, slot: int, req: Request) -> Request:
+        req.done = True
+        self.slot_req[slot] = None
+        return req
+
+
+class ServeEngine(Engine):
+    """The LM-serving entry point: Engine + LMDecodeWorkload."""
+
+    def __init__(self, cfg, params, *, max_batch: int = 4,
+                 cache_len: int = 128, device=devmod.DEFAULT_DEVICE):
+        super().__init__(LMDecodeWorkload(cfg, params, max_batch=max_batch,
+                                          cache_len=cache_len, device=device))
+
+
+def _merge_slot(old, new, slot: int) -> None:
+    """Copy slot ``slot``'s rows (batch axis 1 of every [L, B, ...] leaf)
+    from ``new`` into ``old``, in place: the reference builds a new tree
+    with ``.at[:, slot].set``; the values are the same."""
+    pm.tree_map(lambda o, n: o[:, slot].copy_(n[:, slot]), old, new)

@@ -100,8 +100,8 @@ print("new modules missing:", missing)
 assert not missing, missing
 """
 
-# the modules of the text, index and staged-Compare slices, which the walk
-# must reach
+# the modules of the text, index, staged-Compare and LM slices, which the
+# walk must reach
 _NEW_MODULES = ("repro_torch.core.textnorm", "repro_torch.core.corpus",
                 "repro_torch.kernels.text_frontend",
                 "repro_torch.kernels.postings", "repro_torch.kernels.ops",
@@ -110,7 +110,12 @@ _NEW_MODULES = ("repro_torch.core.textnorm", "repro_torch.core.corpus",
                 "repro_torch.launch.serve", "repro_torch.kernels.stem_match",
                 "repro_torch.kernels.stem_datapath", "repro_torch.configs",
                 "repro_torch.configs.paper", "repro_torch.data",
-                "repro_torch.data.pipeline")
+                "repro_torch.data.pipeline", "repro_torch.configs.base",
+                "repro_torch.configs.llama3_8b", "repro_torch.configs.gemma_2b",
+                "repro_torch.kernels.flash_attention", "repro_torch.models",
+                "repro_torch.models.params", "repro_torch.models.layers",
+                "repro_torch.models.attention", "repro_torch.models.blocks",
+                "repro_torch.models.model")
 
 
 def test_port_imports_without_jax_or_repro():
