@@ -86,8 +86,10 @@ realistic size. Phases:
                atol = 1e-5) and bf16 (2e-2): the reference test's grid
                (B=2, H=3, D=64, T/block_q/block_k (128,128,128),
                (256,128,128), (256,64,128), (512,128,64), causal and not),
-               head_dim 32-256, llama3-8b's [1, 32, 4096, 128] and
-               gemma-2b's head_dim 256 at T=2048
+               head_dim 32-256 and 576, llama3-8b's [1, 32, 4096, 128] and
+               gemma-2b's head_dim 256 at T=2048; each case's instance
+               (wgmma: bf16 at head_dim 64/128/256; fma: the rest) read
+               from its counter
   8c. LM       llama3-8b at full width (32 layers, d 4096, fp32 weights
                drawn from a seeded CUDA generator, bf16 compute): K9
                through its entry point on layer 0's q, k, v after rope over
@@ -110,8 +112,10 @@ realistic size. Phases:
                call with the host's share, the plain version's wall time
                per call, the tile visits of the streamed kernels and their
                host pre-pass, and a bound; K9 at llama3-8b's attention
-               shape, bf16 and fp32, with scaled_dot_product_attention of
-               the same tensors beside it
+               shape, bf16 (wgmma) and fp32 (fma), and at gemma-2b's
+               [1, 8, 2048, 256] in bf16, each with
+               scaled_dot_product_attention of the same tensors beside it
+               and its share of the bound
 
 Imports nothing of jax or of the ``repro`` package. Any failed check
 raises, so the script exits non-zero and prints no result line; it also
@@ -187,12 +191,15 @@ K4_OPS_PER_EMPTY_ROW = 5
 # (a bitonic network and bisections) is more; it is not the bound.
 K5_OPS_PER_WORD = 4
 K5_OPS_PER_BIN = 2
-# K9: the reference test's grid (B=2, H=3, D=64) and head dims, llama3-8b's
-# prefill attention at train_4k's length and gemma-2b's head_dim 256;
+# K9: the reference test's grid (B=2, H=3, D=64) and head dims (and 576,
+# which the FMA instance takes in output chunks), llama3-8b's prefill
+# attention at train_4k's length and gemma-2b's head_dim 256;
 # tolerances rtol = atol, the reference test's own
 K9_GRID = ((128, 128, 128), (256, 128, 128), (256, 64, 128), (512, 128, 64))
-K9_HEAD_DIMS = (32, 64, 128, 256)
+K9_HEAD_DIMS = (32, 64, 128, 256, 576)
 K9_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# gemma-2b's attention (8 heads, head_dim 256) at T = 2048
+GEMMA_ATTN_SHAPE = (1, 8, 2048, 256)
 # H100 SXM dense peaks for K9's bound: bf16 tensor cores; plain fp32 (the
 # reference's 1e-5 tolerance rules out TF32)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -1025,8 +1032,11 @@ def text_serve_phase(ops, stemmer, tn, arrays, docs, *,
 
 def k9_phase(fa):
     """K9 against its plain version on the card over the reference test's
-    grid, its head dims, llama3-8b's [1, 32, 4096, 128] and gemma-2b's
-    head_dim 256 at T = 2048, fp32 and bf16 -> the largest |K9 - plain|."""
+    grid, its head dims (and 576), llama3-8b's [1, 32, 4096, 128] and
+    gemma-2b's head_dim 256 at T = 2048, fp32 and bf16; each case's
+    instance read from the per-instance counter, every bf16 case at
+    head_dim 64, 128 or 256 on the tensor cores -> the largest
+    |K9 - plain| of each instance."""
     import torch
 
     t0 = time.perf_counter()
@@ -1037,30 +1047,39 @@ def k9_phase(fa):
     cases += [(f"head_dim {d}", (1, 2, 128, d), True, 128, 128)
               for d in K9_HEAD_DIMS]
     cases += [("llama3-8b prefill", (1, 32, LM_ATTN_T, 128), True, 128, 128),
-              ("gemma-2b head_dim 256", (1, 8, 2048, 256), True, 128, 128)]
+              ("gemma-2b head_dim 256", GEMMA_ATTN_SHAPE, True, 128, 128)]
     g = torch.Generator(DEVICE).manual_seed(0)
-    worst, n = 0.0, 0
+    worst = {"wgmma": 0.0, "fma": 0.0}
+    n = 0
     for dtype, tol in K9_TOL.items():
         for label, shape, causal, bq, bk in cases:
             q, k, v = ((torch.randn(shape, generator=g, device=DEVICE) * 0.5)
                        .to(getattr(torch, dtype)) for _ in range(3))
+            before = dict(fa.flash_attention_cuda.instances)
             got = fa.flash_attention(q, k, v, causal=causal, block_q=bq,
                                      block_k=bk, device=DEVICE)
             torch.cuda.synchronize()
+            ran = [name for name, c in fa.flash_attention_cuda.instances.items()
+                   if c != before[name]]
+            want_inst = ("wgmma" if dtype == "bfloat16"
+                         and shape[3] in (64, 128, 256) else "fma")
+            check(ran == [want_inst], f"K9 {label} {dtype}: instance {ran},"
+                  f" want {want_inst}")
             want = fa.flash_attention_plain(q, k, v, causal=causal).float()
             err = (got.float() - want).abs()
             check(bool((err <= tol + tol * want.abs()).all()),
                   f"K9 {label} {dtype} causal={causal}: max error"
                   f" {float(err.max())} beyond rtol = atol = {tol}")
-            worst = max(worst, float(err.max()))
+            worst[want_inst] = max(worst[want_inst], float(err.max()))
             n += 1
-            if shape[2] >= 2048:
-                print(f"[K9] {label} {list(shape)} {dtype} causal={causal}:"
-                      f" max |K9 - plain| {float(err.max()):.3e}"
-                      f" (rtol = atol = {tol})")
+            print(f"[K9] {label} {list(shape)} {dtype} causal={causal}:"
+                  f" instance {want_inst}, max |K9 - plain|"
+                  f" {float(err.max()):.3e} (rtol = atol = {tol})")
     print(f"[K9] {n} cases (the grid, head dims {K9_HEAD_DIMS}, both"
           f" dtypes) within rtol = atol = 1e-5 (fp32) and 2e-2 (bf16) of"
-          f" the plain version, largest |K9 - plain| {worst:.3e}, in"
+          f" the plain version, every bf16 case at head_dim 64/128/256 on"
+          f" the wgmma instance; largest |K9 - plain| {worst['wgmma']:.3e}"
+          f" (wgmma), {worst['fma']:.3e} (fma), in"
           f" {time.perf_counter() - t0:.1f} s")
     return worst
 
@@ -1137,7 +1156,8 @@ def lm_attention_phase(ops, fa, ta, tl, tm, cfg, params):
     moved to [B, H, T, D], held against the port's _attend_chunked (chunk
     512) on the same tensors. Launch counters are set to 0 just before
     the two K9 calls (bf16, and fp32 on the same values) and read just
-    after -> (launches, [B, H, T, D] bf16 q, k, v for the timings)."""
+    after -> (launches of each K9 instance, [B, H, T, D] bf16 q, k, v for
+    the timings)."""
     import torch
 
     g = torch.Generator(DEVICE).manual_seed(1)
@@ -1167,8 +1187,12 @@ def lm_attention_phase(ops, fa, ta, tl, tm, cfg, params):
                                               vh.float(), device=DEVICE))}
     torch.cuda.synchronize()
     launches = launch_counts(ops)
+    instances = dict(fa.flash_attention_cuda.instances)
     check(launches == {"flash_attention_cuda": 2},
           f"K9 on the LM's attention: launches {launches}, want 2 of K9")
+    check(instances == {"wgmma": 1, "fma": 1},
+          f"K9 on the LM's attention: instances {instances}, want the"
+          " bf16 call on wgmma and the fp32 one on fma")
     ref = lm["float32"]
     scale = float(ref.abs().max())
 
@@ -1177,7 +1201,8 @@ def lm_attention_phase(ops, fa, ta, tl, tm, cfg, params):
         return float(d.abs().max()) / scale, float(d.norm() / b.float().norm())
 
     # the fp32 attention of the LM is the reference value; K9 in bf16
-    # computes in fp32 from the same bf16 values and rounds its output once
+    # computes its scores and statistics in fp32 from the same bf16 values,
+    # rounds P to bf16 for P V and its output once
     for dtype, tol in LM_ATTN_TOL.items():
         err, norm = rel(k9[dtype], ref)
         check(err <= tol, f"K9 ({dtype}) differs from the LM's fp32"
@@ -1199,10 +1224,11 @@ def lm_attention_phase(ops, fa, ta, tl, tm, cfg, params):
               " scores to bf16 before the softmax; their std here is"
               f" {float(s0.std()):.1f}, a bf16 step at that size is"
               " 1-2, so near-ties in the nearly one-hot softmax move)")
-    print(f"[lm-attn] K9 bf16 equals K9 fp32 rounded to bf16:"
-          f" {torch.equal(k9['bfloat16'], k9['float32'].bfloat16())};"
-          f" launches {launches}")
-    return launches["flash_attention_cuda"], (qh, kh, vh)
+    err, norm = rel(k9["bfloat16"], k9["float32"])
+    print(f"[lm-attn] K9 bf16 (wgmma, P rounded to bf16) vs K9 fp32 (fma):"
+          f" max error {err:.3e} of the scale, norm {norm:.3e} (reported,"
+          f" not checked); launches {launches}, instances {instances}")
+    return instances, (qh, kh, vh)
 
 
 def decode_profile(tm, cfg, params, caches, steps: int = 2) -> None:
@@ -1938,9 +1964,18 @@ def main() -> int:
               f" time ({launches} launches x its device time at B={serve_b},"
               f" over {serve_s:.6f} s)")
     # K9 at llama3-8b's prefill attention shape, on the LM's own tensors,
-    # with scaled_dot_product_attention of the same tensors beside it
-    for dtype in ("bfloat16", "float32"):
-        q, k, v = (x.to(getattr(torch, dtype)) for x in k9_inputs)
+    # bf16 (the wgmma instance) and fp32 (the fma one), and at gemma-2b's
+    # [1, 8, 2048, 256] in bf16, with scaled_dot_product_attention of the
+    # same tensors beside each
+    g9 = torch.Generator(dev).manual_seed(2)
+    gemma = tuple((torch.randn(GEMMA_ATTN_SHAPE, generator=g9, device=dev)
+                   * 0.5).bfloat16() for _ in range(3))
+    for key, label, (q, k, v) in (
+            ("bfloat16", "llama3-8b layer 0",
+             (x.bfloat16() for x in k9_inputs)),
+            ("float32", "llama3-8b layer 0", (x.float() for x in k9_inputs)),
+            ("gemma bf16", "gemma-2b shape, random", gemma)):
+        dtype = str(q.dtype).removeprefix("torch.")
         kernel = lambda: fa.flash_attention_cuda(q, k, v)  # noqa: E731
         plain = lambda: fa.flash_attention_plain(q, k, v)  # noqa: E731
         library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
@@ -1957,17 +1992,19 @@ def main() -> int:
         bd = dict(bound_ms=1e3 * max(t_ops, t_bytes),
                   bound_by="operations" if t_ops > t_bytes else "bytes",
                   n_bytes=n_bytes, n_ops=flops)
-        times[("K9", dtype)] = dict(ms=ms, call_ms=k_call, plain_ms=plain_ms,
-                                    library_ms=lib_ms, **bd)
-        print(f"[times] K9 {dtype} {list(q.shape)} causal (llama3-8b layer"
-              f" 0): {ms:.6f} ms on the card ({k_call:.6f} ms a call with"
-              f" the host), plain {plain_ms:.6f} ms a call,"
+        times[("K9", key)] = dict(ms=ms, call_ms=k_call, plain_ms=plain_ms,
+                                  library_ms=lib_ms, **bd)
+        print(f"[times] K9 {dtype} {list(q.shape)} causal ({label},"
+              f" instance {fa._instance(q.dtype, d_)}): {ms:.6f} ms on the"
+              f" card ({k_call:.6f} ms a call with the host), plain"
+              f" {plain_ms:.6f} ms a call,"
               f" scaled_dot_product_attention(is_causal=True) of the same"
               f" tensors (library_ms) {lib_ms:.6f} ms (max |difference|"
               f" {lib_diff:.3e}), bound {bd['bound_ms']:.6f} ms by"
               f" {bd['bound_by']} ({n_bytes} B, {flops} flops at"
-              f" {PEAK_FLOPS[dtype] / 1e12:.0f} TFLOP/s); {flops / ms / 1e9:.3f}"
-              " TFLOP/s achieved")
+              f" {PEAK_FLOPS[dtype] / 1e12:.0f} TFLOP/s):"
+              f" {bd['bound_ms'] / ms:.6f} of the bound;"
+              f" {flops / ms / 1e9:.3f} TFLOP/s achieved")
     print(f"[times] LM serve: {lm_run['steps']} decode steps,"
           f" {lm_run['decode_s'] / lm_run['steps'] * 1e3:.6f} ms a step,"
           f" {lm_run['tokens'] / lm_run['wall']:.6f} tokens/s")
@@ -2012,9 +2049,13 @@ def main() -> int:
         entry("dict_match_bsearch", "K8", csrc + "dict_match.cu",
               "src/repro/kernels/stem_match.py:208",
               staged["K8"][0]["dict_match_bsearch_cuda"], k8_err),
-        entry("flash_attention", "K9", csrc + "flash_attention.cu",
-              "src/repro/kernels/flash_attention.py:26", k9_launches, k9_err,
-              shape="bfloat16"),
+        entry("flash_attention_wgmma", "K9",
+              csrc + "flash_attention.cu (+ flash_sm90.cuh)",
+              "src/repro/kernels/flash_attention.py:26", k9_launches["wgmma"],
+              k9_err["wgmma"], shape="bfloat16"),
+        entry("flash_attention_fma", "K9", csrc + "flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:26", k9_launches["fma"],
+              k9_err["fma"], shape="float32"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

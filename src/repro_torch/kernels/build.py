@@ -248,7 +248,8 @@ _SIGNATURES = {
         "dict_match_bsearch_launch": [_P, _I, _P, _I, _P, _I, _I, _P]},
     "flash_attention": {
         "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                   ctypes.c_float, _P]},
+                                   ctypes.c_float, _P],
+        "flash_attention_instance": [_I, _I]},
 }
 
 

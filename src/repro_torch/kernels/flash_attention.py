@@ -9,9 +9,12 @@ them first); the result is ``softmax(q k^T * D^-0.5 [+ causal]) v`` in
                           flash_attention_ref``) step for step, any device
   flash_attention_cuda    K9 (``csrc/flash_attention.cu``, replaces
                           ``repro/kernels/flash_attention.py:26``,
-                          ``_flash_kernel``): an online softmax over K/V
-                          tiles staged in shared memory, tiles above the
-                          diagonal never loaded
+                          ``_flash_kernel``): one library, two hand-written
+                          instances picked by :func:`_instance` — bf16 at
+                          head_dim 64/128/256 on the tensor cores (wgmma,
+                          TMA, a warp-specialised ring; P rounded to bf16
+                          for P V), everything else register-tiled on the
+                          fp32 FMA units; any head_dim, any T
   flash_attention         the entry point: the reference's checks, then K9
                           on a CUDA device or the plain version on the CPU
 
@@ -29,8 +32,17 @@ import torch
 from repro_torch import device as devmod
 
 NEG = -1e30
-MAX_HEAD_DIM = 512      # output columns the kernel keeps in registers
+WGMMA_HEAD_DIMS = (64, 128, 256)    # bf16 head dims of the tensor-core instance
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _instance(dtype: torch.dtype, d: int) -> str:
+    """The K9 instance a launch takes, by dtype and head_dim alone (the C
+    side's ``flash_attention_instance``): ``"wgmma"`` for bf16 with D in
+    {64, 128, 256}, ``"fma"`` otherwise."""
+    if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "fma"
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -61,9 +73,6 @@ def _check_cuda(q, k, v) -> None:
     if q.dtype not in _DTYPES:
         raise ValueError(f"the kernel takes float32 or bfloat16, not"
                          f" {q.dtype}")
-    if q.shape[3] > MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {q.shape[3]} exceeds the kernel's"
-                         f" {MAX_HEAD_DIM}")
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -71,7 +80,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch K9 (``csrc/flash_attention.cu``) on the current stream: same
     contract as :func:`flash_attention_plain`, for contiguous fp32 or bf16
     CUDA tensors of one shape. Adds one to ``flash_attention_cuda.launches``
-    per launch."""
+    and to ``flash_attention_cuda.instances[_instance(dtype, D)]`` per
+    launch."""
     from repro_torch.kernels import build  # lazy: builds at first launch
 
     _check_shapes(q, k, v)
@@ -80,6 +90,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    instance = _instance(q.dtype, d)
+    if instance == "wgmma":
+        # TMA reads from 16-byte aligned addresses only
+        q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone()
+                   for x in (q, k, v))
     lib = build.flash_attention_library()
     with torch.cuda.device(q.device):
         err = lib.flash_attention_launch(
@@ -92,6 +107,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"flash_attention kernel launch failed: CUDA error {err}"
             f" ({lib.error_string(err).decode()})")
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.instances[instance] += 1
     return out
 
 
@@ -130,3 +146,4 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
 
 CUDA_WRAPPERS = (flash_attention_cuda,)
 flash_attention_cuda.launches = 0
+flash_attention_cuda.instances = {"wgmma": 0, "fma": 0}

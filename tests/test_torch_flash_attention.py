@@ -61,7 +61,7 @@ def test_flash_matches_reference(dtype, t, block_q, block_k, causal):
         np.testing.assert_allclose(_np(got), _np(want), **TOLS[dtype])
 
 
-@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("d", [32, 64, 128, 256, 576])
 def test_flash_head_dims(d):
     (q, k, v), (tq, tk, tv) = _both(_rand(1, 2, 128, d, seed=d), "float32")
     got = tfa.flash_attention(tq, tk, tv, device="cpu")
@@ -108,6 +108,53 @@ def test_blocks_clamp_to_t():
     np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_instance_rule(dtype):
+    """The instance depends on dtype and head_dim alone: the tensor cores
+    take bf16 at 64, 128 and 256, the FMA instance every other case."""
+    dt = getattr(torch, dtype)
+    for d in range(16, 1025):
+        want = "wgmma" if dtype == "bfloat16" and d in (64, 128, 256) \
+            else "fma"
+        assert tfa._instance(dt, d) == want, d
+
+
+def _bf16_model(q, k, v, causal):
+    """The tensor-core instance's numerics, from the plain version's steps:
+    fp32 scores, max and sum over unrounded p, P rounded to bf16 for P V,
+    the output rounded to bf16 once."""
+    t, d = q.shape[2], q.shape[3]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (d ** -0.5)
+    if causal:
+        mask = torch.tril(torch.ones((t, t), dtype=torch.bool))
+        s = torch.where(mask, s, torch.full_like(s, tfa.NEG))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhqk,bhkd->bhqd", p.bfloat16().float(), v.float())
+    return (out / l.clamp_min(1e-30)).to(q.dtype)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d,t,block_q,block_k",
+                         [(64, *g) for g in GRID]
+                         + [(128, 256, 128, 128), (256, 128, 128, 128)])
+def test_bf16_p_rounding_within_tolerance(d, t, block_q, block_k, causal):
+    """Rounding P to bf16 before P V (the wgmma instance) stays inside the
+    2e-2 the bf16 checks hold, against the reference's Pallas kernel."""
+    (q, k, v), (tq, tk, tv) = _both(_rand(1, 2, t, d, seed=t + d),
+                                    "bfloat16")
+    got = _bf16_model(tq, tk, tv, causal)
+    want = ref_flash(q, k, v, causal=causal, block_q=block_q,
+                     block_k=block_k, interpret=True)
+    np.testing.assert_allclose(_np(got), _np(want), **TOLS["bfloat16"])
+
+
+def test_reset_zeroes_instance_counts():
+    tfa.flash_attention_cuda.instances["wgmma"] += 3
+    ops.reset_dispatch_count()
+    assert tfa.flash_attention_cuda.instances == {"wgmma": 0, "fma": 0}
+
+
 def test_k9_is_counted_and_refuses_cpu_tensors():
     assert tfa.flash_attention_cuda in ops.CUDA_WRAPPERS
     q = torch.zeros((1, 1, 8, 16))
@@ -129,11 +176,14 @@ def _on_card():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
 
 
-# the grid above, head dims up to the kernel's 512, and shapes that are
-# not multiples of the kernel's own 32-row tiles
+# the grid above, head dims past 512 and shapes that are not multiples of
+# the kernels' own tiles (128 query rows; 64 or 128 keys), among them the
+# tensor-core head dims at ragged T
 CARD_SHAPES = ([(2, 3, t, 64) for t, _, _ in GRID]
-               + [(1, 2, 128, d) for d in (16, 32, 80, 128, 256, 512)]
-               + [(2, 2, 48, 16), (1, 3, 1, 128), (1, 1, 4097, 128)])
+               + [(1, 2, 128, d) for d in (16, 32, 80, 128, 256, 512, 576)]
+               + [(2, 2, 48, 16), (1, 3, 1, 128), (1, 1, 4097, 128)]
+               + [(1, 2, t, d) for d in (64, 128, 256)
+                  for t in (1, 200, 4097)])
 
 
 @pytest.mark.cuda
@@ -141,16 +191,55 @@ CARD_SHAPES = ([(2, 3, t, 64) for t, _, _ in GRID]
 def test_k9_matches_plain_on_card(dtype):
     _on_card()
     dt = getattr(torch, dtype)
+    ops.reset_dispatch_count()
+    want_inst = {"wgmma": 0, "fma": 0}
     for i, shape in enumerate(CARD_SHAPES):
         q, k, v = (torch.from_numpy(a).to("cuda", dt)
                    for a in _rand(*shape, seed=i))
         for causal in (True, False):
             got = tfa.flash_attention_cuda(q, k, v, causal=causal)
             torch.cuda.synchronize()
+            want_inst[tfa._instance(dt, shape[3])] += 1
             want = tfa.flash_attention_plain(q, k, v, causal=causal)
             np.testing.assert_allclose(got.cpu().float().numpy(),
                                        want.cpu().float().numpy(),
                                        **TOLS[dtype])
+    assert tfa.flash_attention_cuda.instances == want_inst
+    if dtype == "bfloat16":
+        assert want_inst["wgmma"] > 0 and want_inst["fma"] > 0
+
+
+@pytest.mark.cuda
+def test_wgmma_takes_unaligned_tensors():
+    """TMA needs 16-byte aligned rows' base: a view two bytes in is copied
+    by the wrapper, not refused, and still runs the tensor-core instance."""
+    _on_card()
+    shape = (1, 2, 200, 128)
+    n = int(np.prod(shape))
+    q, k, v = (torch.from_numpy(np.concatenate([[0.0], a.ravel()]))
+               .to("cuda", torch.bfloat16)[1:].view(shape)
+               for a in _rand(*shape, seed=7))
+    assert q.data_ptr() % 16 and q.is_contiguous() and q.numel() == n
+    ops.reset_dispatch_count()
+    got = tfa.flash_attention_cuda(q, k, v)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_cuda.instances == {"wgmma": 1, "fma": 0}
+    want = tfa.flash_attention_plain(q, k, v)
+    np.testing.assert_allclose(got.cpu().float().numpy(),
+                               want.cpu().float().numpy(),
+                               **TOLS["bfloat16"])
+
+
+@pytest.mark.cuda
+def test_instance_rule_matches_the_library():
+    _on_card()
+    from repro_torch.kernels import build
+
+    lib = build.flash_attention_library()
+    for dt in (torch.float32, torch.bfloat16):
+        for d in range(1, 1025):
+            got = lib.flash_attention_instance(d, int(dt == torch.bfloat16))
+            assert ("wgmma" if got else "fma") == tfa._instance(dt, d), d
 
 
 @pytest.mark.cuda
