@@ -34,20 +34,27 @@ realistic size. Phases:
                one-codepoint tile; an index chunk's tile at the index
                path's block_w 2048; a ~7M-codepoint tile of 1,048,576
                words, whose rows equal the word stream's
-  5c. K5       the postings kernel against its plain version, identical
-               hist and rank, at block_w {128, 1024, 2048, 8192, 65536}
-               (the last sorts in global-memory scratch rows): all ids
-               dropped, one root, the realistic vocabulary's ids; the
-               overflow guard raises
+  5c. K5       both postings instances against the plain version,
+               identical hist and rank, each launch's instance read from
+               its counter: the counting one at block_w {8, 128, 1024,
+               2048, 8192} and the bitonic one at 65536 (in global-memory
+               scratch rows), on all ids dropped, one root, the realistic
+               vocabulary's ids and those ids with 1 in 20 outside [0,
+               n_roots]; the bitonic one also at block_w 2048 on the
+               262,144-key dictionary's vocabulary; the overflow guard
+               raises
   5f. K6-K8    the staged Compare path's kernels against their plain
                versions, bit for bit: K6 (the standalone datapath) over
                batch sizes {0, 1, 257, 65536} x block_b {64, 256, 1024},
-               zero pad columns; K7 (the comparator bank) over (block_n,
-               block_r) {(1,1), (2,8), (4,2), (16,200)} x tables with and
-               without padding, with the padding-hit keys -2, -1 and the
-               sentinel; K8 (the sorted search) on the realistic tables
-               (shared memory), a 32,768-entry table and the 262,144-key
-               grown dictionary's tables (global memory)
+               zero pad columns; K7 (the banked comparator bank) over
+               (block_n, block_r) {(1,1), (2,8), (4,2), (16,200)} x tables
+               with and without padding, the grown quad table shuffled
+               (974 KB, banked in chunks) and a table whose entries all
+               share one bank, with the padding-hit keys -2, -1 and the
+               sentinel and keys in the one bank; each table's largest
+               bank and compares a key; K8 (the sorted search) on the
+               realistic tables (shared memory), a 32,768-entry table and
+               the 262,144-key grown dictionary's tables (global memory)
   5g. staged   1,048,576 words through stem_batch(backend="pallas") (5 K7
                launches), ops.extract_roots_multilaunch (1 K6 + 5 K7) and
                extract_roots(backend="fused", extended=True) (7 K8), each
@@ -59,13 +66,17 @@ realistic size. Phases:
                the first 4096 words), non_pipelined (stem_batch, dense, in
                batches of 65,536), pipelined (stem_pipelined, the bank,
                microbatches of 4096, 1,048,576 words), pipelined_sorted;
-               each equal to the fused path; the pipelined/software ratio
-               and the repo's fused_vs_multilaunch ratio (reported, not
+               each equal to the fused path; the pipelined/software ratio,
+               a profile of extract_roots_multilaunch by kernel, and the
+               repo's fused_vs_multilaunch ratio (reported, not
                claimed)
   5d. index    build_corpus_index over 1,048,576 corpus words (block_b =
-               block_w = 2048), launches counted from zero, bit-identical
-               to the host build; the same corpus from text through
-               build_root_index_text, equal to it
+               block_w = 2048), launches counted from zero (K5 on its
+               counting instance), bit-identical to the host build; the
+               same corpus from text through build_root_index_text, equal
+               to it; the same words on the 262,144-key dictionary (K2,
+               and K5 on its bitonic instance), bit-identical to the host
+               build
   5e. text     256 requests of 16 documents of 256 words through the
                engine with the kernel front end, resident and persistent,
                every request equal to the host front end and the plain
@@ -106,9 +117,11 @@ realistic size. Phases:
   9. times     each kernel's device time with CUDA events at 4096 and
                1,048,576 words (K4: a served request's tile and the
                1,048,576-word tile; K5: an index chunk of 131,072 words and
-               1,048,576 words, with torch.sort of the same keys beside
-               it; K7 and K8: the tri group's 6 keys a word, with
-               torch.isin of the same keys beside them), its wall time per
+               1,048,576 words (counting), an index chunk of the 262,144-key
+               vocabulary (bitonic), with torch.sort of the same keys
+               beside each; K7 and K8: the tri group's 6 keys a word, with
+               torch.isin of the same keys beside them, K7 with its
+               banks' compares), its wall time per
                call with the host's share, the plain version's wall time
                per call, the tile visits of the streamed kernels and their
                host pre-pass, and a bound; K9 at llama3-8b's attention
@@ -158,7 +171,8 @@ K3_BATCHES = (1, 257, 65536)
 K3_VERSION_SLOTS = (0, 5)
 WIDE_BLOCKS = (1024, 2048)          # the block_b repair: tiles > 512 threads
 K4_BLOCK_WS = (128, 256, 1024, 2048)
-K5_BLOCK_WS = (128, 1024, 2048, 8192, 65536)
+K5_BLOCK_WS = (8, 128, 1024, 2048, 8192, 65536)
+K5_MAX_TILES = 512                  # the K5 parity cases' tiles at most
 K6_BATCHES = (0, 1, 257, 65536)
 K6_BLOCKS = (64, 256, 1024)
 K7_BLOCKS = ((1, 1), (2, 8), (4, 2), (16, 200))
@@ -614,29 +628,72 @@ def k4_phase(tf, tn, docs, chunk_tile, big_tile, big_words):
     return worst
 
 
-def k5_phase(pk, real_ids, n_roots):
-    """The postings kernel against its plain version on the card."""
+def out_of_range(ids, n_roots: int, *, any_int32: bool):
+    """ids with every 20th replaced by one outside [0, n_roots]: any int32
+    for the counting instance; for the bitonic one, values whose composite
+    keys still fit int32."""
+    import torch
+
+    values = [-1, -7, n_roots + 1, n_roots + 9]
+    if any_int32:
+        values += [-(1 << 31), (1 << 31) - 1]
+    bad = ids.clone()
+    bad[::20] = torch.tensor(values, dtype=torch.int32, device=ids.device
+                             ).repeat(-(-bad[::20].numel() // len(values))
+                                      )[:bad[::20].numel()]
+    return bad
+
+
+def k5_phase(pk, real_ids, n_roots, big_ids, n_big):
+    """Both postings instances against the plain version on the card, each
+    launch's instance read from its counter: the realistic vocabulary's
+    ids (counting at block_w <= 8192, bitonic at 65,536) and the 262,144-key
+    dictionary's (bitonic at the index path's block_w), with ids outside
+    [0, n_roots] -> (max_abs_err, {instance: launches checked})."""
     import torch
 
     t0 = time.perf_counter()
-    worst, cases = 0, 0
-    w = real_ids.shape[0]
-    cases_ids = (("all dropped", torch.full_like(real_ids, n_roots)),
-                 ("one root", torch.zeros_like(real_ids)),
-                 ("realistic vocabulary", real_ids))
+    worst, seen = 0, {"counting": 0, "bitonic": 0}
+
+    def run(name, ids, n, block_w):
+        nonlocal worst
+        tiles = pk.pad_ids(ids, n_roots=n, block_w=block_w)
+        instance = pk._instance(n, block_w)
+        before = dict(pk.postings_cuda.instances)
+        got = pk.postings_cuda(tiles, n_roots=n, block_w=block_w)
+        torch.cuda.synchronize()
+        ran = {k: v - before[k] for k, v in pk.postings_cuda.instances.items()
+               if v != before[k]}
+        want = pk.postings_plain(tiles, n_roots=n, block_w=block_w)
+        bad = same(got, want)
+        worst = max(worst, max_err(got, want))
+        seen[instance] += 1
+        check(bad == 0 and ran == {instance: 1},
+              f"K5 vs plain: {bad} differ ({name}, block_w={block_w}), or"
+              f" the launch ran {ran}, not the {instance} instance")
+        return instance
+
     for block_w in K5_BLOCK_WS:
-        for name, ids in cases_ids:
-            tiles = pk.pad_ids(ids, n_roots=n_roots, block_w=block_w)
-            got = pk.postings_cuda(tiles, n_roots=n_roots, block_w=block_w)
-            torch.cuda.synchronize()
-            want = pk.postings_plain(tiles, n_roots=n_roots, block_w=block_w)
-            bad = same(got, want)
-            worst = max(worst, max_err(got, want))
-            cases += 1
-            check(bad == 0, f"K5 vs plain: {bad} differ ({name},"
-                  f" block_w={block_w})")
-        print(f"[K5] block_w={block_w}: {w} ids x {{all dropped, one root,"
-              f" realistic vocabulary of {n_roots}}}: hist and rank identical")
+        ids = real_ids[:K5_MAX_TILES * block_w]
+        cases = (("all dropped", torch.full_like(ids, n_roots)),
+                 ("one root", torch.zeros_like(ids)),
+                 ("realistic vocabulary", ids))
+        for name, case in cases:
+            instance = run(name, case, n_roots, block_w)
+        oob = out_of_range(ids, n_roots, any_int32=instance == "counting")
+        run("out of range", oob, n_roots, block_w)
+        print(f"[K5] block_w={block_w} ({instance}): {ids.shape[0]} ids x"
+              " {all dropped, one root, realistic vocabulary of"
+              f" {n_roots}, 1 in 20 outside [0, {n_roots}]}}: hist and"
+              " rank identical")
+    ids = big_ids[:K5_MAX_TILES * INDEX_BLOCK]
+    for name, case in (("262,144-key vocabulary", ids),
+                       ("out of range", out_of_range(ids, n_big,
+                                                     any_int32=False))):
+        instance = run(name, case, n_big, INDEX_BLOCK)
+    print(f"[K5] block_w={INDEX_BLOCK} ({instance}): {ids.shape[0]} ids of"
+          f" the 262,144-key dictionary's vocabulary of {n_big} roots, and"
+          " 1 in 20 outside it: hist and rank identical")
     try:
         pk.postings(real_ids, n_roots=1 << 22, block_w=1024)
     except ValueError as e:
@@ -644,8 +701,10 @@ def k5_phase(pk, real_ids, n_roots):
         print(f"[K5] overflow guard raises: {e}")
     else:
         check(False, "the int32 overflow guard did not raise")
-    print(f"[K5] {cases} launches identical to the plain version,"
-          f" max_abs_err {worst} ({time.perf_counter() - t0:.1f} s)")
+    check(all(seen.values()), f"K5 instances not both run: {seen}")
+    print(f"[K5] {sum(seen.values())} launches ({seen}) identical to the"
+          f" plain version, max_abs_err {worst}"
+          f" ({time.perf_counter() - t0:.1f} s)")
     return worst
 
 
@@ -692,9 +751,22 @@ def padded_keys(sm, keys, table):
     return torch.cat([edge, keys])
 
 
+def one_bank_table(sm, n: int, device):
+    """n distinct int32 values whose hashes all fall in bank 0 (at any bank
+    count up to 2^16), the comparator bank's adversarial table."""
+    import numpy as np
+    import torch
+
+    inv = pow(sm.BANK_HASH_MUL, -1, 1 << 32)
+    t = np.arange(n, dtype=np.uint64)
+    vals = (t * inv % (1 << 32)).astype(np.uint32).view(np.int32)
+    return torch.from_numpy(vals).to(device)
+
+
 def k7_phase(sm, keys, tables):
     """The comparator bank against its plain version on the card, with the
-    padding-hit key -2 hitting exactly when the table was padded."""
+    padding-hit key -2 hitting exactly when the table was padded; each
+    table's banks (largest bank, compares a key) printed."""
     import torch
 
     t0 = time.perf_counter()
@@ -718,9 +790,13 @@ def k7_phase(sm, keys, tables):
                   f"K7 vs plain: {bad} flags differ ({name},"
                   f" block_n={block_n}, block_r={block_r}), or the padding"
                   " hits differ from the reference's rule")
+        st = sm.bank_stats(k, table)
         print(f"[K7] {name} ({table.shape[0]} entries): {k.shape[0]} keys x"
               f" (block_n, block_r) in {K7_BLOCKS}: identical, -2 hits"
-              " exactly where the table was padded")
+              " exactly where the table was padded; at block_r 8:"
+              f" {st['entries']} entries kept in {st['chunks']} chunk(s)"
+              f" of {st['banks']} banks, largest bank {st['largest']},"
+              f" {st['compares'] / k.shape[0]:.6f} compares a key")
     print(f"[K7] {cases} launches identical to the plain version,"
           f" max_abs_err {worst} ({time.perf_counter() - t0:.1f} s)")
     return worst
@@ -860,9 +936,10 @@ def models_phase(ops, stemmer, presets, arrays, words, fused):
     return rates
 
 
-def index_phase(ops, ix, corpus, tn, arrays, table):
+def index_phase(ops, pk, ix, corpus, tn, arrays, table):
     """The corpus index over 1M words, words path then text path, launches
-    counted from zero for each; bit-identical to the host build."""
+    counted from zero for each; bit-identical to the host build ->
+    (launches, K5 launches by instance, words-path s, text-path s)."""
     import numpy as np
     import torch
 
@@ -889,10 +966,13 @@ def index_phase(ops, ix, corpus, tn, arrays, table):
     words_s = time.perf_counter() - t
     launches = {w.__name__: w.launches for w in ops.CUDA_WRAPPERS
                 if w.launches}
+    instances = dict(pk.postings_cuda.instances)
     n_chunks = INDEX_WORDS // INDEX_CHUNK
     check(launches == {"stem_fused_cuda": n_chunks,
-                       "postings_cuda": n_chunks},
-          f"index launches {launches}, want K1 and K5 once a chunk")
+                       "postings_cuda": n_chunks}
+          and instances == {"counting": n_chunks, "bitonic": 0},
+          f"index launches {launches} ({instances}), want K1 and K5's"
+          " counting instance once a chunk")
     vocab = ix.build_vocab(arrays)
     parts = []
     for ch in chunks:
@@ -906,7 +986,8 @@ def index_phase(ops, ix, corpus, tn, arrays, table):
     check(idx.n_postings > INDEX_WORDS // 2, "the corpus must be indexable")
     print(f"[index] {INDEX_WORDS} words in {n_chunks} chunks through"
           f" build_corpus_index in {words_s:.6f} s"
-          f" ({INDEX_WORDS / words_s:.0f} words/s, launches {launches};"
+          f" ({INDEX_WORDS / words_s:.0f} words/s, launches {launches},"
+          f" K5 instances {instances};"
           f" making the corpus, not timed, {make_s:.6f} s),"
           f" {idx.n_postings} postings over {int((idx.counts > 0).sum())}"
           f" roots, bit-identical to the host build")
@@ -952,7 +1033,53 @@ def index_phase(ops, ix, corpus, tn, arrays, table):
           f" copies back and the merge in {text_s:.6f} s"
           f" ({INDEX_WORDS / text_s:.0f} words/s, {n_bytes / text_s:.0f}"
           f" B/s, launches {text_launches}), equal to the words path")
-    return launches, words_s, text_s
+    return launches, instances, words_s, text_s
+
+
+def index_grown_phase(ops, pk, sf, ix, corpus, grown, table):
+    """The same 1M-word corpus indexed on the 262,144-key dictionary: K2
+    streams the dictionary and the vocabulary's 262K roots take K5's
+    bitonic instance; launches counted from zero; bit-identical to the
+    host build -> (K5 launches by instance, seconds)."""
+    import numpy as np
+    import torch
+
+    kw = dict(block_b=INDEX_BLOCK, block_w=INDEX_BLOCK, device=DEVICE)
+    chunks = list(corpus.stream_corpus_words(
+        INDEX_WORDS, seed=0, chunk_words=INDEX_CHUNK,
+        words_per_doc=INDEX_WORDS_PER_DOC, table=table))
+    ix.build_corpus_index(iter(chunks[:1]), grown, **kw)     # warm-up
+    torch.cuda.synchronize()
+    ops.reset_dispatch_count()
+    t = time.perf_counter()
+    idx = ix.build_corpus_index(iter(chunks), grown, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = launch_counts(ops)
+    instances = dict(pk.postings_cuda.instances)
+    n_chunks = len(chunks)
+    vocab = ix.build_vocab(grown)
+    check(set(launches) == {"stem_streamed_cuda", "postings_cuda"}
+          and launches["postings_cuda"] == n_chunks
+          and instances == {"counting": 0, "bitonic": n_chunks}
+          and pk._instance(len(vocab), INDEX_BLOCK) == "bitonic",
+          f"grown index launches {launches} ({instances}), want K2 and K5's"
+          " bitonic instance once a chunk")
+    parts = []
+    for ch in chunks:
+        ids = ix.host_root_ids(ch.words, grown, vocab)
+        parts.append(ix.IndexPartial(*ix.host_index(
+            ids, ch.doc_ids.astype(np.int32), ch.positions, len(vocab))))
+    want = ix.merge_partials(parts, vocab)
+    for name in ("counts", "offsets", "docs", "positions"):
+        check(np.array_equal(getattr(idx, name), getattr(want, name)),
+              f"grown index {name} differ from the host build")
+    print(f"[index] the same {INDEX_WORDS} words on the 262,144-key"
+          f" dictionary ({len(vocab)} roots) through build_corpus_index in"
+          f" {secs:.6f} s ({INDEX_WORDS / secs:.0f} words/s, launches"
+          f" {launches}, K5 instances {instances}), {idx.n_postings}"
+          " postings, bit-identical to the host build")
+    return instances, secs
 
 
 def text_serve_phase(ops, stemmer, tn, arrays, docs, *,
@@ -1231,22 +1358,21 @@ def lm_attention_phase(ops, fa, ta, tl, tm, cfg, params):
     return instances, (qh, kh, vh)
 
 
-def decode_profile(tm, cfg, params, caches, steps: int = 2) -> None:
-    """Device time of full-width decode steps by kernel (torch.profiler),
-    beside the wall time of the same steps."""
+def profile_kernels(tag: str, label: str, fn, calls: int) -> None:
+    """Device time of `calls` calls of fn by kernel (torch.profiler),
+    beside the wall time of the same calls."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    tok = torch.zeros((LM_SLOTS, 1), dtype=torch.int32, device=DEVICE)
     torch.cuda.synchronize()
     t = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for i in range(steps):
-            tm.decode_step(params, cfg, tok, caches, i)
+        for i in range(calls):
+            fn(i)
         torch.cuda.synchronize()
-    wall = (time.perf_counter() - t) * 1e3 / steps
+    wall = (time.perf_counter() - t) * 1e3 / calls
     by_name: dict = {}
     n_kernels = 0
     for ev in prof.events():
@@ -1255,17 +1381,17 @@ def decode_profile(tm, cfg, params, caches, steps: int = 2) -> None:
             by_name[key] = (by_name.get(key, 0.0)
                             + ev.time_range.elapsed_us() / 1e3)
             n_kernels += 1
-    busy = sum(by_name.values()) / steps
+    busy = sum(by_name.values()) / calls
     if not busy:
-        print("[lm-serve] profiler: no device time in the trace (not"
+        print(f"[{tag}] profiler: no device time in the trace (not"
               " measured)")
         return
-    print(f"[lm-serve] profile of {steps} decode steps (B={LM_SLOTS}):"
-          f" {busy:.3f} ms of kernels a step ({n_kernels // steps} kernels"
-          f" a step) in {wall:.3f} ms of wall (with the profiler on)")
+    print(f"[{tag}] profile of {calls} {label}: {busy:.3f} ms of kernels a"
+          f" call ({n_kernels // calls} kernels a call) in {wall:.3f} ms of"
+          " wall (with the profiler on)")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        print(f"[lm-serve]   {ms / steps:9.3f} ms a step ({ms / steps / busy:.4f}"
-              f" of kernel time)  {name}")
+        print(f"[{tag}]   {ms / calls:9.3f} ms a call"
+              f" ({ms / calls / busy:.4f} of kernel time)  {name}")
 
 
 def lm_serve_phase(ops, serve, tm, pm, cfg, params) -> dict:
@@ -1296,7 +1422,11 @@ def lm_serve_phase(ops, serve, tm, pm, cfg, params) -> dict:
 
     wl = serve.LMDecodeWorkload(cfg, params, max_batch=LM_SLOTS,
                                 cache_len=LM_CACHE, device=DEVICE)
-    decode_profile(tm, cfg, wl.params, wl.caches)   # also the warm-up
+    # device time of two decode steps by kernel (also the warm-up)
+    tok = torch.zeros((LM_SLOTS, 1), dtype=torch.int32, device=DEVICE)
+    profile_kernels("lm-serve", f"decode steps (B={LM_SLOTS})",
+                    lambda i: tm.decode_step(wl.params, cfg, tok, wl.caches,
+                                             i), 2)
     log: list = []
     recording(wl, log)
     eng = serve.Engine(wl)
@@ -1550,7 +1680,12 @@ def main() -> int:
     vocab_t = torch.from_numpy(vocab).to(dev)
     real_ids = ops._root_ids(*sf.stem_fused(big_words, realistic,
                                             block_b=INDEX_BLOCK), vocab_t)
-    k5_err = k5_phase(pk, real_ids, len(vocab))
+    # the 262,144-key dictionary's vocabulary takes K5's bitonic instance
+    grown_vocab = ix.build_vocab(grown)
+    grown_ids = ops._root_ids(
+        *sf.stem_fused(big_words[:INDEX_CHUNK], grown, block_b=INDEX_BLOCK),
+        torch.from_numpy(grown_vocab).to(dev))
+    k5_err = k5_phase(pk, real_ids, len(vocab), grown_ids, len(grown_vocab))
 
     lap("K4-K5 parity")
 
@@ -1559,10 +1694,20 @@ def main() -> int:
     cand = sdp.stem_datapath_cuda(words)[0][:, :30].reshape(-1).contiguous()
     placeholder = torch.tensor([-1], dtype=torch.int32, device=dev)
     unpadded = torch.unique(cand)[:1024].contiguous()
-    k7_err = k7_phase(sm, cand, (("realistic tri", realistic.tri),
+    # larger than a block's shared memory: the grown quad table (243,614
+    # keys, 974 KB) in a seeded order
+    g7 = torch.Generator(dev).manual_seed(7)
+    shuffled = grown.quad[torch.randperm(grown.quad.shape[0], generator=g7,
+                                         device=dev)].contiguous()
+    # and keys in the adversarial table's bank: its 2000 entries, 2000 not
+    k7_err = k7_phase(sm, torch.cat([cand, one_bank_table(sm, 4000, dev)]),
+                      (("realistic tri", realistic.tri),
                                  ("realistic bi", realistic.bi),
                                  ("1024-entry table", unpadded),
-                                 ("placeholder [-1]", placeholder)))
+                                 ("placeholder [-1]", placeholder),
+                                 ("grown quad, shuffled", shuffled),
+                                 ("one bank (adversarial)",
+                                  one_bank_table(sm, 2000, dev))))
     k8_err = k8_phase(sm, sf, cand, (
         ("realistic tri", realistic.tri), ("realistic quad", realistic.quad),
         ("realistic bi", realistic.bi),
@@ -1637,8 +1782,10 @@ def main() -> int:
     lap("extract")
 
     # ---- 7b. the corpus index, words and text --------------------------
-    k5_launches, index_s, index_text_s = index_phase(ops, ix, corpus, tn,
-                                                     realistic, table)
+    k5_launches, k5_inst, index_s, index_text_s = index_phase(
+        ops, pk, ix, corpus, tn, realistic, table)
+    k5_grown_inst, index_grown_s = index_grown_phase(ops, pk, sf, ix, corpus,
+                                                     grown, table)
 
     lap("index")
 
@@ -1673,6 +1820,8 @@ def main() -> int:
     multi_call = lambda: ops.extract_roots_multilaunch(  # noqa: E731
         staged_words, realistic, device=dev)
     fused_wall, multi_wall = call_ms(fused_call, 10), call_ms(multi_call, 10)
+    profile_kernels("staged", "extract_roots_multilaunch calls (1M words)",
+                    lambda i: multi_call(), 2)
     print(f"[models] fused_vs_multilaunch: {multi_wall / fused_wall:.3f}x"
           f" (extract_roots_fused, bsearch, {fused_wall:.6f} ms a call;"
           f" extract_roots_multilaunch {multi_wall:.6f} ms a call;"
@@ -1845,17 +1994,24 @@ def main() -> int:
               f" {plain_ms:.6f} ms a call, bound {bd['bound_ms']:.6f} ms by"
               f" {bd['bound_by']} ({bd['n_bytes']} B, {bd['n_ops']} int32"
               " ops); no single PyTorch call computes it, library_ms null")
-    n_roots = len(vocab)
-    for label, w in (("index chunk", INDEX_CHUNK), ("1M words", INDEX_WORDS)):
-        tiles_ = pk.pad_ids(real_ids[:w], n_roots=n_roots,
-                            block_w=INDEX_BLOCK)
+    # K5: the counting instance at an index chunk and at 1M words of the
+    # realistic vocabulary; the bitonic one at an index chunk of the
+    # 262,144-key dictionary's vocabulary
+    for label, ids_, n_roots in (
+            ("index chunk", real_ids[:INDEX_CHUNK], len(vocab)),
+            ("1M words", real_ids[:INDEX_WORDS], len(vocab)),
+            ("index chunk, 262,144-key vocabulary", grown_ids,
+             len(grown_vocab))):
+        tiles_ = pk.pad_ids(ids_, n_roots=n_roots, block_w=INDEX_BLOCK)
         n_tiles = tiles_.shape[0]
+        w = ids_.shape[0]
         lane = torch.arange(INDEX_BLOCK, dtype=torch.int32, device=dev)
         keys = (tiles_ * INDEX_BLOCK + lane).view(n_tiles, INDEX_BLOCK)
         kern = dict(n_roots=n_roots, block_w=INDEX_BLOCK)
-        kernel = lambda: pk.postings_cuda(tiles_, **kern)
-        plain = lambda: pk.postings_plain(tiles_, **kern)
-        library = lambda: torch.sort(keys, dim=1)
+        instance = pk._instance(n_roots, INDEX_BLOCK)
+        kernel = lambda: pk.postings_cuda(tiles_, **kern)  # noqa: E731
+        plain = lambda: pk.postings_plain(tiles_, **kern)  # noqa: E731
+        library = lambda: torch.sort(keys, dim=1)  # noqa: E731
         check(same(kernel(), plain()) == 0,
               f"timed shape {label}: K5 differs from its plain version")
         k_call = call_ms(kernel, 100)
@@ -1863,7 +2019,9 @@ def main() -> int:
         lib_ms = device_ms(library, 100, call_ms(library, 100))
         plain_ms = call_ms(plain, 10)
         log_bw = INDEX_BLOCK.bit_length() - 1
-        stages = log_bw * (log_bw + 1) // 2
+        work = (f"{log_bw * (log_bw + 1) // 2} sort stages"
+                if instance == "bitonic" else
+                f"{pk.COUNT_LANES_PER_WARP // 32} groups a warp")
         n_ops = n_tiles * (K5_OPS_PER_WORD * INDEX_BLOCK
                            + K5_OPS_PER_BIN * (n_roots + 1))
         # ids in, rank and histogram out
@@ -1872,12 +2030,14 @@ def main() -> int:
         times[("K5", label)] = dict(ms=ms, call_ms=k_call, plain_ms=plain_ms,
                                     library_ms=lib_ms, **bd)
         print(f"[times] K5 {label} ({w} words, {n_tiles} tiles of"
-              f" {INDEX_BLOCK}, {n_roots} roots, {stages} sort stages):"
-              f" {ms:.6f} ms on the card ({k_call:.6f} ms a call with the"
-              f" host), plain {plain_ms:.6f} ms a call, torch.sort of the"
-              f" same keys alone (library_ms) {lib_ms:.6f} ms, bound"
+              f" {INDEX_BLOCK}, {n_roots} roots, instance {instance},"
+              f" {work}): {ms:.6f} ms on the card ({k_call:.6f} ms a call"
+              f" with the host), plain {plain_ms:.6f} ms a call, torch.sort"
+              f" of the same keys alone (library_ms) {lib_ms:.6f} ms, bound"
               f" {bd['bound_ms']:.6f} ms by {bd['bound_by']}"
-              f" ({bd['n_bytes']} B, {bd['n_ops']} int32 ops)")
+              f" ({bd['n_bytes']} B, {bd['n_ops']} int32 ops):"
+              f" {bd['bound_ms'] / ms:.6f} of the bound,"
+              f" {lib_ms / ms:.6f}x torch.sort's speed")
     # K6 at 4096 and 1M words; K7 and K8 on the tri group's keys of those
     # words (6 a word, against the realistic tri table), as the staged path
     # gives them, with torch.isin of the same keys beside them
@@ -1903,7 +2063,9 @@ def main() -> int:
                    lambda: sm.dict_match_plain(k, realistic.tri),
                    lambda: torch.isin(k, realistic.tri),
                    bound(5 * n + 4 * tri_bank, member_ops),
-                   f"the bank's own cost {n * tri_bank} compares"),
+                   "the banks' {compares} compares ({per_key:.6f} a key,"
+                   " largest bank {largest}; all-pairs would make"
+                   f" {n * tri_bank})"),
             "K8": (lambda: sm.dict_match_bsearch_cuda(k, realistic.tri),
                    lambda: sm.dict_match_bsearch_plain(k, realistic.tri),
                    lambda: torch.isin(k, realistic.tri),
@@ -1923,8 +2085,14 @@ def main() -> int:
             plain_ms = call_ms(plain, n_p)
             times[(name, b)] = dict(ms=ms, call_ms=k_call, plain_ms=plain_ms,
                                     library_ms=lib_ms, **bd)
-            lib = (f"torch.isin of the same keys (library_ms) {lib_ms:.6f} ms"
+            lib = (f"torch.isin of the same keys (library_ms) {lib_ms:.6f} ms,"
+                   f" {lib_ms / ms:.6f}x its speed"
                    if lib_ms is not None else "library_ms null")
+            if name == "K7":
+                st = sm.bank_stats(k, realistic.tri)
+                note = note.format(compares=st["compares"],
+                                   per_key=st["compares"] / n,
+                                   largest=st["largest"])
             print(f"[times] {name} B={b} ({n} keys for K7/K8): {ms:.6f} ms"
                   f" on the card ({k_call:.6f} ms a call with the host),"
                   f" plain {plain_ms:.6f} ms a call, {lib}, bound"
@@ -2037,13 +2205,17 @@ def main() -> int:
               "src/repro/kernels/text_frontend.py:41",
               text_runs[False][0]["text_frontend_cuda"], k4_err,
               shape="request"),
-        entry("postings", "K5", csrc + "postings.cu",
-              "src/repro/kernels/postings.py:92",
-              k5_launches["postings_cuda"], k5_err, shape="index chunk"),
+        entry("postings_counting", "K5", csrc + "postings.cu (+ postings.cuh)",
+              "src/repro/kernels/postings.py:92", k5_inst["counting"],
+              k5_err, shape="index chunk"),
+        entry("postings_bitonic", "K5", csrc + "postings.cu (+ postings.cuh)",
+              "src/repro/kernels/postings.py:92", k5_grown_inst["bitonic"],
+              k5_err, shape="index chunk, 262,144-key vocabulary"),
         entry("stem_candidates", "K6", csrc + "stem_candidates.cu",
               "src/repro/kernels/stem_datapath.py:121",
               staged["K6+K7"][0]["stem_datapath_cuda"], k6_err),
-        entry("dict_match_bank", "K7", csrc + "dict_match.cu",
+        entry("dict_match_bank", "K7",
+              csrc + "dict_match.cu (+ dict_bank.cuh)",
               "src/repro/kernels/stem_match.py:152",
               staged["K7"][0]["dict_match_cuda"], k7_err),
         entry("dict_match_bsearch", "K8", csrc + "dict_match.cu",

@@ -9,9 +9,9 @@ rebuilds and an unchanged one loads the library already built. Builds
 run under a file lock: parallel test workers or processes build once.
 
 ``host_datapath`` compiles the ``__host__ __device__`` headers (the
-datapath, the streamed sweep, the text front end's per-word rules and the
-postings tile steps) with ``g++`` for the CPU tests; nothing on the port's
-CPU path uses it.
+datapath, the streamed sweep, the text front end's per-word rules, both
+postings instances' tile steps and the comparator bank's banks) with
+``g++`` for the CPU tests; nothing on the port's CPU path uses it.
 """
 from __future__ import annotations
 
@@ -241,10 +241,11 @@ _SIGNATURES = {
     "text_frontend": {
         "text_frontend_launch": [_P, _LL, _P, _P, _I, _P, _P, _I, _P, _I,
                                  _P]},
-    "postings": {"postings_launch": [_P, _I, _I, _I, _P, _P, _P, _I, _P]},
+    "postings": {"postings_launch": [_P, _I, _I, _I, _P, _P, _P, _I, _P],
+                 "postings_instance": [_I, _I, _I]},
     "stem_candidates": {"stem_candidates_launch": [_P, _I, _P, _P, _I, _P]},
     "dict_match": {
-        "dict_match_bank_launch": [_P, _I, _P, _I, _P, _I, _I, _P],
+        "dict_match_bank_launch": [_P, _I, _P, _I, _I, _P, _I, _P],
         "dict_match_bsearch_launch": [_P, _I, _P, _I, _P, _I, _I, _P]},
     "flash_attention": {
         "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -291,7 +292,7 @@ def text_frontend_library() -> ctypes.CDLL:
 
 
 def postings_library() -> ctypes.CDLL:
-    """K5, the postings reduction (csrc/postings.cu)."""
+    """K5, the postings reduction, both instances (csrc/postings.cu)."""
     return _cuda_library("postings")
 
 
@@ -326,6 +327,12 @@ def _host_library() -> ctypes.CDLL:
         lib.host_text_frontend.restype = None
         lib.host_postings.argtypes = [_P, _I, _I, _I, _P, _P]
         lib.host_postings.restype = None
+        lib.host_postings_counting.argtypes = [_P, _I, _I, _I, _P, _P]
+        lib.host_postings_counting.restype = None
+        lib.host_postings_instance.argtypes = [_I, _I, _I]
+        lib.host_postings_instance.restype = ctypes.c_int
+        lib.host_dict_bank.argtypes = [_P, _I, _P, _I, _I, _I, _P]
+        lib.host_dict_bank.restype = None
         _LOADED["host_datapath"] = lib
     return lib
 
@@ -395,9 +402,11 @@ def host_text_frontend(chars: np.ndarray, starts: np.ndarray,
     return words
 
 
-def host_postings(ids: np.ndarray, *, n_roots: int,
-                  block_w: int) -> tuple[np.ndarray, np.ndarray]:
-    """The g++ build of postings.cuh, tile by tile: padded ids
+def host_postings(ids: np.ndarray, *, n_roots: int, block_w: int,
+                  instance: str = "bitonic") -> tuple[np.ndarray, np.ndarray]:
+    """The g++ build of postings.cuh, tile by tile, through ``instance``
+    ("bitonic": the network stage by stage and the searches; "counting":
+    the warps' counters, each 32-lane group in lane order): padded ids
     int32[n_tiles * block_w] -> (hist int32[n_tiles, n_roots + 1], rank
     int32[n_tiles * block_w])."""
     lib = _host_library()
@@ -405,12 +414,38 @@ def host_postings(ids: np.ndarray, *, n_roots: int,
     if block_w < 1 or block_w & (block_w - 1) or ids.size % block_w:
         raise ValueError(f"{ids.size} ids are not whole tiles of a pow2"
                          f" block_w={block_w}")
+    run = {"bitonic": lib.host_postings,
+           "counting": lib.host_postings_counting}[instance]
     n_tiles = ids.size // block_w
     hist = np.zeros((n_tiles, n_roots + 1), np.int32)
     rank = np.zeros(ids.size, np.int32)
-    lib.host_postings(ids.ctypes.data, n_tiles, block_w, n_roots + 1,
-                      hist.ctypes.data, rank.ctypes.data)
+    run(ids.ctypes.data, n_tiles, block_w, n_roots + 1, hist.ctypes.data,
+        rank.ctypes.data)
     return hist, rank
+
+
+def host_postings_instance(*, n_roots: int, block_w: int,
+                           max_smem: int) -> str:
+    """The instance postings.cuh's rule picks for a shape."""
+    i = _host_library().host_postings_instance(block_w, n_roots + 1,
+                                               max_smem)
+    return ("bitonic", "counting")[i]
+
+
+def host_dict_bank(keys: np.ndarray, dict_keys: np.ndarray, *, rp: int,
+                   chunk: int) -> np.ndarray:
+    """The g++ build of dict_bank.cuh, run as one block of K7 runs it:
+    keys int32[n] against dict_keys int32[r] padded with -2 to ``rp``
+    entries, banked ``chunk`` entries at a time -> bool[n]."""
+    lib = _host_library()
+    keys = np.ascontiguousarray(keys, dtype=np.int32).reshape(-1)
+    table = np.ascontiguousarray(dict_keys, dtype=np.int32).reshape(-1)
+    if rp < table.size:
+        raise ValueError(f"rp={rp} is below the table's {table.size}")
+    out = np.zeros(keys.size, np.uint8)
+    lib.host_dict_bank(keys.ctypes.data, keys.size, table.ctypes.data,
+                       table.size, rp, chunk, out.ctypes.data)
+    return out.astype(bool)
 
 
 def _host_words(words: np.ndarray) -> np.ndarray:

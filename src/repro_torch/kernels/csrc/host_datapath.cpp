@@ -1,14 +1,20 @@
 // Host build of the kernels' per-word and per-tile headers, for the CPU
 // tests: g++ compiles the same stages 1-4 code (stem_datapath.cuh), the
 // same streamed per-tile compare (stem_sweep.cuh), the same text front-end
-// rules (text_frontend.cuh) and the same postings sort and searches
-// (postings.cuh) that the CUDA kernels run, and the tests hold them bit
-// for bit against the plain PyTorch versions.
+// rules (text_frontend.cuh), the same postings steps of both instances
+// (postings.cuh) and the same bank build and probe of the comparator bank
+// (dict_bank.cuh) that the CUDA kernels run, and the tests hold them bit
+// for bit against the plain PyTorch versions. Where a kernel uses a warp
+// or block primitive (a lane vote, a shuffle, a block scan, an atomic),
+// the host runs a small function that does the same over the lanes in
+// order.
 #include <stddef.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <vector>
 
+#include "dict_bank.cuh"
 #include "postings.cuh"
 #include "stem_datapath.cuh"
 #include "stem_sweep.cuh"
@@ -153,6 +159,128 @@ extern "C" void host_postings(const int32_t* ids, int n_tiles, int block_w,
       int32_t rk;
       pk::rank_of(keys.data(), block_w, log_bw, p, &lane, &rk);
       rank[size_t(tile) * block_w + lane] = rk;
+    }
+  }
+}
+
+namespace {
+
+// __ballot_sync over a group of n lanes: the lanes whose predicate is set,
+// the counted flag for bit < 0, else bit `bit` of the id.
+uint32_t ballot(const int32_t* group, int n, int n_roots_pad, int bit) {
+  uint32_t m = 0;
+  for (int l = 0; l < n; ++l) {
+    const bool set = bit < 0 ? pk::counted(group[l], n_roots_pad)
+                             : (group[l] >> bit) & 1;
+    m |= uint32_t(set) << l;
+  }
+  return m;
+}
+
+}  // namespace
+
+// The counting instance a shape takes (postings_instance), on the host.
+extern "C" int host_postings_instance(int block_w, int n_roots_pad,
+                                      int max_smem) {
+  return pk::instance(block_w, n_roots_pad, size_t(max_smem));
+}
+
+// The counting instance's contract on the host, its warps one after
+// another, each group of 32 lanes through the same steps in lane order:
+// ids int32[n_tiles, block_w] (any int32) -> hist int32[n_tiles,
+// n_roots_pad], rank int32[n_tiles, block_w]. block_w <= kCountMaxBlockW.
+extern "C" void host_postings_counting(const int32_t* ids, int n_tiles,
+                                       int block_w, int n_roots_pad,
+                                       int32_t* hist, int32_t* rank) {
+  const int warps = pk::count_warps(block_w);
+  const int per_warp = block_w / warps;
+  const int stride = pk::count_stride(n_roots_pad);
+  const int bits = pk::id_bits(n_roots_pad);
+  std::vector<uint16_t> counts(size_t(warps) * stride);
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int32_t* tile_ids = ids + size_t(tile) * block_w;
+    int32_t* rk = rank + size_t(tile) * block_w;
+    std::fill(counts.begin(), counts.end(), uint16_t(0));
+    for (int w = 0; w < warps; ++w) {
+      uint16_t* mine = counts.data() + size_t(w) * stride;
+      for (int g0 = 0; g0 < per_warp; g0 += pk::kWarp) {
+        const int width = std::min(pk::kWarp, per_warp - g0);
+        const int32_t* group = tile_ids + w * per_warp + g0;
+        const uint32_t active = width == pk::kWarp ? 0xffffffffu
+                                                   : (1u << width) - 1u;
+        uint32_t peers[pk::kWarp], base[pk::kWarp] = {0};
+        for (int l = 0; l < width; ++l) {
+          const bool ok = pk::counted(group[l], n_roots_pad);
+          peers[l] = pk::narrow(active, ballot(group, width, n_roots_pad, -1),
+                                ok);
+          for (int b = 0; b < bits; ++b) {
+            peers[l] = pk::narrow(peers[l], ballot(group, width, n_roots_pad, b),
+                                  (group[l] >> b) & 1);
+          }
+          if (l == pk::lowest_lane(peers[l]) && ok) {
+            base[l] = pk::bump(mine, group[l], peers[l]);
+          }
+        }
+        for (int l = 0; l < width; ++l) {        // __shfl_sync from the leader
+          rk[w * per_warp + g0 + l] = pk::group_rank(
+              base[pk::lowest_lane(peers[l])], peers[l], l);
+        }
+      }
+    }
+    for (int r = 0; r < n_roots_pad; ++r) {
+      hist[size_t(tile) * n_roots_pad + r] =
+          pk::scan_bin(counts.data(), warps, stride, r);
+    }
+    for (int l = 0; l < block_w; ++l) {
+      const int32_t id = tile_ids[l];
+      rk[l] = pk::counted(id, n_roots_pad)
+                  ? rk[l] + counts[size_t(l / per_warp) * stride + id]
+                  : pk::rank_by_scan(tile_ids, l, id);
+    }
+  }
+}
+
+// The banked comparator bank's contract (dict_match_bank_launch) on the
+// host, chunk by chunk: each chunk banked (sizes, an exclusive scan, a
+// scatter, in entry order where the kernel's atomics take any), every key
+// probed against its bank, hits ORed over the chunks: keys int32[n], dict
+// int32[r] read as the table padded with -2 to rp entries -> out uint8[n].
+extern "C" void host_dict_bank(const int32_t* keys, int n,
+                               const int32_t* dict, int r, int rp, int chunk,
+                               uint8_t* out) {
+  const int bits = db::bank_bits(chunk);
+  std::vector<uint32_t> banks(size_t(1) << bits);
+  std::vector<int32_t> entries(size_t(chunk) + 2);   // and the spare words
+  std::fill(out, out + n, uint8_t(0));
+  for (long long c0 = 0; c0 < rp; c0 += chunk) {
+    const int len = int(std::min<long long>(chunk, rp - c0));
+    std::fill(banks.begin(), banks.end(), 0u);
+    for (long long i = c0; i < c0 + len; ++i) {
+      if (db::kept(dict, r, c0, i)) {
+        banks[db::bank_of(db::entry(dict, r, i), bits)] += 1u << 16;
+      }
+    }
+    uint32_t run = 0;                            // the block's scan
+    for (uint32_t& w : banks) {
+      const uint32_t size = w >> 16;
+      w = db::bank_start(w, run);
+      run += size;
+    }
+    for (long long i = c0; i < c0 + len; ++i) {
+      if (db::kept(dict, r, c0, i)) {
+        const int32_t v = db::entry(dict, r, i);
+        entries[banks[db::bank_of(v, bits)]++ & 0xffffu] = v;
+      }
+    }
+    const int quads = n / 4;                     // 4 keys a probe, as K7
+    for (int q = 0; q < quads; ++q) {
+      const uint32_t flags =
+          db::probe4(entries.data(), banks.data(), bits, keys + 4 * q);
+      for (int u = 0; u < 4; ++u) out[4 * q + u] |= (flags >> (8 * u)) & 1;
+    }
+    for (int i = 4 * quads; i < n; ++i) {        // the ragged tail
+      out[i] |= uint8_t(db::probe(entries.data(), banks.data(), bits,
+                                  keys[i]));
     }
   }
 }

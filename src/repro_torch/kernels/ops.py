@@ -37,10 +37,12 @@ CUDA_WRAPPERS = (sf.CUDA_WRAPPERS + tf.CUDA_WRAPPERS + pk.CUDA_WRAPPERS
 
 # -- dispatch accounting -----------------------------------------------------
 def reset_dispatch_count() -> None:
-    """Zero the launch counters of every kernel (K1-K9), and K9's count
-    per instance."""
+    """Zero the launch counters of every kernel (K1-K9), and K5's and
+    K9's counts per instance."""
     for wrapper in CUDA_WRAPPERS:
         wrapper.launches = 0
+    pk.postings_cuda.instances = dict.fromkeys(
+        pk.postings_cuda.instances, 0)
     fa.flash_attention_cuda.instances = dict.fromkeys(
         fa.flash_attention_cuda.instances, 0)
 

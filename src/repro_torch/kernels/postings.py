@@ -1,26 +1,29 @@
 """The inverted-index postings reduction (K5) and its global half.
 
 The counterpart of ``repro.kernels.postings``. Per ``block_w``-word tile
-(a power of two) of root ids, the composite keys ``id * block_w + lane``
-are sorted; bucket boundaries at ``r * block_w`` give the tile's root
-histogram, and each word's sorted position minus its root segment's start
-gives its stable rank within the segment. Invalid words carry the drop
-bucket ``id == n_roots``. :func:`finish_postings` then turns histograms
-and ranks into the CSR postings with exclusive cumsums, one gather and
-two masked scatters, in plain PyTorch, as the reference does it outside
-its kernel.
+(a power of two) of root ids, the tile's root histogram and each word's
+stable rank within its root: the number of earlier words of the tile with
+its id. Invalid words carry the drop bucket ``id == n_roots``.
+:func:`finish_postings` then turns histograms and ranks into the CSR
+postings with exclusive cumsums, one gather and two masked scatters, in
+plain PyTorch, as the reference does it outside its kernel.
 
-  postings_plain  the plain PyTorch version: a per-tile ``torch.sort`` of
-                  the composite keys, ``searchsorted`` and a diff; the CPU
-                  path and the yardstick on the card
+  postings_plain  the plain PyTorch version, the reference's route: a
+                  per-tile ``torch.sort`` of the composite keys ``id *
+                  block_w + lane``, ``searchsorted`` at the bucket starts
+                  ``r * block_w`` and a diff; the CPU path and the
+                  yardstick on the card
   postings_cuda   the CUDA kernel, ``csrc/postings.cu`` with the tile steps
                   in ``csrc/postings.cuh`` (replaces
-                  ``repro/kernels/postings.py:92``, ``_postings_kernel``);
-                  bound by the sort's barriers (66 stages at
-                  block_w=2048), so the keys stay in shared memory for the
-                  whole network and each stage is one compare-exchange a
-                  thread and one barrier; a tile wider than MAX_BLOCK_W
-                  runs the same network in a global-memory scratch row
+                  ``repro/kernels/postings.py:92``, ``_postings_kernel``),
+                  two instances picked by shape alone (:func:`_instance`):
+                  "counting" counts the ids warp by warp in shared-memory
+                  counters (ranks in lane order, three barriers a tile, no
+                  sort); "bitonic", for counters that do not fit one
+                  block's shared memory or tiles past COUNT_MAX_BLOCK_W,
+                  sorts the composite keys with a bitonic network in
+                  shared memory (in a global-memory scratch row past
+                  MAX_BLOCK_W) and bisects them
 
 :func:`postings` takes the plain version for a CPU tensor only; a CUDA
 tensor launches the kernel or raises.
@@ -35,9 +38,26 @@ from repro_torch.kernels.stem_fused import (SMEM_BLOCK_BYTES, _check_cuda,
 
 # int32 composite keys: id * block_w + lane must not overflow.
 MAX_COMPOSITE = 1 << 31
-# The largest pow2 tile whose keys (4 B each) the kernel sorts in one
-# block's shared memory; wider tiles sort in a global-memory scratch row.
+# The largest pow2 tile whose keys (4 B each) the bitonic instance sorts in
+# one block's shared memory; wider tiles sort in a global-memory scratch row.
 MAX_BLOCK_W = 1 << ((SMEM_BLOCK_BYTES // 4).bit_length() - 1)
+# The counting instance (postings.cuh): a warp per COUNT_LANES_PER_WARP
+# lanes, at most 32 warps, uint16 counters [warps][n_roots + 1 rounded up
+# to 8] in shared memory.
+COUNT_LANES_PER_WARP = 256
+COUNT_MAX_BLOCK_W = 32 * COUNT_LANES_PER_WARP
+
+
+def _instance(n_roots: int, block_w: int) -> str:
+    """The K5 instance a launch takes, by shape alone (the C side's
+    ``postings_instance``): ``"counting"`` while block_w <=
+    COUNT_MAX_BLOCK_W and its counters fit one block's shared memory,
+    else ``"bitonic"``."""
+    warps = max(1, block_w // COUNT_LANES_PER_WARP)
+    counters = warps * (-(-(n_roots + 1) // 8) * 8)
+    fits = (block_w <= COUNT_MAX_BLOCK_W
+            and 2 * counters <= SMEM_BLOCK_BYTES)
+    return "counting" if fits else "bitonic"
 
 
 def check_block_w(block_w: int, n_roots: int) -> None:
@@ -82,7 +102,8 @@ def postings_plain(tiles: torch.Tensor, *, n_roots: int, block_w: int):
 def postings_cuda(tiles: torch.Tensor, *, n_roots: int, block_w: int):
     """Launch K5 (``csrc/postings.cu``) on the current stream: same
     contract as :func:`postings_plain`, for CUDA tensors. Adds one to
-    ``postings_cuda.launches`` per launch."""
+    ``postings_cuda.launches`` and to
+    ``postings_cuda.instances[_instance(n_roots, block_w)]`` per launch."""
     from repro_torch.kernels import build  # lazy: builds at first launch
 
     dev = tiles.device
@@ -96,23 +117,27 @@ def postings_cuda(tiles: torch.Tensor, *, n_roots: int, block_w: int):
     rank = torch.empty((n_tiles * block_w,), dtype=torch.int32, device=dev)
     if n_tiles == 0:
         return hist, rank
-    # tiles past MAX_BLOCK_W sort in a scratch row each
-    scratch = torch.empty(tiles.shape if block_w > MAX_BLOCK_W else (0,),
-                          dtype=torch.int32, device=dev)
+    instance = _instance(n_roots, block_w)
+    # bitonic tiles past MAX_BLOCK_W sort in a scratch row each
+    wide = instance == "bitonic" and block_w > MAX_BLOCK_W
+    scratch = torch.empty(tiles.shape if wide else (0,), dtype=torch.int32,
+                          device=dev)
     lib = build.postings_library()
     with torch.cuda.device(dev):
         err = lib.postings_launch(tiles.data_ptr(), n_tiles, block_w,
                                   n_roots + 1, hist.data_ptr(),
                                   rank.data_ptr(),
                                   scratch.data_ptr() if scratch.numel()
-                                  else None, 4 * MAX_BLOCK_W,
+                                  else None, SMEM_BLOCK_BYTES,
                                   _cuda_stream(dev))
     _raise_on(err, lib, "postings")
     postings_cuda.launches += 1
+    postings_cuda.instances[instance] += 1
     return hist, rank
 
 
 postings_cuda.launches = 0
+postings_cuda.instances = {"counting": 0, "bitonic": 0}
 CUDA_WRAPPERS = (postings_cuda,)
 
 

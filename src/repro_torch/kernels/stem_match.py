@@ -12,8 +12,11 @@ PyTorch version (``csrc/dict_match.cu``):
 
   dict_match_plain / dict_match_cuda (K7, replaces
       ``repro/kernels/stem_match.py:152``, ``_match_kernel``): the
-      comparator bank, all-pairs equality against the table padded with
-      DICT_PAD to a multiple of ``block_r * 128``;
+      comparator bank, membership in the table padded with DICT_PAD to a
+      multiple of ``block_r * 128``; the plain version compares all
+      pairs, the kernel banks the table by a hash of the value
+      (``csrc/dict_bank.cuh``, :func:`bank_of`) and compares a key only
+      with its own bank;
   dict_match_bsearch_plain / dict_match_bsearch_cuda (K8, replaces
       ``:208``, ``_bsearch_kernel``): ``bsearch_hit`` against the sorted
       table of :func:`pad_dict_sorted`.
@@ -29,6 +32,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 LANE = 128
@@ -37,8 +41,11 @@ DICT_PAD = -2
 DICT_SENTINEL = 1 << 28
 # the plain comparator bank's all-pairs temporary, in bytes (bool)
 _BANK_TEMP_BYTES = 1 << 28
-# shared memory the bank stages a dictionary tile in (entries: 48 KB)
-_BANK_TILE_MAX = 12 * 1024
+# K7's banks (csrc/dict_bank.cuh): entries a block banks at once, the
+# hash's multiplier, the fewest bank bits
+BANK_CHUNK_MAX = 8192
+BANK_HASH_MUL = 0x9E3779B1
+BANK_MIN_BITS = 5
 
 
 def _ceil_log2(n: int) -> int:
@@ -158,11 +165,58 @@ def _check_blocks(block_n: int, block_r: int = 1) -> None:
                          f" {block_r}")
 
 
+def bank_padded(r: int, block_r: int) -> int:
+    """Entries of the bank's table of ``r`` keys after padding."""
+    return r + (-r) % (block_r * LANE)
+
+
 def pad_dict_bank(dict_keys: torch.Tensor, block_r: int) -> torch.Tensor:
     """The bank's flat table: padded with DICT_PAD to a multiple of
     ``block_r * LANE`` entries, as ``dict_match_pallas`` pads it."""
-    r = dict_keys.shape[0]
-    return _pad_right(dict_keys, r + (-r) % (block_r * LANE), DICT_PAD)
+    return _pad_right(dict_keys, bank_padded(dict_keys.shape[0], block_r),
+                      DICT_PAD)
+
+
+def bank_bits(chunk: int) -> int:
+    """Bank bits of a chunk of up to ``chunk`` entries (``db::bank_bits``):
+    the next power of two, at least 2^BANK_MIN_BITS banks."""
+    return max(BANK_MIN_BITS, _ceil_log2(chunk))
+
+
+def bank_of(values, bits: int) -> np.ndarray:
+    """The bank of each int32 value (``db::bank_of``): the top ``bits`` bits
+    of ``uint32(value) * BANK_HASH_MUL`` mod 2^32."""
+    v = np.asarray(values, dtype=np.int32).astype(np.uint32).astype(np.uint64)
+    return ((v * BANK_HASH_MUL) & 0xFFFFFFFF) >> (32 - bits)
+
+
+def bank_chunk(rp: int) -> int:
+    """Entries K7 banks at once for a padded table of ``rp`` entries."""
+    return max(LANE, min(rp, BANK_CHUNK_MAX))
+
+
+def bank_stats(keys: torch.Tensor, dict_keys: torch.Tensor, *,
+               block_r: int = 8) -> dict:
+    """What K7's banks do with these inputs, counted on the host: the
+    largest bank, the kept entries, and the compares (a key meets every
+    entry of its bank in every chunk) -> {"largest", "entries",
+    "compares", "banks", "chunks"}."""
+    table = pad_dict_bank(dict_keys, block_r).cpu().numpy()
+    k = keys.cpu().numpy()
+    chunk = bank_chunk(table.shape[0])
+    bits = bank_bits(chunk)
+    largest = entries = compares = chunks = 0
+    for c0 in range(0, max(1, table.shape[0]), chunk):
+        part = table[c0:c0 + chunk]
+        part = part[np.r_[True, part[1:] != part[:-1]]] if part.size else part
+        sizes = np.bincount(bank_of(part, bits).astype(np.int64),
+                            minlength=1 << bits)
+        largest = max(largest, int(sizes.max()))
+        entries += int(part.size)
+        compares += int(sizes[bank_of(k, bits).astype(np.int64)].sum())
+        chunks += 1
+    return dict(largest=largest, entries=entries, compares=compares,
+                banks=1 << bits, chunks=chunks)
 
 
 def dict_match_plain(keys: torch.Tensor, dict_keys: torch.Tensor, *,
@@ -205,8 +259,10 @@ def _check_match_args(keys, dict_keys):
 def dict_match_cuda(keys: torch.Tensor, dict_keys: torch.Tensor, *,
                     block_n: int = 2, block_r: int = 8) -> torch.Tensor:
     """Launch K7 (``csrc/dict_match.cu``) on the current stream: same
-    contract as :func:`dict_match_plain`, for CUDA tensors. Adds one to
-    ``dict_match_cuda.launches`` per launch."""
+    contract as :func:`dict_match_plain`, for CUDA tensors. The padded
+    table is banked on the card, :func:`bank_chunk` entries at a time;
+    ``block_n`` is only checked (a persistent grid strides over the keys).
+    Adds one to ``dict_match_cuda.launches`` per launch."""
     from repro_torch.kernels import build  # lazy: builds at first launch
     from repro_torch.kernels import stem_fused as sf
 
@@ -216,15 +272,15 @@ def dict_match_cuda(keys: torch.Tensor, dict_keys: torch.Tensor, *,
     out = torch.empty((n,), dtype=torch.bool, device=dev)
     if n == 0:
         return out
-    table = pad_dict_bank(dict_keys, block_r)
-    # a staged tile of block_r * 128 entries, or the largest 128 multiple
-    # that fits the shared-memory budget (the answer is the same)
-    tile_n = LANE * min(block_r, _BANK_TILE_MAX // LANE)
+    r = dict_keys.shape[0]
+    rp = bank_padded(r, block_r)      # the kernel reads the padding as -2
+    if keys.data_ptr() % 16:          # it reads keys 16 B at a time
+        keys = keys.clone()
     lib = build.dict_match_library()
     with torch.cuda.device(dev):
         err = lib.dict_match_bank_launch(
-            keys.data_ptr(), n, table.data_ptr(), table.shape[0],
-            out.data_ptr(), block_n * LANE, tile_n, sf._cuda_stream(dev))
+            keys.data_ptr(), n, dict_keys.data_ptr(), r, rp, out.data_ptr(),
+            bank_chunk(rp), sf._cuda_stream(dev))
     sf._raise_on(err, lib, "dict_match_bank")
     dict_match_cuda.launches += 1
     return out

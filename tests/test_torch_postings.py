@@ -1,7 +1,9 @@
 """The port's postings kernel (K5, repro_torch.kernels.postings) against the
 JAX package: the plain version against the interpret-mode Pallas kernel,
-the guards, the g++ build of the kernel's tile steps, and the global half
-(finish_postings). Every compared output is int32 and must be
+the guards, the g++ build of both instances' tile steps (the counting
+instance's warps run group by group with their ballots over the lanes in
+order; the bitonic network stage by stage), the instance rule, and the
+global half (finish_postings). Every compared output is int32 and must be
 identical."""
 import numpy as np
 import pytest
@@ -88,6 +90,98 @@ def test_host_build_of_postings_header_matches_plain(block_w):
         np.testing.assert_array_equal(got_r, want_r.numpy())
 
 
+# ids a tile may hold: the drop bucket only, one root, a skewed draw over the
+# realistic vocabulary, and ids outside [0, n_roots] (which the reference's
+# contract excludes; the plain version still defines their answer)
+ID_CASES = ("all dropped", "one root", "realistic", "out of range")
+OUT_OF_RANGE = np.array([-1, -7, -(1 << 31), (1 << 31) - 1], np.int32)
+
+
+def _case_ids(case: str, w: int, seed: int) -> tuple[np.ndarray, int]:
+    """-> (ids int32[w], n_roots) for one of ID_CASES."""
+    rng = np.random.default_rng(seed)
+    n_roots = 2231                            # the realistic vocabulary
+    if case == "all dropped":
+        return np.full(w, n_roots, np.int32), n_roots
+    if case == "one root":
+        return np.zeros(w, np.int32), 1
+    ids = ((rng.zipf(1.3, size=w) - 1) % (n_roots + 1)).astype(np.int32)
+    if case == "out of range":
+        bad = rng.random(w) < 0.1
+        extra = np.concatenate([OUT_OF_RANGE, [n_roots + 1, n_roots + 9]])
+        ids[bad] = rng.choice(extra, size=int(bad.sum())).astype(np.int32)
+    return ids, n_roots
+
+
+@pytest.mark.parametrize("case", ID_CASES)
+@pytest.mark.parametrize("block_w", [1, 8, 32, 128, 2048])
+def test_host_build_of_counting_instance_matches_plain(block_w, case):
+    """The g++ build of the counting instance (postings.cuh) against the
+    plain version, and through it against the interpret-mode Pallas
+    kernel where the ids keep to the reference's contract. Ragged W, so
+    the last tile is padded with drop ids."""
+    ids, n_roots = _case_ids(case, 3 * block_w + block_w // 2 + 1,
+                             seed=block_w)
+    tiles = tpk.pad_ids(torch.from_numpy(ids), n_roots=n_roots,
+                        block_w=block_w)
+    want_h, want_r = tpk.postings_plain(tiles, n_roots=n_roots,
+                                        block_w=block_w)
+    got_h, got_r = build.host_postings(tiles.numpy(), n_roots=n_roots,
+                                       block_w=block_w, instance="counting")
+    np.testing.assert_array_equal(got_h, want_h.numpy())
+    np.testing.assert_array_equal(got_r, want_r.numpy())
+    if case == "out of range":
+        # no histogram entry for them, and each one's rank counts the
+        # earlier equal ids of its tile
+        flat = tiles.numpy()
+        assert got_h.sum() == ((flat >= 0) & (flat <= n_roots)).sum()
+        for t, row in enumerate(flat):
+            for lane in np.nonzero((row < 0) | (row > n_roots))[0][:5]:
+                assert got_r[t * block_w + lane] == (
+                    row[:lane] == row[lane]).sum()
+        return
+    rh, rr = rpk.postings_pallas(jnp.asarray(ids), n_roots=n_roots,
+                                 block_w=block_w, interpret=True)
+    np.testing.assert_array_equal(got_h, np.asarray(rh))
+    np.testing.assert_array_equal(got_r, np.asarray(rr))
+
+
+@pytest.mark.parametrize("block_w", [1, 128, 2048, 1 << 16])
+def test_host_build_of_bitonic_instance_takes_out_of_range_ids(block_w):
+    """The bitonic instance gives ids outside [0, n_roots] the plain
+    version's answer too, as long as their composite keys fit int32."""
+    rng = np.random.default_rng(block_w)
+    n_roots = 60
+    ids = rng.integers(0, n_roots + 1, size=2 * block_w + 3).astype(np.int32)
+    bad = rng.random(ids.size) < 0.1
+    ids[bad] = rng.choice(np.array([-1, -7, n_roots + 1, n_roots + 9],
+                                   np.int32), size=int(bad.sum()))
+    tiles = tpk.pad_ids(torch.from_numpy(ids), n_roots=n_roots,
+                        block_w=block_w)
+    want = tpk.postings_plain(tiles, n_roots=n_roots, block_w=block_w)
+    got = build.host_postings(tiles.numpy(), n_roots=n_roots,
+                              block_w=block_w, instance="bitonic")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.numpy())
+
+
+@pytest.mark.parametrize("block_w", [1, 16, 256, 2048, 8192, 16384])
+def test_instance_rule_matches_the_header(block_w):
+    """kernels/postings.py:_instance picks what postings.cuh's rule picks:
+    counting while block_w <= 8192 and the counters fit one block's shared
+    memory; the realistic vocabulary at the index path's block_w 2048 is
+    counted, the 262,144-key dictionary's is sorted."""
+    for n_roots in (0, 1, 2231, 14_000, 14_600, 59_000, 120_000, 262_143):
+        if (n_roots + 1) * block_w >= tpk.MAX_COMPOSITE:
+            continue
+        want = build.host_postings_instance(
+            n_roots=n_roots, block_w=block_w, max_smem=tpk.SMEM_BLOCK_BYTES)
+        assert tpk._instance(n_roots, block_w) == want, (n_roots, block_w)
+    assert tpk._instance(2231, 2048) == "counting"
+    assert tpk._instance(262_143, 2048) == "bitonic"
+    assert tpk._instance(2231, 16384) == "bitonic"
+
+
 def test_guards_match_reference():
     ids = np.zeros(8, np.int32)
     for kw, match in ((dict(n_roots=4, block_w=96), "power of two"),
@@ -152,6 +246,15 @@ def test_host_build_takes_wide_tiles(block_w):
     np.testing.assert_array_equal(got_r, want_r.numpy())
 
 
+def test_reset_zeroes_instance_counts():
+    from repro_torch.kernels import ops
+
+    tpk.postings_cuda.instances["counting"] += 3
+    ops.reset_dispatch_count()
+    assert tpk.postings_cuda.instances == {"counting": 0, "bitonic": 0}
+    assert tpk.postings_cuda in ops.CUDA_WRAPPERS
+
+
 def test_empty_and_cpu_wrapper():
     hist, rank = tpk.postings(torch.zeros(0, dtype=torch.int32), n_roots=5,
                               block_w=128)
@@ -167,15 +270,32 @@ def test_empty_and_cpu_wrapper():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("block_w", [128, 1024, 2048, 8192, 1 << 16, 1 << 17])
+@pytest.mark.parametrize("block_w", [1, 8, 32, 128, 1024, 2048, 8192, 1 << 16,
+                                     1 << 17])
 def test_postings_kernel_matches_plain_on_card(block_w):
+    """Both instances, each launch on the instance its shape picks (by the
+    per-instance counter and by the library's own rule), ids outside
+    [0, n_roots] included where the instance takes them."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    lib = build.postings_library()
     for n_roots, w in ((2231, 5 * block_w + 17), (1, 3 * block_w),
-                       (60, block_w)):
-        ids = torch.from_numpy(_ids(n_roots, w, seed=w)).cuda()
-        tiles = tpk.pad_ids(ids, n_roots=n_roots, block_w=block_w)
+                       (60, block_w), (262_143 if block_w <= 4096 else 60,
+                                       2 * block_w)):
+        ids = _ids(n_roots, w, seed=w)
+        instance = tpk._instance(n_roots, block_w)
+        bad = np.random.default_rng(w).random(w) < 0.05
+        extra = OUT_OF_RANGE if instance == "counting" else np.array(
+            [-1, -7, n_roots + 1, n_roots + 9], np.int32)
+        ids[bad] = np.resize(extra, int(bad.sum()))
+        tiles = tpk.pad_ids(torch.from_numpy(ids).cuda(), n_roots=n_roots,
+                            block_w=block_w)
+        before = dict(tpk.postings_cuda.instances)
         got = tpk.postings_cuda(tiles, n_roots=n_roots, block_w=block_w)
         torch.cuda.synchronize()
         want = tpk.postings_plain(tiles, n_roots=n_roots, block_w=block_w)
         assert all(torch.equal(g, x) for g, x in zip(got, want))
+        assert tpk.postings_cuda.instances[instance] == before[instance] + 1
+        assert lib.postings_instance(block_w, n_roots + 1,
+                                     tpk.SMEM_BLOCK_BYTES) == (
+            instance == "counting")

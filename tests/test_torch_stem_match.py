@@ -1,7 +1,9 @@
 """The port's standalone Compare kernels (repro_torch.kernels.stem_match):
 the comparator bank (K7) and the sorted search (K8), plain versions
 against the JAX package's interpret-mode Pallas kernels, bool[N] flags
-identical, the padding hits included."""
+identical, the padding hits included; the g++ build of K7's banks
+(csrc/dict_bank.cuh: the bank build and the four-key probe) against the
+plain version."""
 import numpy as np
 import pytest
 
@@ -13,6 +15,7 @@ from repro.core import corpus as rcorpus  # noqa: E402
 from repro.core import stemmer as rstemmer  # noqa: E402
 from repro.kernels import ops as rops  # noqa: E402
 from repro.kernels import stem_match as rsm  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.core import corpus as tcorpus  # noqa: E402
 from repro_torch.core import stemmer as tstemmer  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -166,6 +169,117 @@ def test_guards():
         assert fn.launches == 0
 
 
+def _adversarial(n: int, start: int = 0) -> np.ndarray:
+    """n distinct int32 values that all hash into bank 0 at any bank count
+    up to 2^16: the inverse of the hash's multiplier times 0, 1, ..."""
+    inv = pow(tsm.BANK_HASH_MUL, -1, 1 << 32)
+    t = np.arange(start, start + n, dtype=np.uint64)
+    return (t * inv % (1 << 32)).astype(np.uint32).view(np.int32)
+
+
+def _bank_table(kind: str) -> np.ndarray:
+    """The tables K7 must take: the realistic tri table, one unsorted with
+    duplicates and negative values, the empty-table placeholder, one whose
+    entries all fall in one bank, and one larger than a block's bank
+    budget (BANK_CHUNK_MAX entries), shuffled."""
+    rng = np.random.default_rng(len(kind))
+    if kind == "realistic tri":
+        da = tstemmer.RootDictArrays.from_rootdict(tcorpus.build_dictionary(),
+                                                   device="cpu")
+        return da.tri.numpy()
+    if kind == "unsorted, duplicates":
+        d = rng.integers(-(1 << 31), 1 << 31, size=900).astype(np.int32)
+        return np.concatenate([d, d[:100], d[::-7], [-2, -2, -1]]).astype(
+            np.int32)
+    if kind == "placeholder [-1]":
+        return np.array([-1], np.int32)
+    if kind == "adversarial":
+        return _adversarial(1500)
+    assert kind == "larger than shared memory"
+    return rng.permutation(rng.choice(1 << 24, size=20_000, replace=False)
+                           ).astype(np.int32)
+
+
+BANK_TABLES = ("realistic tri", "unsorted, duplicates", "placeholder [-1]",
+               "adversarial", "larger than shared memory")
+
+
+def _bank_keys(table: np.ndarray, n: int, seed: int) -> np.ndarray:
+    """Hits, misses, keys in the adversarial bank, and the keys that hit
+    only padding (-2), never (-1) or the sorted layout's sentinel."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(-(1 << 31), 1 << 31, size=max(n, 4)).astype(np.int32)
+    keys[::3] = rng.choice(table, size=keys[::3].size)
+    keys[1::7] = _adversarial(keys[1::7].size, start=1 << 12)
+    keys[:4] = [tsm.DICT_PAD, tsm.KEY_PAD, tsm.DICT_SENTINEL, table[-1]]
+    return keys[:n]
+
+
+@pytest.mark.parametrize("block_r", [1, 8])
+@pytest.mark.parametrize("kind", BANK_TABLES)
+def test_host_build_of_banks_matches_plain(kind, block_r):
+    """The g++ build of dict_bank.cuh (banked chunk by chunk, four keys a
+    probe, the ragged tail one by one) against the plain all-pairs
+    version, bit for bit, and through it against the interpret-mode
+    Pallas kernel for the tables it compares in reasonable time."""
+    table = _bank_table(kind)
+    keys = _bank_keys(table, 4099, seed=block_r)
+    rp = tsm.bank_padded(table.shape[0], block_r)
+    want = tsm.dict_match_plain(torch.from_numpy(keys),
+                                torch.from_numpy(table), block_r=block_r)
+    got = build.host_dict_bank(keys, table, rp=rp, chunk=tsm.bank_chunk(rp))
+    np.testing.assert_array_equal(got, want.numpy())
+    assert bool(got[0]) == (rp != table.shape[0] or bool((table == -2).any()))
+    assert not got[2] and got[3]
+    if table.shape[0] <= 2048:
+        ref = rsm.dict_match_pallas(jnp.asarray(keys), jnp.asarray(table),
+                                    block_r=block_r, interpret=True)
+        np.testing.assert_array_equal(got, np.asarray(ref))
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 130])
+def test_host_build_of_banks_takes_any_key_count(n):
+    """Keys in whole quads and a ragged tail, and an empty table (no
+    entries at all: nothing hits, not even -2)."""
+    table = _bank_table("unsorted, duplicates")
+    keys = _bank_keys(table, n, seed=n)
+    for block_r in (1, 3):
+        rp = tsm.bank_padded(table.shape[0], block_r)
+        want = tsm.dict_match_plain(torch.from_numpy(keys),
+                                    torch.from_numpy(table), block_r=block_r)
+        got = build.host_dict_bank(keys, table, rp=rp,
+                                   chunk=tsm.bank_chunk(rp))
+        np.testing.assert_array_equal(got, want.numpy())
+    empty = np.zeros(0, np.int32)
+    want = tsm.dict_match_plain(torch.from_numpy(keys),
+                                torch.from_numpy(empty))
+    got = build.host_dict_bank(keys, empty, rp=0, chunk=tsm.bank_chunk(0))
+    assert not want.any()
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+def test_bank_stats_count_what_the_banks_do():
+    """bank_stats: the realistic tri table spreads over 2048 banks (a few
+    entries in the largest, about one compare a key), the adversarial one
+    falls in a single bank, and a table past BANK_CHUNK_MAX is banked in
+    chunks."""
+    keys = torch.from_numpy(_bank_keys(_bank_table("realistic tri"), 4096,
+                                       seed=1))
+    real = tsm.bank_stats(keys, torch.from_numpy(_bank_table("realistic tri")))
+    assert real["banks"] == 2048 and real["chunks"] == 1
+    assert real["entries"] == 2001          # 2000 keys and one -2
+    assert real["largest"] <= 8 and real["compares"] < 2 * keys.numel()
+    adv = _bank_table("adversarial")
+    stats = tsm.bank_stats(torch.from_numpy(adv), torch.from_numpy(adv))
+    assert stats["largest"] == adv.size
+    assert stats["compares"] == adv.size * adv.size
+    big = tsm.bank_stats(keys, torch.from_numpy(
+        _bank_table("larger than shared memory")))
+    assert big["chunks"] == 3 and big["banks"] == tsm.BANK_CHUNK_MAX
+    assert tsm.bank_bits(tsm.BANK_CHUNK_MAX) == 13 and tsm.bank_bits(1) == 5
+    np.testing.assert_array_equal(tsm.bank_of(_adversarial(64), 16), 0)
+
+
 def _on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
@@ -175,17 +289,22 @@ def _on_card():
 @pytest.mark.parametrize("block_n,block_r", [(1, 1), (2, 8), (4, 2),
                                              (16, 200)])
 def test_bank_kernel_matches_plain_on_card(block_n, block_r):
+    """Random tables, the tables of BANK_TABLES, keys not 16-byte aligned
+    (the wrapper copies them) and a ragged tail."""
     _on_card()
-    for n, r in ((2, 1), (300, 500), (1024, 2048), (100_000, 2048)):
-        table = torch.from_numpy(_table(r, r, sort=False)).cuda()
-        keys = torch.from_numpy(_keys(n, table.cpu().numpy(), n)).cuda()
-        keys[:2] = torch.tensor([tsm.DICT_PAD, tsm.KEY_PAD])
-        got = tsm.dict_match_cuda(keys, table, block_n=block_n,
-                                  block_r=block_r)
-        torch.cuda.synchronize()
-        want = tsm.dict_match_plain(keys, table, block_n=block_n,
-                                    block_r=block_r)
-        assert torch.equal(got, want)
+    cases = [(n, _table(r, r, sort=False)) for n, r in
+             ((2, 1), (300, 500), (1024, 2048), (100_000, 2048))]
+    cases += [(100_003, _bank_table(kind)) for kind in BANK_TABLES]
+    for n, table_np in cases:
+        table = torch.from_numpy(table_np).cuda()
+        keys = torch.from_numpy(_bank_keys(table_np, n + 1, n)).cuda()
+        for k in (keys[:n], keys[1:]):
+            got = tsm.dict_match_cuda(k, table, block_n=block_n,
+                                      block_r=block_r)
+            torch.cuda.synchronize()
+            want = tsm.dict_match_plain(k, table, block_n=block_n,
+                                        block_r=block_r)
+            assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
