@@ -10,13 +10,19 @@ imports ``repro_torch`` from that checkout's ``src``, builds its kernels
 ``block_b = N`` (default 256) on 4096 and 1,048,576 corpus words, with
 ``chip_smoke.py``'s timers and dictionaries: the realistic dictionary for
 the resident kernels, the 262,144-key grown one (``dict_block_r = 8``)
-for the streamed ones. Prints one line a run, a table of both checkouts'
-times, and the card's name and power limit. Needs one CUDA card; exits
-non-zero without one.
+for the streamed ones, and the wall time of a whole streamed
+``stem_fused`` call (pre-pass, if the checkout has one, and launches).
+The streamed kernels are called with the checkout's own contract: a
+checkout whose K2 takes visit tables gets them from the reference's
+pre-pass (not timed), one whose K2 takes the tile set's fence level gets
+that. Prints one line a run, a table of both checkouts' times, and the
+card's name and power limit. Needs one CUDA card; exits non-zero without
+one.
 """
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import subprocess
 import sys
@@ -47,33 +53,47 @@ def child(tree: Path, block_b: int) -> None:
     grown = corpus.grow_root_arrays(realistic, cs.GROWN_KEYS)
     tables = sf.padded_tables(realistic, match="bsearch", infix=True)
     tiles = sm.build_dict_tiles(grown.tri, grown.quad, grown.bi, 8)
+    handle = stemmer.resolve_dict(grown, residency="streamed",
+                                  dict_block_r=8)
     words = torch.from_numpy(np.concatenate([
         c.words for c in corpus.stream_corpus_words(
             max(SIZES), seed=0, chunk_words=65536)])).to(dev)
     out = {"tree": str(tree), "block_b": block_b, "build_s": build_s}
+    visit_contract = "n_visits" in inspect.signature(
+        sf.stem_streamed_cuda).parameters
     for b in SIZES:
         w = words[:b]
         bt = -(-b // block_b)
-        n_visits, visit_idx = cs.visit_tables(sf, w, tiles, infix=True,
-                                              block_b=block_b)
         res = dict(n_groups=5, match="bsearch", block_b=block_b)
-        stm = dict(res, dict_block_r=8, num_buffers=2,
-                   tri_tiles=tiles.counts[0], quad_tiles=tiles.counts[1])
         zeros = torch.zeros(bt, dtype=torch.int32, device=dev)
         res_desc = sf._descriptors(bt, block_b, zeros, 0)
-        str_desc = sf._descriptors(bt, block_b, n_visits, 0)
+        if visit_contract:
+            n_visits, visit_idx = cs.visit_tables(sf, w, tiles, infix=True,
+                                                  block_b=block_b)
+            stm = dict(res, dict_block_r=8, num_buffers=2,
+                       tri_tiles=tiles.counts[0], quad_tiles=tiles.counts[1])
+            str_desc = sf._descriptors(bt, block_b, n_visits, 0)
+            k2 = lambda: sf.stem_streamed_cuda(  # noqa: E731
+                w, tiles.stream, n_visits, visit_idx, **stm)
+            k3 = lambda: sf.persistent_streamed_cuda(  # noqa: E731
+                w, tiles.stream, str_desc, visit_idx, **stm)
+        else:
+            k2 = lambda: sf.stem_streamed_cuda(  # noqa: E731
+                w, tiles, n_groups=5, match="bsearch")
+            k3 = lambda: sf.persistent_streamed_cuda(  # noqa: E731
+                w, tiles, res_desc, **res)
         runs = {
             "K1": lambda: sf.stem_fused_cuda(w, tables, **res),
-            "K2": lambda: sf.stem_streamed_cuda(w, tiles.stream, n_visits,
-                                                visit_idx, **stm),
+            "K2": k2,
             "K3 resident": lambda: sf.persistent_resident_cuda(
                 w, tables, res_desc, **res),
-            "K3 streamed": lambda: sf.persistent_streamed_cuda(
-                w, tiles.stream, str_desc, visit_idx, **stm),
+            "K3 streamed": k3,
         }
         n = 200 if b == min(SIZES) else 20
         for name, fn in runs.items():
             out[f"{name} B={b}"] = cs.device_ms(fn, n, cs.call_ms(fn, n))
+        entry = lambda: sf.stem_fused(w, handle, block_b=block_b)  # noqa: E731
+        out[f"stem_fused streamed, wall B={b}"] = cs.call_ms(entry, 5)
     print(json.dumps(out))
 
 

@@ -277,8 +277,9 @@ def extract_roots(words, roots, *, infix: bool = True,
     versions on the CPU. For the fused backend, residency picks the
     dictionary layout ("resident", "streamed", or "auto": resident while
     it fits); ``num_buffers`` (copy pipeline depth) and ``skip_index``
-    (visit only the tiles that can hit) tune the streamed sweep and are
-    ignored elsewhere. The extended rule pool is not in the megakernel's
+    (visit only the tiles that can hit) tune the reference's streamed
+    sweep: the port checks them, and its streamed kernels, which search a
+    fence level instead, give the same roots for every value. The extended rule pool is not in the megakernel's
     candidate grid, so extended=True keeps the staged path and runs stage
     5 through the sorted-search kernel, one launch a group.
     """

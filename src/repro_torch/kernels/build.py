@@ -9,7 +9,7 @@ rebuilds and an unchanged one loads the library already built. Builds
 run under a file lock: parallel test workers or processes build once.
 
 ``host_datapath`` compiles the ``__host__ __device__`` headers (the
-datapath, the streamed sweep, the text front end's per-word rules, both
+datapath, the streamed fence search, the text front end's per-word rules, both
 postings instances' tile steps and the comparator bank's banks) with
 ``g++`` for the CPU tests; nothing on the port's CPU path uses it.
 """
@@ -229,14 +229,14 @@ _SIGNATURES = {
         "stem_fused_launch": [_P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I,
                               _I, _I, _P]},
     "stem_streamed": {
-        "stem_streamed_launch": [_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I,
-                                 _I, _I, _I, _I, _P]},
+        "stem_streamed_launch": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                                 _I, _I, _P, ctypes.POINTER(_I)]},
     "stem_persistent": {
         "persistent_resident_launch": [_P, _I, _P, _I, _P, _I, _P, _I, _P,
                                        _I, _P, _P, _P, _I, _I, _I, _I, _P,
                                        ctypes.POINTER(_I)],
-        "persistent_streamed_launch": [_P, _I, _P, _I, _P, _I, _P, _P, _P,
-                                       _P, _I, _I, _I, _I, _I, _I, _I, _P,
+        "persistent_streamed_launch": [_P, _I, _P, _I, _P, _P, _I, _I, _I,
+                                       _I, _I, _P, _P, _P, _I, _I, _I, _P,
                                        ctypes.POINTER(_I)]},
     "text_frontend": {
         "text_frontend_launch": [_P, _LL, _P, _P, _I, _P, _P, _I, _P, _I,
@@ -319,8 +319,8 @@ def _host_library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         lib.host_candidate_columns.argtypes = [_P, _I, _P, _P]
         lib.host_candidate_columns.restype = None
-        lib.host_stem_streamed.argtypes = [_P, _I, _P, _I, _P, _P, _I, _I,
-                                           _I, _I, _I, _I, _P, _P]
+        lib.host_stem_streamed.argtypes = [_P, _I, _P, _P, _I, _I, _I, _I,
+                                           _I, _I, _I, _P, _P]
         lib.host_stem_streamed.restype = None
         lib.host_text_frontend.argtypes = [_P, _LL, _P, _P, _I, _P, _P, _I,
                                            _P]
@@ -351,29 +351,30 @@ def host_candidate_columns(words: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
 
 
 def host_stem_streamed(words: np.ndarray, stream: np.ndarray,
-                       n_visits: np.ndarray, visit_idx: np.ndarray, *,
-                       n_groups: int, match: int, block_b: int,
-                       dict_block_r: int, tri_tiles: int,
-                       quad_tiles: int) -> tuple[np.ndarray, np.ndarray]:
-    """The g++ build of stem_sweep.cuh, run as the streamed kernel's blocks
-    would run it: the kernel's contract (match 0 = bsearch, 1 = bank) ->
-    (root int32[n, 4], source int32[n])."""
+                       fences: np.ndarray, *, n_groups: int, match: int,
+                       dict_block_r: int, fence_step: int, counts
+                       ) -> tuple[np.ndarray, np.ndarray]:
+    """The g++ build of stem_fences.cuh, word by word as the streamed
+    kernels search: words int32[n, 16], the DictTileSet stream and fences
+    (step ``fence_step``, tables of ``counts`` tiles), match 0 = bsearch,
+    1 = bank -> (root int32[n, 4], source int32[n])."""
     lib = _host_library()
     w = _host_words(words)
-    stream = np.ascontiguousarray(stream, dtype=np.int32)
-    n_visits = np.ascontiguousarray(n_visits, dtype=np.int32)
-    visit_idx = np.ascontiguousarray(visit_idx, dtype=np.int32)
+    stream = np.ascontiguousarray(stream, dtype=np.int32).reshape(-1)
+    fences = np.ascontiguousarray(fences, dtype=np.int32).reshape(-1)
+    tile_n = dict_block_r * 128
+    log2f = fence_step.bit_length() - 1
+    n_fences = sum(-(-c * tile_n // fence_step) for c in counts)
+    if (stream.size != sum(counts) * tile_n or fence_step != 1 << log2f
+            or fence_step < 8 or fences.size != n_fences):
+        raise ValueError(f"stream of {stream.size} entries and {fences.size}"
+                         f" fences do not match {counts} tiles of {tile_n}"
+                         f" at a fence step of {fence_step}")
     n = w.shape[0]
-    n_tiles = stream.size // (dict_block_r * 128)
-    bt = -(-n // block_b)
-    if n_visits.shape != (bt,) or visit_idx.shape != (bt, n_tiles):
-        raise ValueError(f"visit tables {n_visits.shape}, {visit_idx.shape}"
-                         f" do not match {bt} x {n_tiles}")
     root = np.zeros((n, 4), np.int32)
     source = np.zeros((n,), np.int32)
-    lib.host_stem_streamed(w.ctypes.data, n, stream.ctypes.data, n_tiles,
-                           n_visits.ctypes.data, visit_idx.ctypes.data,
-                           block_b, dict_block_r, tri_tiles, quad_tiles,
+    lib.host_stem_streamed(w.ctypes.data, n, stream.ctypes.data,
+                           fences.ctypes.data, *counts, tile_n, log2f,
                            n_groups, match, root.ctypes.data,
                            source.ctypes.data)
     return root, source

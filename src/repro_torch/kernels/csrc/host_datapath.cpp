@@ -1,6 +1,6 @@
 // Host build of the kernels' per-word and per-tile headers, for the CPU
 // tests: g++ compiles the same stages 1-4 code (stem_datapath.cuh), the
-// same streamed per-tile compare (stem_sweep.cuh), the same text front-end
+// same streamed per-key search (stem_fences.cuh), the same text front-end
 // rules (text_frontend.cuh), the same postings steps of both instances
 // (postings.cuh) and the same bank build and probe of the comparator bank
 // (dict_bank.cuh) that the CUDA kernels run, and the tests hold them bit
@@ -17,7 +17,7 @@
 #include "dict_bank.cuh"
 #include "postings.cuh"
 #include "stem_datapath.cuh"
-#include "stem_sweep.cuh"
+#include "stem_fences.cuh"
 #include "text_frontend.cuh"
 
 // words int32[n, 16] -> keys int32[n, 30], valid int32[n, 30] (0/1).
@@ -30,89 +30,37 @@ extern "C" void host_candidate_columns(const int32_t* words, int n,
   }
 }
 
-namespace {
-
-// What one block of the streamed kernel computes, run sequentially: the
-// block's words, then its visit list tile by tile (the block-wide vote
-// becomes an any over the tile's words), then the first hit per word.
-template <int MATCH, int N_GROUPS>
-void streamed_tiles(const int32_t* words, int n_words, const int32_t* stream,
-                    int n_tiles, const int32_t* n_visits,
-                    const int32_t* visit_idx, int block_b, int tile_n,
-                    int tri_tiles, int quad_tiles, int32_t* root,
-                    int32_t* source) {
-  const int bt = (n_words + block_b - 1) / block_b;
-  const int steps = rt::sweep_log2(tile_n);
-  std::vector<int32_t> keys(size_t(block_b) * rt::kSlots);
-  std::vector<uint32_t> live(block_b), mask(block_b);
-  for (int b = 0; b < bt; ++b) {
-    for (int j = 0; j < block_b; ++j) {
-      const long long i = (long long)b * block_b + j;
-      int32_t w[rt::kMaxLen] = {0};
-      if (i < n_words) {
-        for (int c = 0; c < rt::kMaxLen; ++c) {
-          w[c] = words[rt::kMaxLen * i + c];
-        }
-      }
-      bool v[rt::kSlots];
-      rt::candidate_columns(w, &keys[size_t(j) * rt::kSlots], v);
-      live[j] = rt::live_mask<N_GROUPS>(v);
-      mask[j] = 0;
-    }
-    const int32_t* vis = visit_idx + size_t(b) * n_tiles;
-    for (int k = 0; k < n_visits[b]; ++k) {
-      const int32_t* tile = stream + size_t(vis[k]) * tile_n;
-      const int table = rt::tile_table(vis[k], tri_tiles, quad_tiles);
-      bool vote = false;
-      for (int j = 0; j < block_b; ++j) {
-        vote = vote || rt::tile_in_range<N_GROUPS>(
-                           &keys[size_t(j) * rt::kSlots], live[j], table,
-                           tile[0], tile[tile_n - 1]);
-      }
-      if (!vote) continue;
-      for (int j = 0; j < block_b; ++j) {
-        mask[j] = rt::tile_hits<MATCH, N_GROUPS>(
-            tile, tile_n, steps, table, &keys[size_t(j) * rt::kSlots],
-            live[j], mask[j]);
-      }
-    }
-    for (int j = 0; j < block_b; ++j) {
-      const long long i = (long long)b * block_b + j;
-      if (i >= n_words) break;
-      int32_t chosen, src;
-      rt::first_hit(&keys[size_t(j) * rt::kSlots], mask[j], chosen, src);
-      root[4 * i + 0] = (chosen >> 18) & 63;
-      root[4 * i + 1] = (chosen >> 12) & 63;
-      root[4 * i + 2] = (chosen >> 6) & 63;
-      root[4 * i + 3] = chosen & 63;
-      source[i] = src;
-    }
-  }
-}
-
-}  // namespace
-
-// The streamed kernel's contract (stem_streamed_launch), on the host:
-// words int32[n_words, 16], stream int32[n_tiles * dict_block_r * 128],
-// n_visits int32[bt], visit_idx int32[bt, n_tiles] -> root int32[n_words,
-// 4], source int32[n_words]. match 0 = bsearch, 1 = bank.
+// The streamed kernels' contract (stem_streamed_launch), on the host, word
+// by word through the same search: words int32[n_words, 16], stream
+// int32[(tri_tiles + quad_tiles + bi_tiles) * tile_n], fences (the fence
+// level, F = 1 << log2f) -> root int32[n_words, 4], source
+// int32[n_words]. match 0 = bsearch, 1 = bank.
 extern "C" void host_stem_streamed(const int32_t* words, int n_words,
-                                   const int32_t* stream, int n_tiles,
-                                   const int32_t* n_visits,
-                                   const int32_t* visit_idx, int block_b,
-                                   int dict_block_r, int tri_tiles,
-                                   int quad_tiles, int n_groups, int match,
+                                   const int32_t* stream,
+                                   const int32_t* fences, int tri_tiles,
+                                   int quad_tiles, int bi_tiles, int tile_n,
+                                   int log2f, int n_groups, int match,
                                    int32_t* root, int32_t* source) {
-  const int tile_n = dict_block_r * 128;
-  auto run = n_groups == 5
-                 ? (match == rt::kMatchBsearch
-                        ? streamed_tiles<rt::kMatchBsearch, 5>
-                        : streamed_tiles<rt::kMatchBank, 5>)
-                 : (match == rt::kMatchBsearch
-                        ? streamed_tiles<rt::kMatchBsearch, 2>
-                        : streamed_tiles<rt::kMatchBank, 2>);
-  run(words, n_words, stream, n_tiles, n_visits, visit_idx, block_b, tile_n,
-      tri_tiles, quad_tiles, root, source);
+  const rt::FenceLayout l =
+      rt::fence_layout(tri_tiles, quad_tiles, bi_tiles, tile_n, log2f);
+  auto keys_of = n_groups == 5 ? rt::word_keys<5> : rt::word_keys<2>;
+  auto search = n_groups == 5
+                    ? (match == rt::kMatchBsearch
+                           ? rt::search_word<rt::kMatchBsearch, 5>
+                           : rt::search_word<rt::kMatchBank, 5>)
+                    : (match == rt::kMatchBsearch
+                           ? rt::search_word<rt::kMatchBsearch, 2>
+                           : rt::search_word<rt::kMatchBank, 2>);
+  for (int i = 0; i < n_words; ++i) {
+    int32_t keys[rt::kSlots], chosen, src;
+    const uint32_t live = keys_of(words + size_t(rt::kMaxLen) * i, keys);
+    search(keys, live, fences, stream, l, chosen, src);
+    root[4 * size_t(i) + 0] = (chosen >> 18) & 63;
+    root[4 * size_t(i) + 1] = (chosen >> 12) & 63;
+    root[4 * size_t(i) + 2] = (chosen >> 6) & 63;
+    root[4 * size_t(i) + 3] = chosen & 63;
+    source[i] = src;
+  }
 }
 
 // The text front end's contract (text_frontend_launch), on the host, every

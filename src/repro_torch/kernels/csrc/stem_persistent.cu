@@ -7,52 +7,58 @@
 // memory: (row offset, n_visits, version slot). Its block_b-word tile runs
 // stages 1-5, writes its root/source rows, and then flags[d] = 1 + its
 // version slot, so the host can check that every tile ran under the
-// dictionary version pinned at dispatch (0 = never processed).
+// dictionary version pinned at dispatch (0 = never processed). n_visits
+// is the reference's; no variant here reads it.
 //
 // The reference's single grid step loops over descriptors in ring order.
 // Here the grid is the blocks the card keeps resident (occupancy x SMs, at
-// most the number of descriptors), and block j takes descriptors j,
-// j + grid, ...: descriptors retire out of order. Every thread fences its
-// output writes (__threadfence) before the barrier after which one thread
-// writes the flag, so a flag that reads set proves its tile's rows.
-//
-// A block runs min(block_b, 512) threads, which stride over a
-// descriptor's block_b-word tile (the streamed variant takes passes over
-// wider tiles, stem_sweep.cuh).
+// most what the descriptors need), and blocks stride over the ring:
+// descriptors retire out of order. Every thread fences its output writes
+// (__threadfence) before the barrier after which the flags are written,
+// so a flag that reads set proves its tile's rows.
 //
 // Two variants, as template instances:
-//   - resident: the padded tables are staged into shared memory once per
-//     block per launch (not once per tile, as the megakernel does), or
-//     read from global memory past the shared-memory budget, by the same
-//     dict_in_shared rule as K1 (stem_resident.cuh);
-//   - streamed: each descriptor sweeps its own row of visit_idx, n_visits
-//     long, through the cp.async ring of stem_sweep.cuh, as K2 does.
+//   - resident: a block runs min(block_b, 512) threads, which stride over
+//     one descriptor's tile; the padded tables are staged into shared
+//     memory once per block per launch (not once per tile, as the
+//     megakernel does), or read from global memory past the shared-memory
+//     budget, by the same dict_in_shared rule as K1 (stem_resident.cuh);
+//   - streamed: the fence level of the tile stream is staged into shared
+//     memory once per block per launch, and every live key is searched
+//     from it, as K2 does (stem_fences.cuh). A block runs 256, 512 or
+//     1024 threads (as K2 picks them, by the ring's words) and takes
+//     threads / block_b descriptors at a time while tiles are narrower
+//     than that (one descriptor, strided, otherwise), so narrow tiles do
+//     not leave threads idle, and up to 4x as many on a long ring; the
+//     barrier before the flags is the only one in the loop.
 //
-// What bounds it on an H100 is what bounds K1 and K2 per tile; what the
+// What bounds it on an H100 is what bounds K1 and K2 per word; what the
 // persistent loop saves is launches (one a chunk of descriptors, not one
-// per tile) and, for the resident variant, table copies: grid copies per
-// launch rather than one per tile.
+// per tile) and staging: grid copies of the tables or fences per launch
+// rather than one per tile.
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
+#include "stem_fences.cuh"
 #include "stem_resident.cuh"
-#include "stem_sweep.cuh"
 
 namespace {
 
+using rt::kFenceThreads;
 using rt::kMatchBank;
 using rt::kMatchBsearch;
 using rt::kMaxThreads;
 
-// Publish descriptor d as done: every thread's output writes are fenced
-// device-wide before the barrier, then one thread stores the flag.
+// Descriptors d0 .. d0 + nd - 1 are done: every thread's output writes are
+// fenced device-wide before the barrier, then the threads store the flags.
 __device__ __forceinline__ void retire(const int32_t* __restrict__ desc,
-                                       int d, int32_t* flags) {
+                                       int d0, int nd, int32_t* flags) {
   __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) {
-    const int32_t done = 1 + __ldg(desc + 3 * d + 2);
-    *reinterpret_cast<volatile int32_t*>(flags + d) = done;
+  for (int k = threadIdx.x; k < nd; k += blockDim.x) {
+    const int32_t done = 1 + __ldg(desc + 3 * (d0 + k) + 2);
+    *reinterpret_cast<volatile int32_t*>(flags + d0 + k) = done;
   }
 }
 
@@ -84,46 +90,51 @@ persistent_resident_kernel(const int4* __restrict__ words, int n_words,
                                                  chosen, src);
       rt::store_root(root, source, i, chosen, src);
     }
-    retire(desc, d, flags);
+    retire(desc, d, 1, flags);
   }
 }
 
-template <int MATCH, int N_GROUPS, int NB>
-__global__ void __launch_bounds__(kMaxThreads)
+template <int MATCH, int N_GROUPS>
+__global__ void __launch_bounds__(kFenceThreads)
 persistent_streamed_kernel(const int4* __restrict__ words, int n_words,
                            const int32_t* __restrict__ desc, int n_desc,
-                           const int32_t* __restrict__ stream, int n_tiles,
-                           const int32_t* __restrict__ visit_idx,
-                           int4* __restrict__ root,
+                           const int32_t* __restrict__ stream,
+                           const int32_t* __restrict__ fences,
+                           rt::FenceLayout l, int4* __restrict__ root,
                            int32_t* __restrict__ source, int32_t* flags,
-                           int block_b, int tile_n, int tri_tiles,
-                           int quad_tiles) {
-  extern __shared__ int4 smem4[];
-  int32_t* bufs = reinterpret_cast<int32_t*>(smem4);
-  for (int d = blockIdx.x; d < n_desc; d += gridDim.x) {
-    rt::streamed_tile<MATCH, N_GROUPS, NB>(
-        words, n_words, __ldg(desc + 3 * d), block_b, stream,
-        visit_idx + size_t(d) * n_tiles, __ldg(desc + 3 * d + 1), tile_n,
-        tri_tiles, quad_tiles, bufs, root, source);
-    retire(desc, d, flags);
+                           int block_b, int per) {
+  const int32_t* f = rt::stage_fences_begin(fences, l.n_fences);
+  // row of word w of the round at descriptor d0 (-1 past the words)
+  auto row = [&](int d0, int w) -> long long {
+    const int d = d0 + w / block_b;
+    const long long i = (long long)__ldg(desc + 3 * d) + w % block_b;
+    return i < n_words ? i : -1;
+  };
+  // the thread's first word goes through stages 1-4 during the copy
+  int32_t keys[rt::kSlots];
+  uint32_t live = 0;
+  const int first_d0 = blockIdx.x * per;
+  long long ready = -1;
+  if (first_d0 < n_desc &&
+      int(threadIdx.x) < min(per, n_desc - first_d0) * block_b) {
+    ready = row(first_d0, threadIdx.x);
+    if (ready >= 0) live = rt::load_word_keys<N_GROUPS>(words, ready, keys);
   }
-}
-
-// Blocks of `kernel` the card keeps resident at once, at most n_desc.
-template <typename Kernel>
-cudaError_t resident_grid(Kernel kernel, int threads, size_t smem,
-                          int n_desc, int* grid) {
-  int per_sm = 0, dev = 0, sms = 0;
-  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel, threads, smem);
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) {
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  rt::stage_fences_end();
+  for (int d0 = first_d0; d0 < n_desc; d0 += gridDim.x * per) {
+    const int nd = min(per, n_desc - d0);
+    for (int w = threadIdx.x; w < nd * block_b; w += blockDim.x) {
+      const long long i = row(d0, w);
+      if (i < 0) continue;
+      if (i != ready) live = rt::load_word_keys<N_GROUPS>(words, i, keys);
+      ready = -1;
+      int32_t chosen, src;
+      rt::search_word<MATCH, N_GROUPS>(keys, live, f, stream, l, chosen,
+                                       src);
+      rt::store_root(root, source, i, chosen, src);
+    }
+    retire(desc, d0, nd, flags);
   }
-  if (e != cudaSuccess) return e;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  *grid = per_sm * sms < n_desc ? per_sm * sms : n_desc;
-  return cudaSuccess;
 }
 
 struct ResidentArgs {
@@ -153,8 +164,9 @@ int launch_resident(const ResidentArgs& a) {
   const int threads = rt::block_threads(a.block_b);
   cudaError_t e = rt::allow_smem(kernel, smem);
   int grid = 0;
-  if (e == cudaSuccess) e = resident_grid(kernel, threads, smem, a.n_desc,
-                                          &grid);
+  if (e == cudaSuccess) {
+    e = rt::resident_grid(kernel, threads, smem, a.n_desc, &grid);
+  }
   if (e != cudaSuccess) return int(e);
   if (a.grid_out) *a.grid_out = grid;
   kernel<<<grid, threads, smem, a.stream>>>(
@@ -175,57 +187,58 @@ int resident_residency(const ResidentArgs& a, int n_groups, int shared) {
                 : resident_groups<MATCH, false>(a, n_groups);
 }
 
+constexpr int kMaxRounds = 4;
+
 struct StreamedArgs {
   const int4* words;
   int n_words;
   const int32_t* desc;
   int n_desc;
   const int32_t* stream;
-  int n_tiles;
-  const int32_t* visit_idx;
+  const int32_t* fences;
+  rt::FenceLayout layout;
   int4* root;
   int32_t* source;
   int32_t* flags;
   int block_b;
-  int tile_n;
-  int tri_tiles;
-  int quad_tiles;
   cudaStream_t stream_;
   int* grid_out;
 };
 
-template <int MATCH, int N_GROUPS, int NB>
+template <int MATCH, int N_GROUPS>
 int launch_streamed(const StreamedArgs& a) {
-  auto kernel = persistent_streamed_kernel<MATCH, N_GROUPS, NB>;
-  const size_t smem = sizeof(int32_t) * size_t(NB) * a.tile_n;
-  const int threads = rt::block_threads(a.block_b);
+  auto kernel = persistent_streamed_kernel<MATCH, N_GROUPS>;
+  const size_t smem = sizeof(int32_t) * size_t(a.layout.n_fences);
+  int threads = 0, capacity = 0;
   cudaError_t e = rt::allow_smem(kernel, smem);
-  int grid = 0;
-  if (e == cudaSuccess) e = resident_grid(kernel, threads, smem, a.n_desc,
-                                          &grid);
+  if (e == cudaSuccess) {
+    e = rt::fence_threads((long long)a.n_desc * a.block_b, &threads);
+  }
+  if (e == cudaSuccess) {
+    e = rt::resident_grid(kernel, threads, smem, INT_MAX, &capacity);
+  }
   if (e != cudaSuccess) return int(e);
+  // Descriptors a block takes at a time: enough words for its threads,
+  // and up to kMaxRounds times that while the ring holds more than the
+  // resident blocks take in one round. A round ends in a barrier that
+  // waits for its slowest word, so fewer, longer rounds lose less.
+  const int base = a.block_b < threads ? threads / a.block_b : 1;
+  const int rounds = (a.n_desc + base - 1) / base / capacity;
+  const int per = base * (rounds < 1 ? 1 : rounds > kMaxRounds ? kMaxRounds
+                                                                : rounds);
+  const int need = (a.n_desc + per - 1) / per;
+  const int grid = capacity < need ? capacity : need;
   if (a.grid_out) *a.grid_out = grid;
   kernel<<<grid, threads, smem, a.stream_>>>(
-      a.words, a.n_words, a.desc, a.n_desc, a.stream, a.n_tiles, a.visit_idx,
-      a.root, a.source, a.flags, a.block_b, a.tile_n, a.tri_tiles,
-      a.quad_tiles);
+      a.words, a.n_words, a.desc, a.n_desc, a.stream, a.fences, a.layout,
+      a.root, a.source, a.flags, a.block_b, per);
   return int(cudaGetLastError());
 }
 
-template <int MATCH, int N_GROUPS>
-int streamed_buffers(const StreamedArgs& a, int num_buffers) {
-  switch (num_buffers) {
-    case 1: return launch_streamed<MATCH, N_GROUPS, 1>(a);
-    case 2: return launch_streamed<MATCH, N_GROUPS, 2>(a);
-    case 3: return launch_streamed<MATCH, N_GROUPS, 3>(a);
-    default: return launch_streamed<MATCH, N_GROUPS, 4>(a);
-  }
-}
-
 template <int MATCH>
-int streamed_groups(const StreamedArgs& a, int n_groups, int num_buffers) {
-  return n_groups == 5 ? streamed_buffers<MATCH, 5>(a, num_buffers)
-                       : streamed_buffers<MATCH, 2>(a, num_buffers);
+int streamed_groups(const StreamedArgs& a, int n_groups) {
+  return n_groups == 5 ? launch_streamed<MATCH, 5>(a)
+                       : launch_streamed<MATCH, 2>(a);
 }
 
 bool bad_common(int n_desc, int block_b, int n_groups, int match) {
@@ -275,38 +288,36 @@ extern "C" int persistent_resident_launch(
 }
 
 // As persistent_resident_launch, with the dictionary as the DictTileSet
-// stream (see stem_streamed_launch) and visit_idx int32[n_desc, n_tiles]:
-// descriptor d sweeps the first desc[d][1] entries of row d.
+// stream and its fence level (see stem_streamed_launch); desc[d][1] is
+// not read.
 extern "C" int persistent_streamed_launch(
     const void* words, int n_words, const void* desc, int n_desc,
-    const void* stream, int n_tiles, const void* visit_idx, void* root,
-    void* source, void* flags, int block_b, int dict_block_r,
-    int num_buffers, int tri_tiles, int quad_tiles, int n_groups, int match,
-    void* stream_, int* grid_out) {
-  if (bad_common(n_desc, block_b, n_groups, match) || dict_block_r < 1 ||
-      num_buffers < 1 || num_buffers > 4) {
+    const void* stream, const void* fences, int tri_tiles, int quad_tiles,
+    int bi_tiles, int tile_n, int log2f, void* root, void* source,
+    void* flags, int block_b, int n_groups, int match, void* stream_,
+    int* grid_out) {
+  if (bad_common(n_desc, block_b, n_groups, match) || tri_tiles < 1 ||
+      quad_tiles < 1 || bi_tiles < 1 || tile_n < 128 || tile_n % 128 ||
+      log2f < 3 || log2f > 30) {
     return int(cudaErrorInvalidValue);
   }
   if (n_desc == 0) return 0;
-  const StreamedArgs a{static_cast<const int4*>(words),
-                       n_words,
-                       static_cast<const int32_t*>(desc),
-                       n_desc,
-                       static_cast<const int32_t*>(stream),
-                       n_tiles,
-                       static_cast<const int32_t*>(visit_idx),
-                       static_cast<int4*>(root),
-                       static_cast<int32_t*>(source),
-                       static_cast<int32_t*>(flags),
-                       block_b,
-                       dict_block_r * 128,
-                       tri_tiles,
-                       quad_tiles,
-                       static_cast<cudaStream_t>(stream_),
-                       grid_out};
-  return match == kMatchBsearch
-             ? streamed_groups<kMatchBsearch>(a, n_groups, num_buffers)
-             : streamed_groups<kMatchBank>(a, n_groups, num_buffers);
+  const StreamedArgs a{
+      static_cast<const int4*>(words),
+      n_words,
+      static_cast<const int32_t*>(desc),
+      n_desc,
+      static_cast<const int32_t*>(stream),
+      static_cast<const int32_t*>(fences),
+      rt::fence_layout(tri_tiles, quad_tiles, bi_tiles, tile_n, log2f),
+      static_cast<int4*>(root),
+      static_cast<int32_t*>(source),
+      static_cast<int32_t*>(flags),
+      block_b,
+      static_cast<cudaStream_t>(stream_),
+      grid_out};
+  return match == kMatchBsearch ? streamed_groups<kMatchBsearch>(a, n_groups)
+                                : streamed_groups<kMatchBank>(a, n_groups);
 }
 
 extern "C" const char* stem_persistent_error_string(int code) {

@@ -173,6 +173,24 @@ size_t resident_smem_bytes(int tri_n, int quad_n, int bi_n) {
          (size_t(tri_n) + quad_n + (N_GROUPS == 5 ? bi_n : 0));
 }
 
+// Blocks of `kernel` the card keeps resident at once (occupancy x SMs),
+// at most `want`.
+template <typename Kernel>
+cudaError_t resident_grid(Kernel kernel, int threads, size_t smem, int want,
+                          int* grid) {
+  int per_sm = 0, dev = 0, sms = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, threads, smem);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *grid = per_sm * sms < want ? per_sm * sms : want;
+  return cudaSuccess;
+}
+
 // Opt a kernel into more than 48 KB of dynamic shared memory.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {

@@ -132,8 +132,9 @@ def extract_roots_fused(words, roots, *, infix: bool = True,
 
     words int32[B,16] (numpy or tensor) and RootDictArrays or a resolved
     handle -> (root int32[B,4], source int32[B]) on ``device``. Streamed
-    batches whose visit table would exceed ``visit_budget`` entries chunk
-    into several launches (``stem_fused.planned_launches``).
+    batches chunk into several launches as the reference's do when their
+    visit table would exceed ``visit_budget`` entries
+    (``stem_fused.planned_launches``).
     ``with_checksum=True`` adds the per-tile :func:`tile_checksum` row,
     computed on the same stream right after the launch (B must be a
     multiple of block_b).

@@ -19,27 +19,33 @@ never reach device memory.
               ``csrc/stem_fused.cu``): bsearch pads each to a pow2 >= 128
               with DICT_SENTINEL, the bank to a 128 multiple with DICT_PAD.
   "streamed"  the tables are cut into sorted ``(dict_block_r x 128)``
-              tiles (``stem_match.DictTileSet``); a torch pre-pass
-              (:func:`_visit_tables`) lists, per ``block_b``-word tile,
-              the dictionary tiles a live candidate key can land in, and
-              the kernel (K2, ``csrc/stem_streamed.cu``) walks that list
-              through a ``num_buffers``-deep copy pipeline.
-              ``skip_index=False`` lists every tile (the full sweep).
+              tiles (``stem_match.DictTileSet``) with a fence level, every
+              F-th entry of each table; the kernel (K2,
+              ``csrc/stem_streamed.cu``) stages the fences in shared
+              memory and searches every live key in its own table: the
+              fences, then one 8-entry block of the stream. The reference
+              walks a visit list of tiles instead (its tile-visit pre-pass
+              is :func:`_visit_tables`, its walk :func:`_streamed_rows`,
+              both kept to hold the reference to); the answers are the
+              same, so ``num_buffers`` and ``skip_index``, which tune the
+              reference's walk, are checked and change nothing.
   "auto"      resident while the loaded tables fit MAX_RESIDENT_KEYS.
 
 ``persistent=True`` runs the persistent serving kernel instead (K3,
 ``csrc/stem_persistent.cu``): one launch whose blocks loop over a
 descriptor ring of ``(row offset, n_visits, version slot)`` tiles and
-write ``flags[d] = 1 + version_slot`` after each tile's outputs.
+write ``flags[d] = 1 + version_slot`` after each tile's outputs
+(``n_visits`` is 0: no kernel of the port reads a visit list).
 
 Each kernel has a plain PyTorch version beside its CUDA wrapper: a CUDA
 tensor launches the kernel (or raises), a CPU tensor runs the plain
-version. Streamed launches are chunked along the batch axis so that each
-launch's visit table stays within ``visit_budget`` entries, exactly as
-the reference chunks its scalar-prefetch table. ``block_b`` is the logical
-tile (checksum tiles, visit lists, descriptor rows), not the thread count:
-the kernels run min(block_b, 512) threads a block, which stride over the
-tile, so every ``block_b >= 1`` runs on the card as on the CPU.
+version. Streamed launches are chunked along the batch axis as the
+reference chunks its scalar-prefetch table (at most ``visit_budget`` /
+n_tiles batch tiles a launch), so both make the same number of launches.
+``block_b`` is the logical tile (checksum tiles, descriptor rows), not the
+thread count: the kernels run at most 512 threads a block (1024 for the
+streamed ones), which stride over the tile, so every ``block_b >= 1``
+runs on the card as on the CPU.
 """
 from __future__ import annotations
 
@@ -241,7 +247,7 @@ def padded_tables(roots, *, match: str, infix: bool):
     return out
 
 
-# -- streamed layout: the tile-visit pre-pass and K2's plain version --------
+# -- streamed layout: the reference's visit walk, and K2's plain version ---
 def _visit_tables(keys, valid, tiles: sm.DictTileSet, *, n_groups: int,
                   block_b: int, skip_index: bool):
     """The tile-skipping pre-pass: per batch tile, the dictionary tiles a
@@ -262,7 +268,7 @@ def _visit_tables(keys, valid, tiles: sm.DictTileSet, *, n_groups: int,
                 read)
 
     skip_index=False marks every tile of every swept dictionary (bi stays
-    unmarked for infix=False): the full sweep through the same kernel.
+    unmarked for infix=False): the full sweep through the same walk.
     """
     bt = keys.shape[0] // block_b
     dev = keys.device
@@ -345,11 +351,13 @@ def _slot_dicts(n_groups: int, device) -> torch.Tensor:
 def _streamed_rows(wp, stream, n_visits, visit_idx, *, n_groups: int,
                    block_b: int, dict_block_r: int, tri_tiles: int,
                    quad_tiles: int):
-    """Stages 1-5 over padded words wp[bt * block_b, 16], each batch tile
-    walking its visit list, vectorised over batch tiles (visit k of every
-    tile at once) -> (root, source) for every padded row.
+    """The reference's streamed Compare in plain PyTorch, which the CPU
+    tests hold to its Pallas kernels on the same visit tables: stages 1-5
+    over padded words wp[bt * block_b, 16], each batch tile walking its
+    visit list, vectorised over batch tiles (visit k of every tile at
+    once) -> (root, source) for every padded row.
 
-    As in the kernel, a tile's hits count only for the slots of the
+    As in the reference, a tile's hits count only for the slots of the
     dictionary the tile belongs to (told by its global tile id), and only
     the first n_visits[i] entries of row i are read.
     """
@@ -373,24 +381,61 @@ def _streamed_rows(wp, stream, n_visits, visit_idx, *, n_groups: int,
                             n_groups=n_groups)
 
 
-def stem_streamed_plain(words, stream, n_visits, visit_idx, *, n_groups: int,
-                        match: str, block_b: int, dict_block_r: int,
-                        num_buffers: int, tri_tiles: int, quad_tiles: int):
-    """K2's plain PyTorch version, on any device.
+def _fence_search(keys, tiles: sm.DictTileSet, table: int):
+    """The streamed kernels' search (``csrc/stem_fences.cuh``) of table
+    ``table`` (0 tri, 1 quad, 2 bi), vectorised: keys int32[...] ->
+    bool[...]. A branchless bisection of the table's fences for the last
+    fence <= key (none: no hit), then of the 8-entry blocks of its
+    F-entry segment (blocks past the table's end read as above every
+    key), then the key against that block's 8 entries."""
+    dev = keys.device
+    tile_n = tiles.dict_block_r * sm.LANE
+    base = sum(tiles.counts[:table]) * tile_n
+    length = tiles.counts[table] * tile_n
+    region = tiles.stream.reshape(-1)[base:base + length]
+    nf = tiles.fence_counts
+    f = tiles.fences[sum(nf[:table]):sum(nf[:table + 1])]
+    at = torch.zeros(keys.shape, dtype=torch.int64, device=dev)
+    n = nf[table]
+    while n > 1:
+        half = n // 2
+        at = torch.where(f[at + half] <= keys, at + half, at)
+        n -= half
+    ok = f[at] <= keys
+    at = at * tiles.fence_step
+    n = tiles.fence_step // 8
+    while n > 1:
+        half = n // 2
+        p = at + 8 * half
+        go = (p < length) & (region[p.clamp(max=length - 1)] <= keys)
+        at = torch.where(go, p, at)
+        n -= half
+    block = region[at[..., None] + torch.arange(8, device=dev)]
+    return ok & (block == keys[..., None]).any(-1)
 
-    words int32[B,16]; stream the DictTileSet stream; n_visits
-    int32[bt], visit_idx int32[bt, n_tiles] from :func:`_visit_tables`
-    (bt = ceil(B / block_b)) -> (root int32[B,4], source int32[B]).
-    ``match`` and ``num_buffers`` change how the kernel compares and
-    copies, not what it computes.
-    """
-    del match, num_buffers
-    b = words.shape[0]
-    root, source = _streamed_rows(
-        _pad_words(words, block_b), stream, n_visits, visit_idx,
-        n_groups=n_groups, block_b=block_b, dict_block_r=dict_block_r,
-        tri_tiles=tri_tiles, quad_tiles=quad_tiles)
-    return root[:b], source[:b]
+
+def _fence_hits(keys, valid, tiles: sm.DictTileSet, *, n_groups: int):
+    """Stage 5a through the fence search -> bool[bb, n_slots]: every
+    valid slot searched in its own table."""
+    hits = torch.zeros_like(valid)
+    for t, name in enumerate(DICT_NAMES):
+        slots = _dict_slots(name, n_groups)
+        if slots:
+            hits[:, slots] = _fence_search(keys[:, slots].contiguous(),
+                                           tiles, t)
+    return hits & valid
+
+
+def stem_streamed_plain(words, tiles: sm.DictTileSet, *, n_groups: int,
+                        match: str):
+    """K2's plain PyTorch version, on any device: words int32[B,16] and the
+    tile set (stream and fences) -> (root int32[B,4], source int32[B]).
+    ``match`` changes how the kernel compares a key with its 8-entry
+    block, not what it computes."""
+    del match
+    keys, valid = _candidates(words, n_groups)
+    hits = _fence_hits(keys, valid, tiles, n_groups=n_groups)
+    return _priority_select(keys, hits.to(torch.int32), n_groups=n_groups)
 
 
 # -- persistent layout: descriptors, K3's plain versions, salvage ----------
@@ -435,19 +480,14 @@ def persistent_resident_plain(words, tables, desc, *, n_groups: int,
         (1 + desc[:, 2]).to(torch.int32),)
 
 
-def persistent_streamed_plain(words, stream, desc, visit_idx, *,
-                              n_groups: int, match: str, block_b: int,
-                              dict_block_r: int, num_buffers: int,
-                              tri_tiles: int, quad_tiles: int):
-    """K3's streamed variant in plain PyTorch: descriptor d's tile walks
-    the first desc[d, 1] entries of visit_idx[d] -> (root, source,
-    flags), as :func:`persistent_resident_plain`."""
-    del match, num_buffers
+def persistent_streamed_plain(words, tiles: sm.DictTileSet, desc, *,
+                              n_groups: int, match: str, block_b: int):
+    """K3's streamed variant in plain PyTorch: every descriptor's tile runs
+    stages 1-5 through the fence search -> (root, source, flags), as
+    :func:`persistent_resident_plain`. desc[:, 1] is not read."""
     wd, rows = _descriptor_rows(words, desc, block_b)
-    root, source = _streamed_rows(
-        wd, stream, desc[:, 1], visit_idx, n_groups=n_groups,
-        block_b=block_b, dict_block_r=dict_block_r, tri_tiles=tri_tiles,
-        quad_tiles=quad_tiles)
+    root, source = stem_streamed_plain(wd, tiles, n_groups=n_groups,
+                                       match=match)
     return _scatter_rows(words.shape[0], rows, root, source) + (
         (1 + desc[:, 2]).to(torch.int32),)
 
@@ -492,7 +532,7 @@ def _check_cuda(name: str, t: torch.Tensor, ndim: int, dev: torch.device,
                          " tensor")
 
 
-def _check_words(words: torch.Tensor, block_b: int) -> torch.device:
+def _check_words(words: torch.Tensor, block_b: int = 1) -> torch.device:
     dev = words.device
     _check_cuda("words", words, 2, dev)
     if words.shape[1] != ab.MAXLEN:
@@ -503,38 +543,36 @@ def _check_words(words: torch.Tensor, block_b: int) -> torch.device:
     return dev
 
 
-def _check_stream(stream, dev, *, dict_block_r: int, num_buffers: int,
-                  tri_tiles: int, quad_tiles: int) -> int:
-    """Checks of the streamed kernels' dictionary arguments -> n_tiles."""
-    _check_cuda("stream", stream, 2, dev)
-    if stream.shape[1] != sm.LANE or dict_block_r < 1 \
-            or stream.shape[0] % dict_block_r:
-        raise ValueError(f"stream {tuple(stream.shape)} is not a stack of"
-                         f" ({dict_block_r}, {sm.LANE}) tiles")
-    n_tiles = stream.shape[0] // dict_block_r
-    if not (0 < tri_tiles and 0 < quad_tiles
-            and tri_tiles + quad_tiles < n_tiles):
-        raise ValueError(f"tile counts tri={tri_tiles} quad={quad_tiles}"
-                         f" do not fit {n_tiles} tiles")
-    if not 1 <= num_buffers <= MAX_NUM_BUFFERS:
-        raise ValueError(f"num_buffers must be in 1..{MAX_NUM_BUFFERS},"
-                         f" got {num_buffers}")
-    smem = num_buffers * dict_block_r * sm.LANE * 4
-    if smem > SMEM_BLOCK_BYTES:
+def _check_tiles(tiles: sm.DictTileSet, dev) -> None:
+    """Checks of the streamed kernels' dictionary: the stream's tiles, and
+    a fence level that matches them and fits one block's shared memory."""
+    _check_cuda("stream", tiles.stream, 2, dev)
+    _check_cuda("fences", tiles.fences, 1, dev)
+    r = tiles.dict_block_r
+    n_tiles = tiles.stream.shape[0] // max(1, r)
+    if (tiles.stream.shape[1] != sm.LANE or r < 1
+            or tiles.stream.shape[0] % r or len(tiles.counts) != 3
+            or min(tiles.counts) < 1 or sum(tiles.counts) != n_tiles):
+        raise ValueError(f"stream {tuple(tiles.stream.shape)} is not"
+                         f" {tiles.counts} tiles of ({r}, {sm.LANE})")
+    step = tiles.fence_step
+    if step < sm.FENCE_MIN_STEP or step & (step - 1) \
+            or tiles.fences.shape[0] != sum(tiles.fence_counts):
+        raise ValueError(f"{tiles.fences.shape[0]} fences at step {step}"
+                         f" do not match the stream (want a power of two"
+                         f" >= {sm.FENCE_MIN_STEP} and"
+                         f" {sum(tiles.fence_counts)} fences)")
+    if 4 * tiles.fences.shape[0] > SMEM_BLOCK_BYTES:
         raise ValueError(
-            f"num_buffers * dict_block_r * 512 = {smem} bytes of tile"
-            f" buffers exceed the {SMEM_BLOCK_BYTES}-byte shared memory of"
-            " one block")
-    return n_tiles
+            f"{4 * tiles.fences.shape[0]} bytes of fences exceed the"
+            f" {SMEM_BLOCK_BYTES}-byte shared memory of one block")
 
 
-def _check_visits(n_visits, visit_idx, dev, bt: int, n_tiles: int):
-    _check_cuda("n_visits", n_visits, 1, dev, align=4)
-    _check_cuda("visit_idx", visit_idx, 2, dev, align=4)
-    if n_visits.shape[0] != bt or tuple(visit_idx.shape) != (bt, n_tiles):
-        raise ValueError(f"visit tables {tuple(n_visits.shape)},"
-                         f" {tuple(visit_idx.shape)} do not match {bt}"
-                         f" batch tiles x {n_tiles} dictionary tiles")
+def _tile_args(tiles: sm.DictTileSet) -> tuple:
+    """The C launch's dictionary arguments after the stream and fence
+    pointers: the tables' tile counts, tile_n and log2 F."""
+    return (*tiles.counts, tiles.dict_block_r * sm.LANE,
+            tiles.fence_step.bit_length() - 1)
 
 
 def _raise_on(err: int, lib, what: str) -> None:
@@ -577,35 +615,32 @@ def stem_fused_cuda(words, tables, *, n_groups: int, match: str,
     return root, source
 
 
-def stem_streamed_cuda(words, stream, n_visits, visit_idx, *, n_groups: int,
-                       match: str, block_b: int, dict_block_r: int,
-                       num_buffers: int, tri_tiles: int, quad_tiles: int):
+def stem_streamed_cuda(words, tiles: sm.DictTileSet, *, n_groups: int,
+                       match: str):
     """Launch K2 (``csrc/stem_streamed.cu``) on the current stream: same
     contract as :func:`stem_streamed_plain`, for CUDA tensors. Adds one
-    to ``stem_streamed_cuda.launches`` per launch."""
+    to ``stem_streamed_cuda.launches`` per launch and records the blocks
+    it launched in ``last_grid``."""
     from repro_torch.kernels import build
 
-    dev = _check_words(words, block_b)
-    n_tiles = _check_stream(stream, dev, dict_block_r=dict_block_r,
-                            num_buffers=num_buffers, tri_tiles=tri_tiles,
-                            quad_tiles=quad_tiles)
+    dev = _check_words(words)
+    _check_tiles(tiles, dev)
     b = words.shape[0]
-    bt = -(-b // block_b)
-    _check_visits(n_visits, visit_idx, dev, bt, n_tiles)
     root = torch.empty((b, 4), dtype=torch.int32, device=dev)
     source = torch.empty((b,), dtype=torch.int32, device=dev)
     if b == 0:
         return root, source
     lib = build.stem_streamed_library()
+    grid = ctypes.c_int(0)
     with torch.cuda.device(dev):
         err = lib.stem_streamed_launch(
-            words.data_ptr(), b, stream.data_ptr(), n_tiles,
-            n_visits.data_ptr(), visit_idx.data_ptr(), root.data_ptr(),
-            source.data_ptr(), block_b, dict_block_r, num_buffers,
-            tri_tiles, quad_tiles, n_groups, MATCHES.index(match),
-            _cuda_stream(dev))
+            words.data_ptr(), b, tiles.stream.data_ptr(),
+            tiles.fences.data_ptr(), *_tile_args(tiles), root.data_ptr(),
+            source.data_ptr(), n_groups, MATCHES.index(match),
+            _cuda_stream(dev), ctypes.byref(grid))
     _raise_on(err, lib, "stem_streamed")
     stem_streamed_cuda.launches += 1
+    stem_streamed_cuda.last_grid = grid.value
     return root, source
 
 
@@ -652,10 +687,8 @@ def persistent_resident_cuda(words, tables, desc, *, n_groups: int,
     return root, source, flags
 
 
-def persistent_streamed_cuda(words, stream, desc, visit_idx, *,
-                             n_groups: int, match: str, block_b: int,
-                             dict_block_r: int, num_buffers: int,
-                             tri_tiles: int, quad_tiles: int):
+def persistent_streamed_cuda(words, tiles: sm.DictTileSet, desc, *,
+                             n_groups: int, match: str, block_b: int):
     """Launch K3's streamed variant (``csrc/stem_persistent.cu``): same
     contract as :func:`persistent_streamed_plain`, for CUDA tensors. Adds
     one to ``persistent_streamed_cuda.launches`` per launch and records
@@ -663,16 +696,10 @@ def persistent_streamed_cuda(words, stream, desc, visit_idx, *,
     from repro_torch.kernels import build
 
     dev = _check_words(words, block_b)
-    n_tiles = _check_stream(stream, dev, dict_block_r=dict_block_r,
-                            num_buffers=num_buffers, tri_tiles=tri_tiles,
-                            quad_tiles=quad_tiles)
+    _check_tiles(tiles, dev)
     b = words.shape[0]
     bt = desc.shape[0]
     _check_desc(desc, dev, bt)
-    _check_cuda("visit_idx", visit_idx, 2, dev, align=4)
-    if tuple(visit_idx.shape) != (bt, n_tiles):
-        raise ValueError(f"visit_idx {tuple(visit_idx.shape)} is not"
-                         f" [{bt}, {n_tiles}]")
     root = torch.empty((b, 4), dtype=torch.int32, device=dev)
     source = torch.empty((b,), dtype=torch.int32, device=dev)
     flags = torch.zeros((bt,), dtype=torch.int32, device=dev)
@@ -682,11 +709,11 @@ def persistent_streamed_cuda(words, stream, desc, visit_idx, *,
     grid = ctypes.c_int(0)
     with torch.cuda.device(dev):
         err = lib.persistent_streamed_launch(
-            words.data_ptr(), b, desc.data_ptr(), bt, stream.data_ptr(),
-            n_tiles, visit_idx.data_ptr(), root.data_ptr(),
-            source.data_ptr(), flags.data_ptr(), block_b, dict_block_r,
-            num_buffers, tri_tiles, quad_tiles, n_groups,
-            MATCHES.index(match), _cuda_stream(dev), ctypes.byref(grid))
+            words.data_ptr(), b, desc.data_ptr(), bt,
+            tiles.stream.data_ptr(), tiles.fences.data_ptr(),
+            *_tile_args(tiles), root.data_ptr(), source.data_ptr(),
+            flags.data_ptr(), block_b, n_groups, MATCHES.index(match),
+            _cuda_stream(dev), ctypes.byref(grid))
     _raise_on(err, lib, "persistent_streamed")
     persistent_streamed_cuda.launches += 1
     persistent_streamed_cuda.last_grid = grid.value
@@ -756,31 +783,25 @@ def stem_fused(words: torch.Tensor, roots, *, infix: bool = True,
         run = stem_fused_cuda if on_cuda else stem_fused_plain
         return run(words, tables, **kern)
 
-    # ---- streamed: the visit pre-pass, then chunked launches -------------
+    # ---- streamed: chunked launches, no pre-pass ---------------------------
     tiles = _tiles_for(arrays, tiles, dict_block_r).to(words.device)
-    tri_tiles, quad_tiles, _ = tiles.counts
-    keys, valid = _candidates(_pad_words(words, block_b), n_groups)
-    n_visits, visit_idx = _visit_tables(keys, valid, tiles,
-                                        n_groups=n_groups, block_b=block_b,
-                                        skip_index=skip_index)
     max_bt = _max_chunk_tiles(tiles.n_tiles, visit_budget)
-    kern = dict(n_groups=n_groups, match=match, block_b=block_b,
-                dict_block_r=dict_block_r, num_buffers=num_buffers,
-                tri_tiles=tri_tiles, quad_tiles=quad_tiles)
+    kern = dict(n_groups=n_groups, match=match)
     outs = []
     for c0 in range(0, bt, max_bt):
         c1 = min(bt, c0 + max_bt)
         cw = words[c0 * block_b:c1 * block_b]
         if persistent:
-            desc = _descriptors(c1 - c0, block_b, n_visits[c0:c1],
+            desc = _descriptors(c1 - c0, block_b,
+                                torch.zeros(c1 - c0, dtype=torch.int32,
+                                            device=words.device),
                                 version_slot)
             run = persistent_streamed_cuda if on_cuda \
                 else persistent_streamed_plain
-            outs.append(run(cw, tiles.stream, desc, visit_idx[c0:c1], **kern))
+            outs.append(run(cw, tiles, desc, block_b=block_b, **kern))
         else:
             run = stem_streamed_cuda if on_cuda else stem_streamed_plain
-            outs.append(run(cw, tiles.stream, n_visits[c0:c1],
-                            visit_idx[c0:c1], **kern))
+            outs.append(run(cw, tiles, **kern))
     if len(outs) == 1:
         return outs[0]
     return tuple(torch.cat(parts) for parts in zip(*outs))

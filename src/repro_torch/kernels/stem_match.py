@@ -4,11 +4,11 @@ Compare kernels.
 The counterpart of ``repro.kernels.stem_match``: the padding constants,
 the padded table layouts (lane-padded for the comparator bank, pow2
 sentinel-padded for the sorted search, and the tiled ``[tri | quad |
-bi]`` stream of the streamed layout, :class:`DictTileSet`),
-``bsearch_hit``, the branchless bisection that the CUDA kernels
-(``csrc/stem_resident.cuh``) run per candidate key, and the two
-membership kernels of the staged Compare path, each beside its plain
-PyTorch version (``csrc/dict_match.cu``):
+bi]`` stream of the streamed layout with its fence level,
+:class:`DictTileSet`), ``bsearch_hit``, the branchless bisection that
+the CUDA kernels (``csrc/stem_resident.cuh``) run per candidate key, and
+the two membership kernels of the staged Compare path, each beside its
+plain PyTorch version (``csrc/dict_match.cu``):
 
   dict_match_plain / dict_match_cuda (K7, replaces
       ``repro/kernels/stem_match.py:152``, ``_match_kernel``): the
@@ -39,6 +39,11 @@ LANE = 128
 KEY_PAD = -1
 DICT_PAD = -2
 DICT_SENTINEL = 1 << 28
+# The streamed kernels' fence level (csrc/stem_fences.cuh): every F-th
+# entry of each table's tile stream, F the smallest power of two >= 8
+# whose fences fit one block's shared memory (232,448 bytes on an H100).
+FENCE_MIN_STEP = 8
+FENCE_BUDGET_BYTES = 227 * 1024
 # the plain comparator bank's all-pairs temporary, in bytes (bool)
 _BANK_TEMP_BYTES = 1 << 28
 # K7's banks (csrc/dict_bank.cuh): entries a block banks at once, the
@@ -88,6 +93,24 @@ def pad_dict_tiles(dict_keys: torch.Tensor, tile_rows: int) -> torch.Tensor:
     return _pad_right(dict_keys, rp, DICT_SENTINEL).reshape(-1, LANE)
 
 
+def fence_counts(counts, tile_n: int, fence_step: int) -> tuple:
+    """Fences of each table of a tile stream: ceil(entries / fence_step)
+    for tables of ``counts`` tiles of ``tile_n`` entries."""
+    return tuple(-(-c * tile_n // fence_step) for c in counts)
+
+
+def choose_fence_step(counts, tile_n: int,
+                      budget: int = FENCE_BUDGET_BYTES) -> int:
+    """The smallest power of two >= FENCE_MIN_STEP whose fences (4 bytes
+    each) fit ``budget`` bytes; a larger dictionary gets a coarser step,
+    never an error (at worst one fence a table)."""
+    step, longest = FENCE_MIN_STEP, max(counts) * tile_n
+    while 4 * sum(fence_counts(counts, tile_n, step)) > budget \
+            and step < longest:
+        step *= 2
+    return step
+
+
 @dataclass
 class DictTileSet:
     """The streamed layout, prebuilt once per dictionary version.
@@ -96,6 +119,9 @@ class DictTileSet:
     :func:`pad_dict_tiles` (each ``(dict_block_r x LANE)`` tile sorted and
     sentinel-padded); ``mins`` / ``maxs`` are every tile's first and last
     element, which the tile-visit pre-pass intersects candidate keys with.
+    ``fences`` is the fence level the streamed kernels search first:
+    entries 0, F, 2F, ... of each table's part of the stream, the three
+    tables' fences one after the other, F = ``fence_step``.
     """
 
     stream: torch.Tensor           # int32 [n_tiles * dict_block_r, LANE]
@@ -103,34 +129,60 @@ class DictTileSet:
     maxs: torch.Tensor             # int32 [n_tiles]
     dict_block_r: int              # tile height in LANE rows
     counts: tuple                  # (tri_tiles, quad_tiles, bi_tiles)
+    fences: torch.Tensor           # int32 [sum(fence_counts)]
+    fence_step: int                # F, a power of two >= FENCE_MIN_STEP
 
     @property
     def n_tiles(self) -> int:
         return sum(self.counts)
+
+    @property
+    def fence_counts(self) -> tuple:
+        return fence_counts(self.counts, self.dict_block_r * LANE,
+                            self.fence_step)
 
     def to(self, device) -> "DictTileSet":
         if self.stream.device == torch.device(device):
             return self
         return DictTileSet(self.stream.to(device), self.mins.to(device),
                            self.maxs.to(device), self.dict_block_r,
-                           self.counts)
+                           self.counts, self.fences.to(device),
+                           self.fence_step)
+
+
+def build_fences(stream: torch.Tensor, counts, tile_n: int,
+                 fence_step: int) -> torch.Tensor:
+    """Every ``fence_step``-th entry of each table's part of the stream,
+    starting at its first entry, the tables concatenated."""
+    flat = stream.reshape(-1)
+    parts, base = [], 0
+    for c in counts:
+        parts.append(flat[base:base + c * tile_n:fence_step])
+        base += c * tile_n
+    return torch.cat(parts).contiguous()
 
 
 def build_dict_tiles(tri: torch.Tensor, quad: torch.Tensor, bi: torch.Tensor,
-                     dict_block_r: int) -> DictTileSet:
+                     dict_block_r: int, *,
+                     fence_budget: int = FENCE_BUDGET_BYTES) -> DictTileSet:
     """Pad and concatenate the three sorted dictionaries into the tile
-    stream, and take each tile's [min, max]. All three tables are always
-    in the stream (bi too, for infix=False): unused tiles are never
-    visited."""
+    stream, take each tile's [min, max], and the fence level at the
+    smallest step whose fences fit ``fence_budget`` bytes. All three
+    tables are always in the stream (bi too, for infix=False): unused
+    tiles are never searched."""
     if dict_block_r < 1:
         raise ValueError(f"dict_block_r must be >= 1, got {dict_block_r}")
     tiles = [pad_dict_tiles(d, dict_block_r) for d in (tri, quad, bi)]
     counts = tuple(t.shape[0] // dict_block_r for t in tiles)
     stream = torch.cat(tiles).contiguous()
-    flat = stream.reshape(-1, dict_block_r * LANE)   # one row per tile
+    tile_n = dict_block_r * LANE
+    flat = stream.reshape(-1, tile_n)   # one row per tile
+    step = choose_fence_step(counts, tile_n, fence_budget)
     return DictTileSet(stream=stream, mins=flat[:, 0].contiguous(),
                        maxs=flat[:, -1].contiguous(),
-                       dict_block_r=dict_block_r, counts=counts)
+                       dict_block_r=dict_block_r, counts=counts,
+                       fences=build_fences(stream, counts, tile_n, step),
+                       fence_step=step)
 
 
 def bsearch_hit(flat_dict: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:

@@ -208,11 +208,11 @@ def main(argv=None):
                     help="streamed dictionary tile height in 128-lane"
                          " rows; also pins the publish-time tile stream")
     ap.add_argument("--num-buffers", type=int, default=2,
-                    help="streamed-path copy pipeline depth (1 = no"
-                         " overlap, 2 = double buffering, up to 4)")
+                    help="the reference's streamed copy pipeline depth"
+                         " (1-4): checked, the same roots for every value")
     ap.add_argument("--full-sweep", action="store_true",
-                    help="disable the tile-visit skip index (sweep every"
-                         " dictionary tile; the skip-off baseline)")
+                    help="the reference's full sweep (its tile-visit skip"
+                         " index off): the same roots either way")
     ap.add_argument("--megabatch", type=int, default=1,
                     help="block_b tiles coalesced per launch")
     ap.add_argument("--persistent", action="store_true",

@@ -20,7 +20,8 @@ table layout, so launches never re-pad or re-upload. Publishes are
 two-phase: phase 1 validates the layout every kernel path assumes (1-D
 int32 tables of strictly sorted unique packed 24-bit keys, or the single
 ``[-1]`` empty-table placeholder; a prebuilt tile set of the right shape
-whose boundary tables are its tiles' first and last entries) and raises
+whose boundary tables are its tiles' first and last entries and whose
+fence level is every F-th entry of each table's tiles) and raises
 :class:`DictValidationError` with the store untouched; phase 2 is the
 atomic version bump.
 """
@@ -72,8 +73,9 @@ def _validate_table(name: str, t: torch.Tensor) -> None:
 def validate_handle(handle: core_stemmer.ResolvedRootDict) -> None:
     """Phase-1 publish validation: binary search and the bank both break
     silently on tables that are not sorted unique packed keys, and the
-    streamed sweep on a tile stream whose tiles are unsorted or whose
-    boundary tables are not the tiles' first and last entries."""
+    streamed search on a tile stream whose tiles are unsorted, whose
+    boundary tables are not the tiles' first and last entries, or whose
+    fences are not every F-th entry of each table's tiles."""
     from repro_torch.kernels import stem_match as sm  # lazy: kernels need core
 
     for name in TABLES:
@@ -99,6 +101,16 @@ def validate_handle(handle: core_stemmer.ResolvedRootDict) -> None:
         raise DictValidationError(
             "tile boundary tables diverge from the tile stream's"
             " first/last lanes")
+    step, tile_n = tiles.fence_step, tiles.dict_block_r * sm.LANE
+    fences = tiles.fences.cpu().numpy()
+    want = sm.build_fences(torch.from_numpy(stream), tiles.counts, tile_n,
+                           max(1, step)).numpy()
+    if (step < sm.FENCE_MIN_STEP or step & (step - 1)
+            or not np.array_equal(fences, want)):
+        raise DictValidationError(
+            f"fence level ({fences.size} fences at step {step}) diverges"
+            " from every F-th entry of each table's tiles (F a power of"
+            f" two >= {sm.FENCE_MIN_STEP})")
 
 
 @dataclass(frozen=True)

@@ -217,7 +217,7 @@ class StemmerWorkload:
     partially filled megabatch launches at the next power-of-two tile
     count (capped at ``megabatch_tiles``). Runs on the store's device.
     ``infix``, ``match``, ``dict_block_r``, ``num_buffers`` and
-    ``skip_index`` are passed to every launch (the last three tune the
+    ``skip_index`` are passed to every launch (the last three concern the
     streamed layout, which the store's residency selects).
     ``persistent=True`` launches the descriptor-ring kernel instead, and
     retire checks its completion flags against the version pinned at

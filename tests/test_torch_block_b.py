@@ -1,12 +1,13 @@
 """Any block_b on every path: the logical tile (checksum tiles, visit lists,
-descriptor rows) is not the thread count. The kernels launch
-min(block_b, 512) threads and stride over the tile's words; the plain
-versions and the reference take any block_b, so the kernels must too.
-The CPU tests hold the plain paths at wide tiles to the reference and the
-g++ build of the streamed sweep to the plain K2; the cuda-marked ones hold
-K1, K2 and K3 to their plain versions at block_b 1024 and 2048 (and at a
-width that is not a power of two and one wider than 4 x 512 words, where
-the streamed kernels take several passes)."""
+descriptor rows) is not the thread count. The kernels launch at most 512
+threads (1024 for the streamed ones) and stride over the tile's words;
+the plain versions and the reference take any block_b, so the kernels
+must too. The CPU tests hold the plain paths at wide tiles to the
+reference, and the reference's visit walk at wide tiles and the g++
+build of the streamed search to the plain K2; the cuda-marked ones hold
+K1, K2 (through stem_fused's chunks) and K3 to their plain versions at
+block_b 1024 and 2048 (and at a width that is not a power of two and one
+wider than 4 x 512 words)."""
 import numpy as np
 import pytest
 
@@ -77,22 +78,27 @@ def test_wide_tiles_on_the_plain_paths_match_reference(dicts, enc, block_b):
 
 
 def test_host_sweep_at_wide_tiles_matches_plain(dicts, enc):
-    """The g++ build of stem_sweep.cuh, one block_b tile at a time, at
-    tiles wider than a block of threads."""
+    """The reference's visit walk, one block_b tile at a time, at tiles
+    wider than a block of threads, and the g++ build of stem_fences.cuh,
+    both equal to the plain K2."""
     _, tda = dicts
     tiles = tsm.build_dict_tiles(tda.tri, tda.quad, tda.bi, 2)
     w = torch.from_numpy(enc)
+    want = tsf.stem_streamed_plain(w, tiles, n_groups=5, match="bsearch")
+    got = build.host_stem_streamed(
+        enc, tiles.stream.numpy(), tiles.fences.numpy(), n_groups=5,
+        match=0, dict_block_r=2, fence_step=tiles.fence_step,
+        counts=tiles.counts)
+    np.testing.assert_array_equal(got[0], want[0].numpy())
+    np.testing.assert_array_equal(got[1], want[1].numpy())
     for block_b in WIDE:
         n_visits, visit_idx = _visits(w, tiles, n_groups=5, block_b=block_b)
-        kern = dict(n_groups=5, block_b=block_b, dict_block_r=2,
-                    tri_tiles=tiles.counts[0], quad_tiles=tiles.counts[1])
-        want = tsf.stem_streamed_plain(w, tiles.stream, n_visits, visit_idx,
-                                       match="bsearch", num_buffers=2, **kern)
-        got = build.host_stem_streamed(
-            enc, tiles.stream.numpy(), n_visits.numpy(), visit_idx.numpy(),
-            match=0, **kern)
-        np.testing.assert_array_equal(got[0], want[0].numpy())
-        np.testing.assert_array_equal(got[1], want[1].numpy())
+        walk = tsf._streamed_rows(
+            tsf._pad_words(w, block_b), tiles.stream, n_visits, visit_idx,
+            n_groups=5, block_b=block_b, dict_block_r=2,
+            tri_tiles=tiles.counts[0], quad_tiles=tiles.counts[1])
+        assert torch.equal(walk[0][:w.shape[0]], want[0])
+        assert torch.equal(walk[1][:w.shape[0]], want[1])
 
 
 def test_wrappers_take_any_block_b(dicts, enc):
@@ -134,24 +140,24 @@ def test_k1_wide_tiles_match_plain_on_card(dicts, enc, match):
 @pytest.mark.cuda
 @pytest.mark.parametrize("match", ["bsearch", "bank"])
 def test_k2_wide_tiles_match_plain_on_card(dicts, enc, match):
+    """K2 has no tile of its own: stem_fused cuts the batch into chunks of
+    whole block_b tiles (a small visit budget: several launches), each a
+    K2 launch, equal to the same chunks through the plain version."""
     arrays, w = _card(dicts, enc)
-    tiles = tsm.build_dict_tiles(arrays.tri, arrays.quad, arrays.bi, 2)
     for infix in (True, False):
-        n_groups = 5 if infix else 2
         for block_b in CARD_WIDTHS:
-            n_visits, visit_idx = _visits(w, tiles, n_groups=n_groups,
-                                          block_b=block_b)
-            kern = dict(n_groups=n_groups, match=match, block_b=block_b,
-                        dict_block_r=2, tri_tiles=tiles.counts[0],
-                        quad_tiles=tiles.counts[1])
-            want = tsf.stem_streamed_plain(w, tiles.stream, n_visits,
-                                           visit_idx, num_buffers=2, **kern)
-            for nb in (1, 2, 4):
-                got = tsf.stem_streamed_cuda(w, tiles.stream, n_visits,
-                                             visit_idx, num_buffers=nb,
-                                             **kern)
-                torch.cuda.synchronize()
-                assert all(torch.equal(g, x) for g, x in zip(got, want))
+            kw = dict(infix=infix, match=match, block_b=block_b,
+                      residency="streamed", dict_block_r=2,
+                      visit_budget=4)
+            before = tsf.stem_streamed_cuda.launches
+            got = tsf.stem_fused(w, arrays, **kw)
+            torch.cuda.synchronize()
+            assert tsf.stem_streamed_cuda.launches - before == \
+                tsf.planned_launches(w.shape[0], arrays, infix=infix,
+                                     block_b=block_b, residency="streamed",
+                                     dict_block_r=2, visit_budget=4) > 1
+            want = tsf.stem_fused(w.cpu(), dicts[1], **kw)
+            assert all(torch.equal(g.cpu(), x) for g, x in zip(got, want))
 
 
 @pytest.mark.cuda
@@ -169,13 +175,7 @@ def test_k3_wide_tiles_match_plain_on_card(dicts, enc, match):
         torch.cuda.synchronize()
         want = tsf.persistent_resident_plain(w, tables, desc, **kern)
         assert all(torch.equal(g, x) for g, x in zip(got, want))
-        n_visits, visit_idx = _visits(w, tiles, n_groups=5, block_b=block_b)
-        desc = tsf._descriptors(bt, block_b, n_visits, 3)
-        kern.update(dict_block_r=2, tri_tiles=tiles.counts[0],
-                    quad_tiles=tiles.counts[1])
-        want = tsf.persistent_streamed_plain(w, tiles.stream, desc,
-                                             visit_idx, num_buffers=2, **kern)
-        got = tsf.persistent_streamed_cuda(w, tiles.stream, desc, visit_idx,
-                                           num_buffers=2, **kern)
+        want = tsf.persistent_streamed_plain(w, tiles, desc, **kern)
+        got = tsf.persistent_streamed_cuda(w, tiles, desc, **kern)
         torch.cuda.synchronize()
         assert all(torch.equal(g, x) for g, x in zip(got, want))

@@ -1,8 +1,9 @@
 """The port's persistent serving kernel (K3) against the JAX package: the
 descriptor ring, the plain resident and streamed variants (roots, sources
-and completion flags), salvage, launch accounting, and persistent serving
-through the engine across a mid-flight hot swap. Every compared output is
-int32 and must be identical."""
+and completion flags), the reference's visit walk over a descriptor ring,
+salvage, launch accounting, the tile set's publish checks, and persistent
+serving through the engine across a mid-flight hot swap. Every compared
+output is int32 and must be identical."""
 import numpy as np
 import pytest
 
@@ -45,6 +46,18 @@ def dicts():
     return da, da2
 
 
+def _ring_walk(words, tiles, desc, visit_idx, *, n_groups, block_b):
+    """The reference's streamed persistent kernel in plain PyTorch:
+    descriptor d's tile walks the first desc[d, 1] entries of
+    visit_idx[d] (the reference's visit walk) -> (root, source)."""
+    wd, rows = tsf._descriptor_rows(words, desc, block_b)
+    root, source = tsf._streamed_rows(
+        wd, tiles.stream, desc[:, 1], visit_idx, n_groups=n_groups,
+        block_b=block_b, dict_block_r=tiles.dict_block_r,
+        tri_tiles=tiles.counts[0], quad_tiles=tiles.counts[1])
+    return tsf._scatter_rows(words.shape[0], rows, root, source)
+
+
 @pytest.fixture(scope="module")
 def enc():
     words, _, _ = rcorpus.build_corpus(n_words=600, seed=1)
@@ -66,7 +79,8 @@ def test_plain_persistent_matches_reference_kernel(dicts, enc, residency,
                                                    visit_budget):
     """Ragged batch (300 = 4 x 64 + 44): roots, sources and flags equal the
     Pallas kernel's in interpret mode; a chunked streamed call concatenates
-    every chunk's flags."""
+    every chunk's flags; the reference's walk over the same descriptor
+    ring and the port's visit tables gives the same roots."""
     da, _ = dicts
     words = enc[:300]
     kw = dict(infix=infix, match=match, block_b=64, residency=residency,
@@ -85,6 +99,20 @@ def test_plain_persistent_matches_reference_kernel(dicts, enc, residency,
                                     **{k: v for k, v in kw.items()
                                        if k != "version_slot"})
     assert torch.equal(r, got[0]) and torch.equal(s, got[1])
+    if residency == "streamed":
+        tda = _port(da)
+        tiles = tsm.build_dict_tiles(tda.tri, tda.quad, tda.bi, 2)
+        w = torch.from_numpy(words)
+        n_groups = 5 if infix else 2
+        keys, valid = tsf._candidates(tsf._pad_words(w, 64), n_groups)
+        n_visits, visit_idx = tsf._visit_tables(
+            keys, valid, tiles, n_groups=n_groups, block_b=64,
+            skip_index=True)
+        walk = _ring_walk(w, tiles, tsf._descriptors(5, 64, n_visits,
+                                                     version_slot),
+                          visit_idx, n_groups=n_groups, block_b=64)
+        for g, x in zip(walk, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(x))
 
 
 @pytest.mark.parametrize("residency", ["resident", "streamed"])
@@ -111,9 +139,11 @@ def test_descriptors_match_reference():
 
 
 def test_plain_persistent_walks_the_descriptor_ring(dicts, enc):
-    """The plain K3 reads each tile through its descriptor's row offset and
-    visit count: a reversed ring gives the same rows, and a descriptor
-    whose visit count is cut to 0 finds nothing."""
+    """The plain K3 reads each tile through its descriptor's row offset: a
+    reversed ring gives the same rows, a descriptor pointed at another
+    tile's rows computes those, and its visit count is not read. The
+    reference's walk over the same ring does read it: a descriptor whose
+    visit count is cut to 0 finds nothing."""
     _, da2 = dicts
     tda = _port(da2)
     words = torch.from_numpy(enc[:256])
@@ -121,22 +151,28 @@ def test_plain_persistent_walks_the_descriptor_ring(dicts, enc):
     keys, valid = tsf._candidates(words, 5)
     n_visits, visit_idx = tsf._visit_tables(keys, valid, tiles, n_groups=5,
                                             block_b=64, skip_index=True)
-    kern = dict(n_groups=5, match="bsearch", block_b=64, dict_block_r=2,
-                num_buffers=2, tri_tiles=tiles.counts[0],
-                quad_tiles=tiles.counts[1])
+    kern = dict(n_groups=5, match="bsearch", block_b=64)
     desc = tsf._descriptors(4, 64, n_visits, 1)
-    want = tsf.persistent_streamed_plain(words, tiles.stream, desc,
-                                         visit_idx, **kern)
+    want = tsf.persistent_streamed_plain(words, tiles, desc, **kern)
     flip = torch.arange(3, -1, -1)
-    got = tsf.persistent_streamed_plain(words, tiles.stream, desc[flip],
-                                        visit_idx[flip], **kern)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    got = tsf.persistent_streamed_plain(words, tiles, desc[flip], **kern)
+    assert all(torch.equal(g, x) for g, x in zip(got, want))
     cut = desc.clone()
     cut[2, 1] = 0
-    got = tsf.persistent_streamed_plain(words, tiles.stream, cut, visit_idx,
-                                        **kern)
-    assert (got[1][128:192] == 0).all() and (want[1][128:192] > 0).any()
-    assert torch.equal(got[1][:128], want[1][:128])
+    got = tsf.persistent_streamed_plain(words, tiles, cut, **kern)
+    assert all(torch.equal(g, x) for g, x in zip(got, want))
+    moved = desc.clone()
+    moved[3, 0] = 0                  # descriptor 3 recomputes tile 0's rows
+    got = tsf.persistent_streamed_plain(words, tiles, moved, **kern)
+    assert torch.equal(got[1][:64], want[1][:64])
+    walk = _ring_walk(words, tiles, desc, visit_idx, n_groups=5, block_b=64)
+    assert torch.equal(walk[0], want[0]) and torch.equal(walk[1], want[1])
+    walk = _ring_walk(words, tiles, desc[flip], visit_idx[flip], n_groups=5,
+                      block_b=64)
+    assert torch.equal(walk[0], want[0]) and torch.equal(walk[1], want[1])
+    walk = _ring_walk(words, tiles, cut, visit_idx, n_groups=5, block_b=64)
+    assert (walk[1][128:192] == 0).all() and (want[1][128:192] > 0).any()
+    assert torch.equal(walk[1][:128], want[1][:128])
 
 
 @pytest.mark.parametrize("flags,want_rows", [
@@ -238,20 +274,36 @@ def test_streamed_store_prebuilds_and_validates_tiles(dicts):
     assert tstemmer.unwrap_dict(h)[2] is h.tiles
     assert tstemmer.resolve_dict(h, dict_block_r=4) is h
     assert tstemmer.resolve_dict(h, dict_block_r=2).tiles.dict_block_r == 2
+    assert h.tiles.fence_step == 8
+    t = h.tiles
     bad = tstemmer.ResolvedRootDict(h.arrays, "streamed",
-                                    tsm.DictTileSet(h.tiles.stream.flip(0),
-                                                    h.tiles.mins,
-                                                    h.tiles.maxs, 4,
-                                                    h.tiles.counts))
+                                    tsm.DictTileSet(t.stream.flip(0), t.mins,
+                                                    t.maxs, 4, t.counts,
+                                                    t.fences, t.fence_step))
     with pytest.raises(tserve.DictValidationError, match="unsorted"):
         tserve.validate_handle(bad)
     bad = tstemmer.ResolvedRootDict(h.arrays, "streamed",
-                                    tsm.DictTileSet(h.tiles.stream,
-                                                    h.tiles.maxs,
-                                                    h.tiles.maxs, 4,
-                                                    h.tiles.counts))
+                                    tsm.DictTileSet(t.stream, t.maxs, t.maxs,
+                                                    4, t.counts, t.fences,
+                                                    t.fence_step))
     with pytest.raises(tserve.DictValidationError, match="boundary"):
         tserve.validate_handle(bad)
+    # a fence off by one, a fence level of another step, a step that is not
+    # a power of two >= 8
+    off = t.fences.clone()
+    off[1] += 1
+    coarse = tsm.build_fences(t.stream, t.counts, 4 * tsm.LANE, 16)
+    for fences, step in ((off, 8), (coarse, 8), (coarse, 16),
+                         (t.stream.reshape(-1)[::4].contiguous(), 4)):
+        bad = tstemmer.ResolvedRootDict(h.arrays, "streamed",
+                                        tsm.DictTileSet(t.stream, t.mins,
+                                                        t.maxs, 4, t.counts,
+                                                        fences, step))
+        if step == 16:      # a coarser level is a valid one
+            tserve.validate_handle(bad)
+            continue
+        with pytest.raises(tserve.DictValidationError, match="fence"):
+            tserve.validate_handle(bad)
 
 
 # ---------------------------------------------------------------------------
@@ -276,21 +328,18 @@ def test_persistent_kernels_match_plain_on_card(dicts, enc, infix, match):
         want = tsf.persistent_resident_plain(w, tables, desc, **kern)
         torch.cuda.synchronize()
         assert all(torch.equal(g, x) for g, x in zip(got, want))
-        tiles = tsm.build_dict_tiles(arrays.tri, arrays.quad, arrays.bi, 2)
-        keys, valid = tsf._candidates(tsf._pad_words(w, 64), n_groups)
-        n_visits, visit_idx = tsf._visit_tables(
-            keys, valid, tiles, n_groups=n_groups, block_b=64,
-            skip_index=True)
-        desc = tsf._descriptors(5, 64, n_visits, version_slot)
-        kern.update(dict_block_r=2, tri_tiles=tiles.counts[0],
-                    quad_tiles=tiles.counts[1])
-        want = tsf.persistent_streamed_plain(w, tiles.stream, desc,
-                                             visit_idx, num_buffers=2,
-                                             **kern)
-        for num_buffers in (1, 2, 4):
-            got = tsf.persistent_streamed_cuda(w, tiles.stream, desc,
-                                               visit_idx,
-                                               num_buffers=num_buffers,
-                                               **kern)
-            torch.cuda.synchronize()
-            assert all(torch.equal(g, x) for g, x in zip(got, want))
+        for dict_block_r, budget in ((2, tsm.FENCE_BUDGET_BYTES), (2, 256),
+                                     (16, tsm.FENCE_BUDGET_BYTES)):
+            tiles = tsm.build_dict_tiles(arrays.tri, arrays.quad, arrays.bi,
+                                         dict_block_r, fence_budget=budget)
+            for block_b in (1, 3, 64, 100, 1024):
+                bt = -(-w.shape[0] // block_b)
+                desc = tsf._descriptors(
+                    bt, block_b, torch.zeros(bt, dtype=torch.int32,
+                                             device="cuda"), version_slot)
+                kern = dict(n_groups=n_groups, match=match, block_b=block_b)
+                want = tsf.persistent_streamed_plain(w, tiles, desc, **kern)
+                got = tsf.persistent_streamed_cuda(w, tiles, desc, **kern)
+                torch.cuda.synchronize()
+                assert all(torch.equal(g, x) for g, x in zip(got, want))
+                assert (got[2] == 1 + version_slot).all()
