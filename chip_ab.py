@@ -7,9 +7,11 @@ CUDA card.
 For the checkouts (other, this, this, other), in that order, a subprocess
 imports ``repro_torch`` from that checkout's ``src``, builds its kernels
 (into that checkout's ``build/``) and times K1, K2 and both K3 variants at
-``block_b = N`` (default 256) on 4096 and 1,048,576 corpus words, with
+``block_b = N`` (default 256) on 4096 and 1,048,576 corpus words, and K1
+as the index builds launch it (131,072 words at block_b 2048), with
 ``chip_smoke.py``'s timers and dictionaries: the realistic dictionary for
-the resident kernels, the 262,144-key grown one (``dict_block_r = 8``)
+the resident kernels (and the lanes a word they took, where the checkout
+records them), the 262,144-key grown one (``dict_block_r = 8``)
 for the streamed ones, and the wall time of a whole streamed
 ``stem_fused`` call (pre-pass, if the checkout has one, and launches).
 The streamed kernels are called with the checkout's own contract: a
@@ -92,8 +94,20 @@ def child(tree: Path, block_b: int) -> None:
         n = 200 if b == min(SIZES) else 20
         for name, fn in runs.items():
             out[f"{name} B={b}"] = cs.device_ms(fn, n, cs.call_ms(fn, n))
+        # the resident kernels' lanes a word, where the tree has them
+        for name, fn in (("K1", sf.stem_fused_cuda),
+                         ("K3 resident", sf.persistent_resident_cuda)):
+            out[f"{name} lanes, B={b}"] = getattr(fn, "last_lanes", None)
         entry = lambda: sf.stem_fused(w, handle, block_b=block_b)  # noqa: E731
         out[f"stem_fused streamed, wall B={b}"] = cs.call_ms(entry, 5)
+    # K1 as the index builds launch it: a chunk of words at the index's tile
+    w = words[:cs.INDEX_CHUNK]
+    res = dict(n_groups=5, match="bsearch", block_b=cs.INDEX_BLOCK)
+    fn = lambda: sf.stem_fused_cuda(w, tables, **res)  # noqa: E731
+    key = f"K1 index chunk, block_b={cs.INDEX_BLOCK} B={cs.INDEX_CHUNK}"
+    out[key] = cs.device_ms(fn, 100, cs.call_ms(fn, 100))
+    out["K1 lanes, index chunk"] = getattr(sf.stem_fused_cuda, "last_lanes",
+                                            None)
     print(json.dumps(out))
 
 
@@ -126,11 +140,13 @@ def main() -> int:
         row["label"] = label
         results.append(row)
         print(f"[ab] {label} ({tree}): {json.dumps(row)}")
-    keys = [k for k in results[0] if "B=" in k]
+    keys = [k for k in results[0] if "B=" in k and "lanes" not in k]
     print(f"[ab] ms on the card at block_b={args.block_b}"
           " (other, this, this, other):")
     for k in keys:
         print(f"[ab] {k}: " + ", ".join(f"{r[k]:.6f}" for r in results))
+    for k in (k for k in results[1] if "lanes" in k):
+        print(f"[ab] {k}: " + ", ".join(str(r.get(k)) for r in results))
     print(cs.card_line())
     return 0
 

@@ -16,9 +16,13 @@ realistic size. Phases:
   2. build     nvcc build of every kernel library, with its seconds
   3. K1        the resident megakernel against its plain PyTorch version
                on the card, bit for bit, over infix x match x block_b
-               {64, ..., 512, 1024, 2048} x batch sizes, on the realistic
-               dictionary (shared-memory tables) and on a ~60K-key grown
-               dictionary (global memory)
+               {64, ..., 512, 1024, 2048} x B {0, 1, 257, 4096, 8192,
+               16384, 65536, 1,048,576}, on the realistic dictionary
+               (shared-memory tables) and on a ~60K-key grown dictionary
+               (global memory); every launch's lanes a word and blocks
+               equal those the g++ build of the launcher's rule and walk
+               gives (build.host_resident_walk), the launches reach every
+               lane count (1, 2, 4, 8), and the phase prints them
   4. K2        the streamed megakernel against its plain version, bit for
                bit: the realistic dictionary forced to streamed, a
                262,144-key grown one (fences every 8th entry) and a
@@ -30,9 +34,12 @@ realistic size. Phases:
                num_buffers {1, 2, 4} x skip_index (accepted, no effect),
                and at block_b 1024 and 2048
   5. K3        both persistent variants against their plain versions,
-               roots, sources and flags, version_slot {0, 5}, the streamed
-               one through visit-budget chunks on the three streamed
-               dictionaries, block_b 256, 1024, 2048
+               roots, sources and flags, version_slot {0, 5}, block_b 256,
+               1024, 2048: the resident one on both K1 dictionaries at B
+               {1, 257, 4096, 8192, 16384, 65536, 1,048,576}, lanes and
+               blocks checked against the rule as for K1; the streamed one
+               through visit-budget chunks on the three streamed
+               dictionaries
   5b. K4       the text front end against its plain version, identical
                rows: documents with every clitic, function word, mark and
                letter variant, over-long words, empty and punctuation-only
@@ -120,8 +127,15 @@ realistic size. Phases:
                logit finite, no kernel launched; prefill against
                prefill-by-decode checked in bf16 and fp32 on the same
                weights cut to 2 layers, reported at all 32
-  9. times     each kernel's device time with CUDA events at 4096 and
-               1,048,576 words (K4: a served request's tile and the
+  9. times     the launch floor (a one-element torch op, same timer);
+               the resident kernels' registers and spills per instance
+               (the build's -Xptxas -v log); each kernel's device time with
+               CUDA events at 4096 and
+               1,048,576 words (K1 and K3 resident with their lanes a word
+               and blocks, their bank instance too; K1 at 4096 words and at
+               an index chunk, 131,072 words at block_b 2048, at each lane
+               count through measurement builds that fix it; K4: a served
+               request's tile and the
                1,048,576-word tile; K5: an index chunk of 131,072 words and
                1,048,576 words (counting), an index chunk of the 262,144-key
                vocabulary (bitonic), with torch.sort of the same keys
@@ -145,6 +159,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -172,12 +187,13 @@ GROWN_KEYS = 262_144
 # a dictionary whose 8-entry fences do not fit one block's shared memory
 FENCE_KEYS = 524_288
 K2_SMALL_FENCE_BUDGET = 8192        # bytes: coarse fences, F >= 128
-K1_BATCHES = (0, 1, 257, 65536)
+K1_BATCHES = (0, 1, 257, 4096, 8192, 16384, 65536, 1 << 20)
 K1_BLOCKS = (64, 128, 256, 512, 1024, 2048)
 K2_BATCHES = (0, 1, 257, 65536)
 K2_DICT_BLOCK_RS = (1, 8, 16)
 K2_NUM_BUFFERS = (1, 2, 4)
-K3_BATCHES = (1, 257, 65536)
+K3_BATCHES = (1, 257, 65536)       # the streamed variant
+K3_RESIDENT_BATCHES = (1, 257, 4096, 8192, 16384, 65536, 1 << 20)
 K3_VERSION_SLOTS = (0, 5)
 WIDE_BLOCKS = (1024, 2048)          # the block_b repair: tiles > 512 threads
 K4_BLOCK_WS = (128, 256, 1024, 2048)
@@ -195,6 +211,7 @@ INDEX_WORDS = 1 << 20
 INDEX_CHUNK = 1 << 17
 INDEX_WORDS_PER_DOC = 512
 INDEX_BLOCK = 2048                  # block_b = block_w of the index path
+FORCED_LANES = (1, 2, 4, 8)          # K1's measurement builds, phase 9
 TEXT_REQUESTS = 256
 TEXT_DOCS_PER_REQUEST = 16
 TEXT_WORDS_PER_DOC = 256
@@ -363,6 +380,31 @@ def wrapper(sf, name: str):
     return {w.__name__: w for w in sf.CUDA_WRAPPERS}[name]
 
 
+def resident_shape(wrapper_fn, b: int, block_b: int, shapes: set,
+                   n_desc: int | None = None) -> None:
+    """Check the lanes a word and blocks a resident wrapper's last launch
+    took (K1's over b words, or K3 resident's over a ring of n_desc
+    tiles) against those the g++ build of the launchers' rule and walk
+    gives for this card, and note them in `shapes`."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if n_desc is None:
+        walk = build.host_resident_walk(b, 1, b, 1, sms=sms,
+                                        persistent=False)
+    else:
+        walk = build.host_resident_walk(n_desc * block_b, n_desc, block_b,
+                                        wrapper_fn.last_capacity, sms=sms,
+                                        persistent=True)
+    got = (wrapper_fn.last_lanes, wrapper_fn.last_grid)
+    check(got == (walk["lanes"], walk["grid"]),
+          f"{wrapper_fn.__name__} B={b} block_b={block_b}: lanes, grid {got},"
+          f" the rule's {(walk['lanes'], walk['grid'])}")
+    shapes.add((b, block_b) + got)
+
+
 def visit_tables(sf, w, tiles, *, infix: bool, skip_index: bool = True,
                  block_b: int = BLOCK_B):
     n_groups = 5 if infix else 2
@@ -378,7 +420,7 @@ def k1_phase(sf, ops, realistic, grown60k, words):
     import torch
 
     t0 = time.perf_counter()
-    worst, cases = 0, 0
+    worst, cases, shapes = 0, 0, set()
     for dict_name, arrays, want_shared in (("realistic", realistic, True),
                                            ("grown", grown60k, False)):
         for infix in (True, False):
@@ -411,10 +453,16 @@ def k1_phase(sf, ops, realistic, grown60k, words):
                         check(bad == 0, f"K1 vs plain: {bad} mismatches"
                               f" ({dict_name}, infix={infix}, match={match},"
                               f" B={b}, block_b={block_b})")
+                        resident_shape(sf.stem_fused_cuda, b, block_b,
+                                       shapes)
                 print(f"[K1] {dict_name} dict ({arrays.n_keys} keys,"
                       f" {'shared' if want_shared else 'global'} memory)"
                       f" infix={infix} match={match}: B in {K1_BATCHES} x"
                       f" block_b in {K1_BLOCKS} identical")
+    print(f"[K1] lanes a word and blocks the launcher took, as the rule"
+          f" gives them, (B, block_b, lanes, grid): {sorted(shapes)}")
+    check({x[2] for x in shapes} == {1, 2, 4, 8},
+          "K1's launches must reach every lane count")
     print(f"[K1] {cases} launches identical to the plain version,"
           f" max_abs_err {worst} ({time.perf_counter() - t0:.1f} s)")
     return worst
@@ -506,41 +554,53 @@ def k3_phase(sf, sm, ops, resident_dicts, streamed_dicts, words):
     import torch
 
     t0 = time.perf_counter()
-    worst, cases = 0, 0
+    worst, cases, shapes = 0, 0, set()
     for dict_name, arrays in resident_dicts:
         for infix in (True, False):
             n_groups = 5 if infix else 2
             for match in ("bsearch", "bank"):
                 tables = sf.padded_tables(arrays, match=match, infix=infix)
-                for b, block_b in ([(b, BLOCK_B) for b in K3_BATCHES]
-                                   + [(max(K3_BATCHES), bb)
-                                      for bb in WIDE_BLOCKS]):
+                for b in K3_RESIDENT_BATCHES:
                     w = words[:b]
-                    bt = -(-b // block_b)
-                    zeros = torch.zeros(bt, dtype=torch.int32, device=w.device)
-                    for version_slot in K3_VERSION_SLOTS:
-                        desc = sf._descriptors(bt, block_b, zeros,
-                                               version_slot)
-                        kern = dict(n_groups=n_groups, match=match,
-                                    block_b=block_b)
-                        got = sf.persistent_resident_cuda(w, tables, desc,
-                                                          **kern)
-                        want = sf.persistent_resident_plain(w, tables, desc,
-                                                            **kern)
-                        torch.cuda.synchronize()
-                        bad = same(got, want)
-                        worst = max(worst, max_err(got, want))
-                        cases += 1
-                        check(bad == 0 and bool((got[2] == 1 + version_slot)
-                                                .all()),
-                              f"K3 resident vs plain: {bad} mismatches"
-                              f" ({dict_name}, infix={infix}, match={match},"
-                              f" B={b}, block_b={block_b},"
-                              f" version_slot={version_slot})")
+                    # the plain version's rows of a whole ring of tiles do
+                    # not depend on block_b or the version slot: once a B
+                    bt = -(-b // BLOCK_B)
+                    rows = sf.persistent_resident_plain(
+                        w, tables, sf._descriptors(
+                            bt, BLOCK_B, torch.zeros(bt, dtype=torch.int32,
+                                                     device=w.device), 0),
+                        n_groups=n_groups, match=match, block_b=BLOCK_B)[:2]
+                    for block_b in (BLOCK_B,) + WIDE_BLOCKS:
+                        bt = -(-b // block_b)
+                        zeros = torch.zeros(bt, dtype=torch.int32,
+                                            device=w.device)
+                        for version_slot in K3_VERSION_SLOTS:
+                            desc = sf._descriptors(bt, block_b, zeros,
+                                                   version_slot)
+                            got = sf.persistent_resident_cuda(
+                                w, tables, desc, n_groups=n_groups,
+                                match=match, block_b=block_b)
+                            torch.cuda.synchronize()
+                            want = rows + ((1 + desc[:, 2]).to(torch.int32),)
+                            bad = same(got, want)
+                            worst = max(worst, max_err(got, want))
+                            cases += 1
+                            check(bad == 0 and bool(
+                                (got[2] == 1 + version_slot).all()),
+                                  f"K3 resident vs plain: {bad} mismatches"
+                                  f" ({dict_name}, infix={infix},"
+                                  f" match={match}, B={b}, block_b={block_b},"
+                                  f" version_slot={version_slot})")
+                            resident_shape(sf.persistent_resident_cuda, b,
+                                           block_b, shapes, n_desc=bt)
         print(f"[K3] resident, {dict_name} dict ({arrays.n_keys} keys):"
-              f" infix x match x B in {K3_BATCHES} (and block_b in"
-              f" {WIDE_BLOCKS} at B={max(K3_BATCHES)}) x version_slot in"
+              f" infix x match x B in {K3_RESIDENT_BATCHES} x block_b in"
+              f" {(BLOCK_B,) + WIDE_BLOCKS} x version_slot in"
               f" {K3_VERSION_SLOTS}: roots, sources, flags identical")
+    print(f"[K3] resident: lanes a word and blocks the launcher took, as the"
+          f" rule gives them, (B, block_b, lanes, grid): {sorted(shapes)}")
+    check({x[2] for x in shapes} == {1, 2, 4, 8},
+          "K3 resident's launches must reach every lane count")
     for dict_name, arrays in streamed_dicts:
         n_tiles = sf.dict_tile_count(arrays, 8)
         budget = 64 * n_tiles                     # chunks of 64 batch tiles
@@ -1537,6 +1597,62 @@ def lm_serve_phase(ops, serve, tm, pm, cfg, params) -> dict:
     return dict(tokens=tokens, wall=wall, steps=steps, decode_s=decode_s)
 
 
+def resident_registers(libs: dict) -> list:
+    """Registers and spills of every resident kernel instance (K1 and K3
+    resident) from the build's -Xptxas -v log: one line each, its template
+    arguments decoded."""
+    pat = re.compile(r"resident_kernelILi(\d)ELb(\d)ELi(\d)ELb(\d)E")
+    out = []
+    for name in ("stem_fused", "stem_persistent"):
+        log = libs[name].with_suffix(".log")
+        entry, spill = None, ""
+        for line in log.read_text().splitlines() if log.exists() else []:
+            if "Compiling entry function" in line:
+                m = pat.search(line)
+                entry = m.groups() if m else None
+            elif entry and "spill" in line:
+                spill = line.strip()
+            elif entry and "Used " in line:
+                match, shared, groups, split = entry
+                regs = line.split("Used ")[1].split(" registers")[0]
+                out.append(f"{name}: {('bsearch', 'bank')[int(match)]},"
+                           f" {('global', 'shared')[int(shared)]} tables,"
+                           f" {groups} groups,"
+                           f" {('one lane', 'G lanes')[int(split)]} a word:"
+                           f" {regs} registers; {spill}")
+                entry = None
+    return out
+
+
+def forced_k1(sf, lib, w, tables, block_b: int):
+    """K1's launch through a measurement build that fixes its lanes a
+    word (build.forced_lanes_library), as the wrapper makes it; counted
+    nowhere."""
+    import torch
+
+    root = torch.empty((w.shape[0], 4), dtype=torch.int32, device=w.device)
+    source = torch.empty((w.shape[0],), dtype=torch.int32, device=w.device)
+    tri, quad, bi = tables
+    err = lib.stem_fused_launch(
+        w.data_ptr(), w.shape[0], tri.data_ptr(), tri.shape[0],
+        quad.data_ptr(), quad.shape[0], bi.data_ptr(), bi.shape[0],
+        root.data_ptr(), source.data_ptr(), block_b, 5,
+        sf.MATCHES.index("bsearch"), int(sf.dict_in_shared(tables,
+                                                            n_groups=5)),
+        torch.cuda.current_stream(w.device).cuda_stream)
+    check(err == 0, f"K1 measurement build: CUDA error {err}")
+    return root, source
+
+
+def forced_grid(lib) -> int:
+    """Blocks the measurement build's last launch took."""
+    import ctypes
+
+    shape = [ctypes.c_int(0) for _ in range(3)]
+    lib.stem_fused_last_shape(*(ctypes.byref(x) for x in shape))
+    return shape[1].value
+
+
 def bound(n_bytes: int, n_ops: int) -> dict:
     t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / PEAK_OPS_S
     return dict(bound_ms=1e3 * max(t_bytes, t_ops),
@@ -1565,6 +1681,28 @@ def resident_probes(sf, w, tables, *, steps) -> int:
     hits = sf._resident_hits(keys, valid, dict(zip(sf.DICT_NAMES, tables)),
                              n_groups=5, match="bsearch")
     return _probes(sf, hits, valid, steps)
+
+
+def search_stats(sf, w, tables) -> str:
+    """How long the resident search chain is on these words: live slots a
+    word, slots searched up to the first hit, and the share of found words
+    whose first hit is their first live slot."""
+    import torch
+
+    keys, valid = sf._candidates(w, 5)
+    hits = sf._resident_hits(keys, valid, dict(zip(sf.DICT_NAMES, tables)),
+                             n_groups=5, match="bsearch")
+    slot = torch.arange(30, device=w.device)
+    found = hits.any(1)
+    first = torch.where(found, hits.to(torch.int8).argmax(1), 30)
+    searched = (valid & (slot[None, :] <= first[:, None])).sum(1)
+    rank0 = ((valid & (slot[None, :] < first[:, None])).sum(1) == 0)[found]
+    live = valid.sum(1)
+    return (f"{float(live.float().mean()):.6f} live slots a word (at most"
+            f" {int(live.max())}), {float(searched.float().mean()):.6f}"
+            f" searched (at most {int(searched.max())}), first hit on the"
+            f" first live slot for {float(rank0.float().mean()):.6f} of"
+            " found words")
 
 
 def streamed_probes(sf, w, tiles) -> int:
@@ -1629,16 +1767,16 @@ def main() -> int:
     print("[card] TF32 off for fp32 matrix products and convolutions")
 
     # ---- 2. build --------------------------------------------------------
-    build_s, libs = build.build_cuda()
+    build_s, libs = build.build_cuda(forced_lanes=FORCED_LANES)
     print(f"[build] {len(libs)} kernel libraries built in {build_s:.1f} s")
     for name, path in libs.items():
         log = path.with_suffix(".log")
         lines = log.read_text().splitlines() if log.exists() else []
         regs = [int(x.split("Used ")[1].split(" registers")[0])
                 for x in lines if "Used " in x and " registers" in x]
-        spills = sorted({x.split("ptxas info    : ")[-1].strip()
-                         for x in lines if "spill" in x
-                         and not x.strip().endswith("0 bytes spill loads")})
+        spills = sorted({x.strip() for x in lines if "spill" in x
+                         and any(int(n) for n in re.findall(
+                             r"(\d+) bytes spill", x))})
         print(f"[build] {name}: {len(regs)} kernel instances,"
               f" {min(regs, default=0)}-{max(regs, default=0)} registers;"
               f" spills: {spills or 'none'}")
@@ -1701,7 +1839,8 @@ def main() -> int:
 
     # ---- 5f. the staged Compare path's kernels ---------------------------
     k6_err = k6_phase(sdp, ops, words)
-    cand = sdp.stem_datapath_cuda(words)[0][:, :30].reshape(-1).contiguous()
+    cand = sdp.stem_datapath_cuda(words[:max(K6_BATCHES)])[0][:, :30].reshape(
+        -1).contiguous()
     placeholder = torch.tensor([-1], dtype=torch.int32, device=dev)
     unpadded = torch.unique(cand)[:1024].contiguous()
     # larger than a block's shared memory: the grown quad table (243,614
@@ -1890,6 +2029,14 @@ def main() -> int:
           f" {tiles.fence_step}th entry, {4 * tiles.fences.numel()} B in"
           " shared memory")
     times = {}
+    # the launch floor: a one-element op on the same stream, same timer
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    floor_fn = lambda: one.add_(1)  # noqa: E731
+    floor_ms = device_ms(floor_fn, 200, call_ms(floor_fn, 200))
+    print(f"[times] launch floor: a one-element torch op takes"
+          f" {floor_ms:.6f} ms on the card (CUDA events, the same timer)")
+    for line in resident_registers(libs):
+        print(f"[times] registers, {line}")
     for b in (SERVE_REQUEST_WORDS, SERVE_WORDS):
         w = torch.from_numpy(serve_words[:b]).to(dev)
         bt = b // BLOCK_B
@@ -1948,6 +2095,11 @@ def main() -> int:
                 grid = wrapper(sf, "persistent_resident_cuda" if name.endswith(
                     "resident") else "persistent_streamed_cuda").last_grid
                 extra = f", {grid} blocks for {bt} descriptors"
+            if name in ("K1", "K3 resident"):
+                fn = wrapper(sf, "stem_fused_cuda" if name == "K1"
+                             else "persistent_resident_cuda")
+                extra = (f", {fn.last_lanes} lanes a word, {fn.last_grid}"
+                         f" blocks for {bt} tiles")
             if name == "K2":
                 extra = (f", {wrapper(sf, 'stem_streamed_cuda').last_grid}"
                          " blocks")
@@ -1970,6 +2122,58 @@ def main() -> int:
         print(f"[times] B={b}: resident probes {res_probes}, streamed probes"
               f" {str_probes}; no single PyTorch call computes these"
               " functions, so library_ms is null")
+        print(f"[times] B={b}, the resident search:"
+              f" {search_stats(sf, w, real_tables)}")
+        # the resident kernels' bank instance (a linear scan of the padded
+        # table a searched slot), and at the serve shape each lane count
+        # the launchers could take, forced (the answers do not change)
+        bank_tables = sf.padded_tables(realistic, match="bank", infix=True)
+        bkern = dict(n_groups=5, match="bank", block_b=BLOCK_B)
+        for name, kernel in (
+                ("K1", lambda: sf.stem_fused_cuda(w, bank_tables, **bkern)),
+                ("K3 resident", lambda: sf.persistent_resident_cuda(
+                    w, bank_tables, res_desc, **bkern))):
+            plain = (sf.stem_fused_plain(w, bank_tables, **bkern)
+                     if name == "K1" else
+                     sf.persistent_resident_plain(w, bank_tables, res_desc,
+                                                  **bkern))
+            check(same(kernel(), plain) == 0,
+                  f"timed shape B={b}: {name} (bank) differs from its plain"
+                  " version")
+            ms = device_ms(kernel, n_k, call_ms(kernel, n_k))
+            times[(name + " bank", b)] = dict(ms=ms)
+            print(f"[times] {name} bank instance B={b}: {ms:.6f} ms on the"
+                  f" card (a {bank_tables[0].numel()}-entry tri table scanned"
+                  " a searched tri slot)")
+
+    # K1 at the serve shape and as the index builds launch it, at the lane
+    # count the rule picks and at each count through measurement builds
+    # that fix it (the answers do not change)
+    for b, block_b in ((SERVE_REQUEST_WORDS, BLOCK_B),
+                       (INDEX_CHUNK, INDEX_BLOCK)):
+        w = torch.from_numpy(serve_words[:b]).to(dev)
+        rkern = dict(n_groups=5, match="bsearch", block_b=block_b)
+        want = sf.stem_fused_plain(w, real_tables, **rkern)
+        n_k = 200 if b == SERVE_REQUEST_WORDS else 50
+        kernel = lambda: sf.stem_fused_cuda(w, real_tables, **rkern)  # noqa
+        check(same(kernel(), want) == 0, f"K1 B={b} block_b={block_b}"
+              " differs from its plain version")
+        ms = device_ms(kernel, n_k, call_ms(kernel, n_k))
+        fn = sf.stem_fused_cuda
+        if b == INDEX_CHUNK:
+            times[("K1", "index chunk")] = dict(ms=ms)
+        row = [f"the rule's {fn.last_lanes} ({fn.last_grid} blocks)"
+               f" {ms:.6f} ms"]
+        for lanes in FORCED_LANES:
+            lib = build.forced_lanes_library(lanes)
+            forced = lambda: forced_k1(sf, lib, w, real_tables,  # noqa
+                                       block_b)
+            check(same(forced(), want) == 0, f"K1 B={b} block_b={block_b}"
+                  f" at {lanes} lanes differs from its plain version")
+            ms = device_ms(forced, n_k, call_ms(forced, n_k))
+            row.append(f"{lanes} ({forced_grid(lib)} blocks) {ms:.6f} ms")
+        print(f"[times] K1 B={b} block_b={block_b} by lanes a word: "
+              + ", ".join(row))
 
     # K4 at a served request's tile and at the 1M-word tile; K5 at an index
     # chunk and at 1M words, with torch.sort of the same keys beside it
@@ -2123,6 +2327,11 @@ def main() -> int:
               f" K4 ran for {k4_busy:.6f} of the wall time"
               f" ({launches['text_frontend_cuda']} launches x its device"
               f" time at a request's tile, over {serve_s:.6f} s)")
+    k1_busy = (k5_launches["stem_fused_cuda"]
+               * times[("K1", "index chunk")]["ms"] * 1e-3 / index_s)
+    print(f"[times] index build: K1 ran for {k1_busy:.6f} of the wall time"
+          f" ({k5_launches['stem_fused_cuda']} launches x its device time at"
+          f" an index chunk, over {index_s:.6f} s)")
     k5_busy = (k5_launches["postings_cuda"]
                * times[("K5", "index chunk")]["ms"] * 1e-3 / index_s)
     print(f"[times] index build: K5 ran for {k5_busy:.6f} of the wall time"

@@ -9,7 +9,8 @@ rebuilds and an unchanged one loads the library already built. Builds
 run under a file lock: parallel test workers or processes build once.
 
 ``host_datapath`` compiles the ``__host__ __device__`` headers (the
-datapath, the streamed fence search, the text front end's per-word rules, both
+datapath, the streamed fence search, the resident kernels' walk and lane
+split, the text front end's per-word rules, both
 postings instances' tile steps and the comparator bank's banks) with
 ``g++`` for the CPU tests; nothing on the port's CPU path uses it.
 """
@@ -149,8 +150,12 @@ def _nvcc() -> str:
     return found
 
 
-def _cuda_spec(name: str) -> _Spec:
-    return _Spec(name, f"{name}.cu", (_nvcc(),) + NVCC_FLAGS, BUILD_DIR)
+def _cuda_spec(name: str, lanes: int = 0) -> _Spec:
+    if not lanes:
+        return _Spec(name, f"{name}.cu", (_nvcc(),) + NVCC_FLAGS, BUILD_DIR)
+    return _Spec(f"{name}_lanes{lanes}", f"{name}.cu",
+                 (_nvcc(),) + NVCC_FLAGS + (f"-DRT_FORCED_LANES={lanes}",),
+                 BUILD_DIR / "forced")
 
 
 def _host_spec() -> _Spec:
@@ -214,27 +219,35 @@ CUDA_LIBRARIES = ("stem_fused", "stem_streamed", "stem_persistent",
                   "dict_match", "flash_attention")
 
 
-def build_cuda() -> tuple[float, dict[str, Path]]:
-    """Build every CUDA library of the port in parallel; -> (seconds,
-    {name: library path}). Zero-cost when all are already built."""
+def build_cuda(forced_lanes: tuple = ()) -> tuple[float, dict[str, Path]]:
+    """Build every CUDA library of the port in parallel, and K1's
+    measurement builds at each of ``forced_lanes`` (see
+    :func:`forced_lanes_library`); -> (seconds, {name: library path}).
+    Zero-cost when all are already built."""
     t0 = time.perf_counter()
-    paths = _build([_cuda_spec(n) for n in CUDA_LIBRARIES])
-    return time.perf_counter() - t0, dict(zip(CUDA_LIBRARIES, paths))
+    specs = [_cuda_spec(n) for n in CUDA_LIBRARIES]
+    specs += [_cuda_spec("stem_fused", g) for g in forced_lanes]
+    paths = _build(specs)
+    return time.perf_counter() - t0, {s.name: p
+                                      for s, p in zip(specs, paths)}
 
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_IP = ctypes.POINTER(_I)
 # C signatures of each library's launch functions
 _SIGNATURES = {
     "stem_fused": {
         "stem_fused_launch": [_P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I,
-                              _I, _I, _P]},
+                              _I, _I, _P],
+        "stem_fused_last_shape": [_IP, _IP, _IP]},
     "stem_streamed": {
         "stem_streamed_launch": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P,
                                  _I, _I, _P, ctypes.POINTER(_I)]},
     "stem_persistent": {
         "persistent_resident_launch": [_P, _I, _P, _I, _P, _I, _P, _I, _P,
                                        _I, _P, _P, _P, _I, _I, _I, _I, _P,
-                                       ctypes.POINTER(_I)],
+                                       _IP],
+        "persistent_resident_last_shape": [_IP, _IP, _IP],
         "persistent_streamed_launch": [_P, _I, _P, _I, _P, _P, _I, _I, _I,
                                        _I, _I, _P, _P, _P, _I, _I, _I, _P,
                                        ctypes.POINTER(_I)]},
@@ -254,12 +267,15 @@ _SIGNATURES = {
 }
 
 
-def _cuda_library(name: str) -> ctypes.CDLL:
+def _cuda_library(name: str, lanes: int = 0) -> ctypes.CDLL:
     """CUDA library ``name`` with its C signatures declared and its error
-    string function as ``error_string``; built on first use."""
-    lib = _LOADED.get(name)
+    string function as ``error_string``; built on first use (a launch
+    only looks it up: no compiler search, no digest)."""
+    key = f"{name}_lanes{lanes}" if lanes else name
+    lib = _LOADED.get(key)
     if lib is None:
-        (path,) = _build([_cuda_spec(name)])
+        spec = _cuda_spec(name, lanes)
+        (path,) = _build([spec])
         lib = ctypes.CDLL(str(path))
         for fn, argtypes in _SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
@@ -267,13 +283,23 @@ def _cuda_library(name: str) -> ctypes.CDLL:
         lib.error_string = getattr(lib, f"{name}_error_string")
         lib.error_string.argtypes = [ctypes.c_int]
         lib.error_string.restype = ctypes.c_char_p
-        _LOADED[name] = lib
+        _LOADED[key] = lib
     return lib
 
 
 def stem_fused_library() -> ctypes.CDLL:
     """K1, the resident megakernel (csrc/stem_fused.cu)."""
     return _cuda_library("stem_fused")
+
+
+def forced_lanes_library(lanes: int) -> ctypes.CDLL:
+    """A measurement build of K1 (csrc/stem_fused.cu with
+    -DRT_FORCED_LANES) whose every launch splits a word across ``lanes``
+    lanes (1, 2, 4 or 8), whatever the launcher's rule picks; for timing
+    the rule's choices at one shape. Nothing in the port loads it."""
+    if lanes not in (1, 2, 4, 8):
+        raise ValueError(f"lanes must be 1, 2, 4 or 8, got {lanes}")
+    return _cuda_library("stem_fused", lanes)
 
 
 def stem_streamed_library() -> ctypes.CDLL:
@@ -322,6 +348,12 @@ def _host_library() -> ctypes.CDLL:
         lib.host_stem_streamed.argtypes = [_P, _I, _P, _P, _I, _I, _I, _I,
                                            _I, _I, _I, _P, _P]
         lib.host_stem_streamed.restype = None
+        lib.host_resident_walk.argtypes = [_LL, _I, _I, _I, _I, _I, _I, _P]
+        lib.host_resident_walk.restype = None
+        lib.host_stem_resident.argtypes = [_P, _I, _P, _I, _P, _I, _P, _I,
+                                           _P, _I, _P, _P, _P, _I, _I, _I,
+                                           _I, _I]
+        lib.host_stem_resident.restype = ctypes.c_int
         lib.host_text_frontend.argtypes = [_P, _LL, _P, _P, _I, _P, _P, _I,
                                            _P]
         lib.host_text_frontend.restype = None
@@ -378,6 +410,58 @@ def host_stem_streamed(words: np.ndarray, stream: np.ndarray,
                            n_groups, match, root.ctypes.data,
                            source.ctypes.data)
     return root, source
+
+
+WALK_FIELDS = ("lanes", "width", "per", "parts", "n_items", "grid",
+               "stride")
+
+
+def host_resident_walk(words: int, n_tiles: int, block_b: int,
+                       capacity: int, *, sms: int, persistent: bool,
+                       lanes: int = 0) -> dict:
+    """The walk a resident launch takes (csrc/stem_resident.cuh), from the
+    g++ build, on a card of ``sms`` SMs: K1's over ``words`` words (one
+    tile, a block an item; ``n_tiles``, ``block_b`` and ``capacity`` are
+    not read) or K3's (``persistent``: ``n_tiles`` tiles of ``block_b``,
+    ``capacity`` resident blocks); ``lanes`` 0 for the launcher's rule ->
+    {lanes, width, per, parts, n_items, grid, stride}."""
+    out = np.zeros(len(WALK_FIELDS), np.int32)
+    _host_library().host_resident_walk(words, n_tiles, block_b, capacity,
+                                       sms, int(persistent), lanes,
+                                       out.ctypes.data)
+    return dict(zip(WALK_FIELDS, (int(v) for v in out)))
+
+
+def host_stem_resident(words: np.ndarray, tables, *, n_groups: int,
+                       match: int, block_b: int, lanes: int, capacity: int,
+                       desc: np.ndarray | None = None):
+    """The g++ build of stem_resident.cuh, run as a resident launch on the
+    card runs it: block by block through the walk, each word's live slots
+    split across ``lanes`` lanes (1, 2, 4 or 8) and the lanes' votes taken
+    in lane order. words int32[n, 16], the padded (tri, quad, bi) tables of
+    ``match`` (0 bsearch, 1 bank) -> (root int32[n, 4], source int32[n],
+    blocks) for K1, or with ``desc`` int32[n_desc, 3] (K3's ring) (root,
+    source, flags int32[n_desc], blocks). Rows no tile covers keep -7."""
+    lib = _host_library()
+    w = _host_words(words)
+    tabs = [np.ascontiguousarray(t, dtype=np.int32).reshape(-1)
+            for t in tables]
+    if lanes not in (1, 2, 4, 8) or capacity < 1 or block_b < 1:
+        raise ValueError(f"lanes={lanes}, capacity={capacity},"
+                         f" block_b={block_b}")
+    n = w.shape[0]
+    root = np.full((n, 4), -7, np.int32)
+    source = np.full((n,), -7, np.int32)
+    ring = None if desc is None else np.ascontiguousarray(desc, np.int32)
+    flags = np.zeros((0 if ring is None else ring.shape[0],), np.int32)
+    blocks = lib.host_stem_resident(
+        w.ctypes.data, n, None if ring is None else ring.ctypes.data,
+        0 if ring is None else ring.shape[0],
+        *(x for t in tabs for x in (t.ctypes.data, t.size)),
+        root.ctypes.data, source.ctypes.data, flags.ctypes.data, block_b,
+        n_groups, match, lanes, capacity)
+    return (root, source, blocks) if ring is None else (root, source, flags,
+                                                        blocks)
 
 
 def host_text_frontend(chars: np.ndarray, starts: np.ndarray,

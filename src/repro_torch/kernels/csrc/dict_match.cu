@@ -187,16 +187,20 @@ __global__ void __launch_bounds__(kMaxThreads)
 dict_match_bsearch_kernel(const int32_t* __restrict__ keys, int n,
                           const int32_t* __restrict__ dict, int rp,
                           uint8_t* __restrict__ out, int tile_keys) {
-  const int32_t* table[3] = {dict, nullptr, nullptr};
-  const int len[3] = {rp, 0, 0};
-  // stage_tables<2> copies tables 0 and 1; table 1 is empty
-  if constexpr (SHARED) rt::stage_tables<2>(table, len);
+  const int32_t* table = dict;
+  if constexpr (SHARED) {            // the table into shared memory
+    extern __shared__ int4 smem4[];
+    int32_t* smem = reinterpret_cast<int32_t*>(smem4);
+    rt::stage_begin(smem, dict, rp);
+    rt::stage_end();
+    table = smem;
+  }
   const int steps = rt::ceil_log2(rp);
   const long long base = (long long)blockIdx.x * tile_keys;
   const int rows = int(min((long long)tile_keys, n - base));
   for (int i = threadIdx.x; i < rows; i += blockDim.x) {
     const int32_t key = __ldg(keys + base + i);
-    out[base + i] = rt::bsearch_hit<SHARED>(table[0], rp, steps, key);
+    out[base + i] = rt::bsearch_hit<SHARED>(table, rp, steps, key);
   }
 }
 

@@ -1,6 +1,7 @@
 // Host build of the kernels' per-word and per-tile headers, for the CPU
 // tests: g++ compiles the same stages 1-4 code (stem_datapath.cuh), the
-// same streamed per-key search (stem_fences.cuh), the same text front-end
+// same streamed per-key search (stem_fences.cuh), the same resident walk,
+// lane split and round vote (stem_resident.cuh), the same text front-end
 // rules (text_frontend.cuh), the same postings steps of both instances
 // (postings.cuh) and the same bank build and probe of the comparator bank
 // (dict_bank.cuh) that the CUDA kernels run, and the tests hold them bit
@@ -18,6 +19,7 @@
 #include "postings.cuh"
 #include "stem_datapath.cuh"
 #include "stem_fences.cuh"
+#include "stem_resident.cuh"
 #include "text_frontend.cuh"
 
 // words int32[n, 16] -> keys int32[n, 30], valid int32[n, 30] (0/1).
@@ -61,6 +63,142 @@ extern "C" void host_stem_streamed(const int32_t* words, int n_words,
     root[4 * size_t(i) + 3] = chosen & 63;
     source[i] = src;
   }
+}
+
+namespace {
+
+// A word's first hit (its slot, -1: none; its key in chosen) as a group
+// of `lanes` lanes finds it on the card: one lane's unrolled walk of the
+// live slots for G = 1, else rounds of each lane's two searches and the
+// group's vote (__ballot_sync) as the lanes' bits in lane order, the
+// winner's key as its lane hands it over (__shfl_sync).
+template <int MATCH, int N_GROUPS>
+int host_group_search(const int32_t keys[rt::kSlots], uint32_t live,
+                      const rt::Tables& t, int lanes, int32_t& chosen) {
+  if (lanes == 1) {
+    return rt::first_live_hit<MATCH, true, N_GROUPS>(keys, live, t, chosen);
+  }
+  uint32_t rest = live;
+  int win = -1;
+  chosen = 0;
+  while (rest != 0 && win < 0) {
+    uint32_t va = 0, vb = 0;
+    int32_t ka[rt::kMaxLanes], kb[rt::kMaxLanes];
+    for (int j = 0; j < lanes; ++j) {
+      bool ha, hb;
+      rt::lane_hits<MATCH, true>(keys, rt::nth_slot(rest, j),
+                                 rt::nth_slot(rest, lanes + j), t, ha, hb,
+                                 ka[j], kb[j]);
+      va |= uint32_t(ha) << j;
+      vb |= uint32_t(hb) << j;
+    }
+    const int p = rt::round_winner(va, vb, lanes);
+    if (p >= 0) {
+      win = rt::nth_slot(rest, p);
+      chosen = p < lanes ? ka[p] : kb[p - lanes];
+    }
+    rest = rt::drop_round(rest, lanes);
+  }
+  return win;
+}
+
+template <int MATCH, int N_GROUPS>
+void host_resident(const int32_t* words, int n_words, const int32_t* desc,
+                   const rt::Tables& t, const rt::Walk& w, int grid,
+                   int32_t* root, int32_t* source, int32_t* flags) {
+  for (int b = 0; b < grid; ++b) {               // the blocks, in turn
+    for (int i = b; i < w.n_items; i += grid) {
+      const rt::Item it = rt::walk_item(w, i);
+      for (int g = 0; g < w.width; ++g) {        // a group of lanes a word
+        const rt::Place p = rt::walk_place(w, g);
+        for (int d = it.d0 + p.ts; p.ts >= 0 && d < it.d0 + it.nd;
+             d += w.stride) {
+          const long long r = rt::tile_word(w, it, p, d, desc, n_words);
+          if (r < 0) continue;
+          int32_t keys[rt::kSlots], chosen;
+          const uint32_t live =
+              rt::word_keys<N_GROUPS>(words + size_t(rt::kMaxLen) * r, keys);
+          const int win = host_group_search<MATCH, N_GROUPS>(
+              keys, live, t, w.lanes, chosen);
+          const int32_t src = win < 0 ? 0 : rt_group_tag(win / rt::kCand);
+          root[4 * r + 0] = (chosen >> 18) & 63;
+          root[4 * r + 1] = (chosen >> 12) & 63;
+          root[4 * r + 2] = (chosen >> 6) & 63;
+          root[4 * r + 3] = chosen & 63;
+          source[r] = src;
+        }
+      }
+      if (desc == nullptr) continue;             // the retire
+      if (w.parts == 1) {
+        for (int k = 0; k < it.nd; ++k) {
+          flags[it.d0 + k] = 1 + desc[3 * (it.d0 + k) + 2];
+        }
+      } else if (flags[it.d0]-- == 1 - w.parts) {
+        flags[it.d0] = 1 + desc[3 * it.d0 + 2];
+      }
+    }
+  }
+}
+
+}  // namespace
+
+// The walk a resident launch takes (stem_resident.cuh): words on a card
+// of `sms` SMs, K1's (its words one tile, a block an item; n_tiles,
+// block_b and capacity not read) or K3's (persistent: n_tiles tiles of
+// block_b, `capacity` resident blocks); lanes 0 for the launcher's rule
+// -> out[7] = lanes, width, per, parts, n_items, grid, stride.
+extern "C" void host_resident_walk(long long words, int n_tiles, int block_b,
+                                   int capacity, int sms, int persistent,
+                                   int lanes, int* out) {
+  if (lanes == 0) lanes = rt::resident_lanes(words, sms);
+  const rt::Walk w =
+      persistent ? rt::resident_walk(n_tiles, block_b, rt::kResidentThreads,
+                                     lanes, capacity, rt::kMaxRounds)
+                 : rt::fused_walk(int(words), lanes);
+  const int grid =
+      persistent && capacity < w.n_items ? capacity : w.n_items;
+  const int v[7] = {w.lanes, w.width, w.per, w.parts, w.n_items, grid,
+                    w.stride};
+  for (int k = 0; k < 7; ++k) out[k] = v[k];
+}
+
+// Both resident kernels' contracts on the host, block by block through
+// the same walk, each word through the same lane split and round vote
+// (stem_fused_launch with desc null, n_tiles, block_b and capacity
+// ignored; else persistent_resident_launch over desc int32[n_tiles, 3],
+// flags zeroed by the caller): `lanes` a word (1, 2, 4 or 8) and
+// `capacity` resident blocks as a launch on the card would take them.
+// Returns the blocks.
+extern "C" int host_stem_resident(const int32_t* words, int n_words,
+                                  const int32_t* desc, int n_tiles,
+                                  const int32_t* tri, int tri_n,
+                                  const int32_t* quad, int quad_n,
+                                  const int32_t* bi, int bi_n, int32_t* root,
+                                  int32_t* source, int32_t* flags,
+                                  int block_b, int n_groups, int match,
+                                  int lanes, int capacity) {
+  if (desc == nullptr && n_words <= 0) return 0;
+  const rt::Walk w =
+      desc == nullptr
+          ? rt::fused_walk(n_words, lanes)
+          : rt::resident_walk(n_tiles, block_b, rt::kResidentThreads, lanes,
+                              capacity, rt::kMaxRounds);
+  const int grid =
+      desc != nullptr && capacity < w.n_items ? capacity : w.n_items;
+  if (match == rt::kMatchBsearch) {
+    const rt::Tables t = rt::make_tables<rt::kMatchBsearch>(
+        tri, tri_n, quad, quad_n, bi, bi_n);
+    (n_groups == 5 ? host_resident<rt::kMatchBsearch, 5>
+                   : host_resident<rt::kMatchBsearch, 2>)(
+        words, n_words, desc, t, w, grid, root, source, flags);
+  } else {
+    const rt::Tables t = rt::make_tables<rt::kMatchBank>(
+        tri, tri_n, quad, quad_n, bi, bi_n);
+    (n_groups == 5 ? host_resident<rt::kMatchBank, 5>
+                   : host_resident<rt::kMatchBank, 2>)(
+        words, n_words, desc, t, w, grid, root, source, flags);
+  }
+  return grid;
 }
 
 // The text front end's contract (text_frontend_launch), on the host, every

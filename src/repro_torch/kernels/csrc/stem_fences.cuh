@@ -28,14 +28,19 @@
 // first with a hit, since the first hit in slot order is the root.
 //
 // A block copies the fence level into shared memory with asynchronous
-// copies and computes its threads' first words (stages 1-4) while they
-// are in flight. Every function but the staging and the word loads is
+// copies (stage_begin, which the resident kernels share) and computes its
+// threads' first words (stages 1-4) while they are in flight. Every
+// function but the launch helpers, the staging and the word loads is
 // __host__ __device__: a g++ build of this header (host_datapath.cpp)
 // runs the same search for the CPU tests.
 #pragma once
 
 #include <stddef.h>
 #include <stdint.h>
+
+#ifdef __CUDACC__
+#include <atomic>
+#endif
 
 #include "stem_datapath.cuh"
 
@@ -246,6 +251,26 @@ RT_HD void search_word(const int32_t keys[kSlots], uint32_t live,
 
 #ifdef __CUDACC__
 
+// Devices whose SM count a process remembers.
+constexpr int kMaxDevices = 64;
+
+// The current device and its SMs, the count looked up once a device (a
+// launcher asks on every launch).
+inline cudaError_t current_sms(int* dev, int* sms) {
+  static std::atomic<int> known[kMaxDevices];
+  cudaError_t e = cudaGetDevice(dev);
+  if (e != cudaSuccess) return e;
+  const bool kept = *dev >= 0 && *dev < kMaxDevices;
+  int n = kept ? known[*dev].load(std::memory_order_relaxed) : 0;
+  if (n == 0) {
+    e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, *dev);
+    if (e != cudaSuccess) return e;
+    if (kept) known[*dev].store(n, std::memory_order_relaxed);
+  }
+  *sms = n;
+  return cudaSuccess;
+}
+
 // Threads a streamed block runs, whatever block_b is (no barrier sits in
 // the search, so blocks need not match word tiles): at most
 // kFenceThreads, at least kMinFenceThreads.
@@ -259,10 +284,7 @@ constexpr int kMinFenceThreads = 256;
 // to hide the search's latency (the fences allow one block an SM).
 inline cudaError_t fence_threads(long long words, int* threads) {
   int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) {
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
+  const cudaError_t e = current_sms(&dev, &sms);
   if (e != cudaSuccess) return e;
   int t = kMinFenceThreads;
   while (t < kFenceThreads && (words + t - 1) / t > sms) t *= 2;
@@ -270,33 +292,43 @@ inline cudaError_t fence_threads(long long words, int* threads) {
   return cudaSuccess;
 }
 
-// Start copying the fence level into dynamic shared memory: every thread
-// issues its 16-byte asynchronous copies (cp.async, all in flight at
-// once, none waited for) and copies its share of the ragged tail; the
-// block can compute meanwhile. fences is 16-byte aligned. Returns the
-// copy, which is ready after stage_fences_end.
-__device__ __forceinline__ const int32_t* stage_fences_begin(
-    const int32_t* __restrict__ fences, int n) {
-  extern __shared__ int4 smem4[];
-  int32_t* smem = reinterpret_cast<int32_t*>(smem4);
+// Start copying n ints from global memory (src 16-byte aligned) to
+// shared memory (dst 16-byte aligned): every thread issues its 16-byte
+// asynchronous copies (cp.async, all in flight at once, none waited for)
+// as one commit group, and copies its share of the ragged tail; the block
+// can compute meanwhile. The copy is ready after stage_end. The fence
+// level here and the resident tables (stem_resident.cuh) are staged by
+// it.
+__device__ __forceinline__ void stage_begin(int32_t* dst,
+                                            const int32_t* __restrict__ src,
+                                            int n) {
   for (int i = threadIdx.x; i < n / 4; i += blockDim.x) {
-    const unsigned dst =
-        static_cast<unsigned>(__cvta_generic_to_shared(smem4 + i));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-                 "l"(fences + 4 * i)
+    const unsigned to =
+        static_cast<unsigned>(__cvta_generic_to_shared(dst + 4 * i));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(to),
+                 "l"(src + 4 * i)
                  : "memory");
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
   for (int i = (n & ~3) + threadIdx.x; i < n; i += blockDim.x) {
-    smem[i] = __ldg(fences + i);
+    dst[i] = __ldg(src + i);
   }
-  return smem;
 }
 
 // Wait for this thread's copies, then for the whole block's.
-__device__ __forceinline__ void stage_fences_end() {
+__device__ __forceinline__ void stage_end() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   __syncthreads();
+}
+
+// Start copying the fence level into dynamic shared memory; returns the
+// copy, which is ready after stage_end.
+__device__ __forceinline__ const int32_t* stage_fences_begin(
+    const int32_t* __restrict__ fences, int n) {
+  extern __shared__ int4 smem4[];
+  int32_t* smem = reinterpret_cast<int32_t*>(smem4);
+  stage_begin(smem, fences, n);
+  return smem;
 }
 
 // Stages 1-4 of word row i (16 ints, four 16-byte loads).

@@ -3,141 +3,31 @@
 // Replaces repro/kernels/stem_fused.py:_fused_kernel (the resident,
 // non-persistent Pallas kernel behind stem_fused_pallas). Per word: the
 // 30 packed candidate keys and validity flags of stem_datapath.cuh, a
-// membership test of each valid key against its group's sorted dictionary
-// (branchless binary search, or a linear comparator-bank scan), and the
-// first hit in slot order unpacked into (root[4], source).
+// membership test of each live key against its group's table (branchless
+// binary search, or a linear comparator-bank scan), and the first hit in
+// slot order unpacked into (root[4], source).
 //
 // What bounds it on an H100: device traffic is small, 64 B of word in and
-// 20 B of (root, source) out, 84 B a word. The work is integer issue and
-// dependent dictionary lookups: up to 30 slots x (ceil(log2 Rp) + 1)
-// probes a word, about 30 x 12 for the realistic 2048-entry tri table,
-// each probe a load whose address depends on the last. So the kernel is
-// bound by integer instructions and shared-memory latency, not bytes.
+// 20 B of (root, source) out, 84 B a word, which is the bound at 1M words
+// (0.026 ms). The work is integer issue (stages 1-4, some 450 operations
+// a word) and dependent table probes, ceil(log2 Rp) + 1 a live slot
+// searched (12 for the realistic 2048-entry tri table). At a 4096-word
+// serve launch the card is nearly idle: what costs is latency, the
+// launch, the staging of the tables and a block's slowest word.
 //
-// What the design does about it:
-//   - block_b words per block (the logical tile), min(block_b, 512)
-//     threads, each striding over the tile's words; the word row read as
-//     four 16-byte loads; the datapath and all 30 keys stay in registers;
-//   - the padded tri/quad/bi tables are copied into dynamic shared memory
-//     once per block, so every probe is a shared-memory load (bank
-//     conflicts are data dependent). Tables larger than the shared-memory
-//     budget are read from global memory through __ldg in the same kernel
-//     (template flag SHARED); outputs do not depend on the path;
-//   - slots are tried in priority order and a word stops at its first
-//     hit, which the priority select would pick anyway, so a word pays
-//     only for the valid slots up to its hit;
-//   - the pad rows of a ragged last block are masked, not computed.
-// The per-word code lives in stem_resident.cuh, shared with the
-// persistent kernel (stem_persistent.cu).
+// What the design does about it (stem_resident.cuh, whose kernel body
+// the persistent kernel's resident variant shares): a word's live slots
+// split across G lanes searched in rounds with a group vote, G picked per
+// launch so that a small launch spreads over the card's SMs (8 lanes a
+// word, 128 blocks, at a 4096-word serve launch); the tables staged into
+// shared memory with cp.async while each thread's word goes through
+// stages 1-4; the words one tile (block_b only groups them), a block a
+// pass of 256 / G words with no walk arithmetic and no loop, which keeps
+// a one-lane word at 40 registers (6 blocks an SM) for large launches.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "stem_resident.cuh"
-
-namespace {
-
-using rt::kMatchBank;
-using rt::kMatchBsearch;
-using rt::kMaxThreads;
-
-// One word of the tile: stages 1-5 and the store.
-template <int MATCH, bool SHARED, int N_GROUPS>
-__device__ __forceinline__ void fused_word(const int4* __restrict__ words,
-                                           int n_words, int i,
-                                           const int32_t* const dict[3],
-                                           const int len[3],
-                                           int4* __restrict__ root,
-                                           int32_t* __restrict__ source) {
-  int32_t word[rt::kMaxLen];
-  rt::load_word(words, i, n_words, word);
-  int steps[3];
-  rt::table_steps<MATCH, N_GROUPS>(len, steps);
-  int32_t chosen, src;
-  rt::resident_word<MATCH, SHARED, N_GROUPS>(word, dict, len, steps, chosen,
-                                             src);
-  rt::store_root(root, source, i, chosen, src);
-}
-
-// WIDE: block_b exceeds the block's threads, which stride over the tile.
-// Otherwise each thread has at most one word. The two are separate
-// instances: the strided loop raises the register count (40 -> 64 for the
-// bsearch, 5-group instances), which costs occupancy on narrow tiles.
-template <int MATCH, bool SHARED, int N_GROUPS, bool WIDE>
-__global__ void __launch_bounds__(kMaxThreads)
-stem_fused_kernel(const int4* __restrict__ words, int n_words,
-                  const int32_t* __restrict__ tri, int tri_n,
-                  const int32_t* __restrict__ quad, int quad_n,
-                  const int32_t* __restrict__ bi, int bi_n,
-                  int4* __restrict__ root, int32_t* __restrict__ source,
-                  int block_b) {
-  const int32_t* dict[3] = {tri, quad, bi};
-  const int len[3] = {tri_n, quad_n, bi_n};
-  if constexpr (SHARED) rt::stage_tables<N_GROUPS>(dict, len);
-
-  if constexpr (WIDE) {
-    // the grid covers n_words, so base < n_words and every index fits
-    const int base = blockIdx.x * block_b;
-    const int rows = min(block_b, n_words - base);
-    for (int w = threadIdx.x; w < rows; w += blockDim.x) {
-      fused_word<MATCH, SHARED, N_GROUPS>(words, n_words, base + w, dict, len,
-                                          root, source);
-    }
-  } else {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n_words) return;
-    fused_word<MATCH, SHARED, N_GROUPS>(words, n_words, i, dict, len, root,
-                                        source);
-  }
-}
-
-struct Args {
-  const int4* words;
-  int n_words;
-  const int32_t* tri;
-  int tri_n;
-  const int32_t* quad;
-  int quad_n;
-  const int32_t* bi;
-  int bi_n;
-  int4* root;
-  int32_t* source;
-  int block_b;
-  cudaStream_t stream;
-};
-
-template <int MATCH, bool SHARED, int N_GROUPS, bool WIDE>
-int launch(const Args& a) {
-  auto kernel = stem_fused_kernel<MATCH, SHARED, N_GROUPS, WIDE>;
-  const size_t smem =
-      rt::resident_smem_bytes<SHARED, N_GROUPS>(a.tri_n, a.quad_n, a.bi_n);
-  const cudaError_t e = rt::allow_smem(kernel, smem);
-  if (e != cudaSuccess) return int(e);
-  const unsigned grid = unsigned((a.n_words + a.block_b - 1) / a.block_b);
-  kernel<<<grid, rt::block_threads(a.block_b), smem, a.stream>>>(
-      a.words, a.n_words, a.tri, a.tri_n, a.quad, a.quad_n, a.bi, a.bi_n,
-      a.root, a.source, a.block_b);
-  return int(cudaGetLastError());
-}
-
-template <int MATCH, bool SHARED, int N_GROUPS>
-int launch_width(const Args& a) {
-  return a.block_b > kMaxThreads ? launch<MATCH, SHARED, N_GROUPS, true>(a)
-                                 : launch<MATCH, SHARED, N_GROUPS, false>(a);
-}
-
-template <int MATCH, bool SHARED>
-int launch_groups(const Args& a, int n_groups) {
-  return n_groups == 5 ? launch_width<MATCH, SHARED, 5>(a)
-                       : launch_width<MATCH, SHARED, 2>(a);
-}
-
-template <int MATCH>
-int launch_residency(const Args& a, int n_groups, int dict_in_shared) {
-  return dict_in_shared ? launch_groups<MATCH, true>(a, n_groups)
-                        : launch_groups<MATCH, false>(a, n_groups);
-}
-
-}  // namespace
 
 // words int32[n_words, 16], tables int32[*_n] padded (pow2 >= 128 with the
 // sentinel for match 0 = bsearch, a 128 multiple with -2 for match 1 =
@@ -151,26 +41,36 @@ extern "C" int stem_fused_launch(const void* words, int n_words,
                                  int n_groups, int match, int dict_in_shared,
                                  void* stream) {
   if (n_words <= 0) return 0;
-  if (block_b < 1) return int(cudaErrorInvalidValue);
-  if (n_groups != 2 && n_groups != 5) return int(cudaErrorInvalidValue);
-  if (match != kMatchBsearch && match != kMatchBank) {
+  if (rt::bad_resident(block_b, n_groups, match)) {
     return int(cudaErrorInvalidValue);
   }
-  const Args a{static_cast<const int4*>(words),
-               n_words,
-               static_cast<const int32_t*>(tri),
-               tri_n,
-               static_cast<const int32_t*>(quad),
-               quad_n,
-               static_cast<const int32_t*>(bi),
-               bi_n,
-               static_cast<int4*>(root),
-               static_cast<int32_t*>(source),
-               block_b,
-               static_cast<cudaStream_t>(stream)};
-  return match == kMatchBsearch
-             ? launch_residency<kMatchBsearch>(a, n_groups, dict_in_shared)
-             : launch_residency<kMatchBank>(a, n_groups, dict_in_shared);
+  // the words are one tile: block_b only groups them (fused_walk)
+  const rt::ResidentArgs a{static_cast<const int4*>(words),
+                           n_words,
+                           nullptr,
+                           1,
+                           static_cast<const int32_t*>(tri),
+                           tri_n,
+                           static_cast<const int32_t*>(quad),
+                           quad_n,
+                           static_cast<const int32_t*>(bi),
+                           bi_n,
+                           static_cast<int4*>(root),
+                           static_cast<int32_t*>(source),
+                           nullptr,
+                           n_words,
+                           static_cast<cudaStream_t>(stream)};
+  return rt::dispatch_resident<false>(a, n_groups, match, dict_in_shared);
+}
+
+// The lanes a word and blocks the calling thread's last launch took (and
+// 0 for the resident-block capacity, which K1, a block an item, does not
+// ask for).
+extern "C" void stem_fused_last_shape(int* lanes, int* grid, int* capacity) {
+  const rt::LaunchShape& s = rt::last_shape();
+  *lanes = s.lanes;
+  *grid = s.grid;
+  *capacity = s.capacity;
 }
 
 extern "C" const char* stem_fused_error_string(int code) {

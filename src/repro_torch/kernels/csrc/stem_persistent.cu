@@ -18,11 +18,15 @@
 // so a flag that reads set proves its tile's rows.
 //
 // Two variants, as template instances:
-//   - resident: a block runs min(block_b, 512) threads, which stride over
-//     one descriptor's tile; the padded tables are staged into shared
-//     memory once per block per launch (not once per tile, as the
-//     megakernel does), or read from global memory past the shared-memory
-//     budget, by the same dict_in_shared rule as K1 (stem_resident.cuh);
+//   - resident: the megakernel's body (stem_resident.cuh) over the ring,
+//     with a retire after each item: a word's live slots split across G
+//     lanes (G picked per launch), the padded tables staged into shared
+//     memory with cp.async once a resident block (or read from global
+//     memory past the shared-memory budget, by the same dict_in_shared
+//     rule as K1), blocks taking several descriptors a round (one fence
+//     and one barrier a round) or, at G lanes a word, a piece of one: a
+//     256-word tile at the serve shape's G = 8 is 8 pieces on 8 blocks,
+//     and its last piece to arrive writes its flag;
 //   - streamed: the fence level of the tile stream is staged into shared
 //     memory once per block per launch, and every live key is searched
 //     from it, as K2 does (stem_fences.cuh). A block runs 256, 512 or
@@ -48,51 +52,6 @@ namespace {
 using rt::kFenceThreads;
 using rt::kMatchBank;
 using rt::kMatchBsearch;
-using rt::kMaxThreads;
-
-// Descriptors d0 .. d0 + nd - 1 are done: every thread's output writes are
-// fenced device-wide before the barrier, then the threads store the flags.
-__device__ __forceinline__ void retire(const int32_t* __restrict__ desc,
-                                       int d0, int nd, int32_t* flags) {
-  __threadfence();
-  __syncthreads();
-  for (int k = threadIdx.x; k < nd; k += blockDim.x) {
-    const int32_t done = 1 + __ldg(desc + 3 * (d0 + k) + 2);
-    *reinterpret_cast<volatile int32_t*>(flags + d0 + k) = done;
-  }
-}
-
-template <int MATCH, bool SHARED, int N_GROUPS>
-__global__ void __launch_bounds__(kMaxThreads)
-persistent_resident_kernel(const int4* __restrict__ words, int n_words,
-                           const int32_t* __restrict__ desc, int n_desc,
-                           const int32_t* __restrict__ tri, int tri_n,
-                           const int32_t* __restrict__ quad, int quad_n,
-                           const int32_t* __restrict__ bi, int bi_n,
-                           int4* __restrict__ root,
-                           int32_t* __restrict__ source, int32_t* flags,
-                           int block_b) {
-  const int32_t* dict[3] = {tri, quad, bi};
-  const int len[3] = {tri_n, quad_n, bi_n};
-  if constexpr (SHARED) rt::stage_tables<N_GROUPS>(dict, len);
-  int steps[3];
-  rt::table_steps<MATCH, N_GROUPS>(len, steps);
-
-  for (int d = blockIdx.x; d < n_desc; d += gridDim.x) {
-    const long long tile0 = __ldg(desc + 3 * d);
-    for (int w = threadIdx.x; w < block_b; w += blockDim.x) {
-      const long long i = tile0 + w;
-      if (i >= n_words) break;
-      int32_t word[rt::kMaxLen];
-      rt::load_word(words, i, n_words, word);
-      int32_t chosen, src;
-      rt::resident_word<MATCH, SHARED, N_GROUPS>(word, dict, len, steps,
-                                                 chosen, src);
-      rt::store_root(root, source, i, chosen, src);
-    }
-    retire(desc, d, 1, flags);
-  }
-}
 
 template <int MATCH, int N_GROUPS>
 __global__ void __launch_bounds__(kFenceThreads)
@@ -120,7 +79,7 @@ persistent_streamed_kernel(const int4* __restrict__ words, int n_words,
     ready = row(first_d0, threadIdx.x);
     if (ready >= 0) live = rt::load_word_keys<N_GROUPS>(words, ready, keys);
   }
-  rt::stage_fences_end();
+  rt::stage_end();
   for (int d0 = first_d0; d0 < n_desc; d0 += gridDim.x * per) {
     const int nd = min(per, n_desc - d0);
     for (int w = threadIdx.x; w < nd * block_b; w += blockDim.x) {
@@ -133,61 +92,9 @@ persistent_streamed_kernel(const int4* __restrict__ words, int n_words,
                                        src);
       rt::store_root(root, source, i, chosen, src);
     }
-    retire(desc, d0, nd, flags);
+    rt::retire(desc, d0, nd, 1, flags);
   }
 }
-
-struct ResidentArgs {
-  const int4* words;
-  int n_words;
-  const int32_t* desc;
-  int n_desc;
-  const int32_t* tri;
-  int tri_n;
-  const int32_t* quad;
-  int quad_n;
-  const int32_t* bi;
-  int bi_n;
-  int4* root;
-  int32_t* source;
-  int32_t* flags;
-  int block_b;
-  cudaStream_t stream;
-  int* grid_out;
-};
-
-template <int MATCH, bool SHARED, int N_GROUPS>
-int launch_resident(const ResidentArgs& a) {
-  auto kernel = persistent_resident_kernel<MATCH, SHARED, N_GROUPS>;
-  const size_t smem =
-      rt::resident_smem_bytes<SHARED, N_GROUPS>(a.tri_n, a.quad_n, a.bi_n);
-  const int threads = rt::block_threads(a.block_b);
-  cudaError_t e = rt::allow_smem(kernel, smem);
-  int grid = 0;
-  if (e == cudaSuccess) {
-    e = rt::resident_grid(kernel, threads, smem, a.n_desc, &grid);
-  }
-  if (e != cudaSuccess) return int(e);
-  if (a.grid_out) *a.grid_out = grid;
-  kernel<<<grid, threads, smem, a.stream>>>(
-      a.words, a.n_words, a.desc, a.n_desc, a.tri, a.tri_n, a.quad, a.quad_n,
-      a.bi, a.bi_n, a.root, a.source, a.flags, a.block_b);
-  return int(cudaGetLastError());
-}
-
-template <int MATCH, bool SHARED>
-int resident_groups(const ResidentArgs& a, int n_groups) {
-  return n_groups == 5 ? launch_resident<MATCH, SHARED, 5>(a)
-                       : launch_resident<MATCH, SHARED, 2>(a);
-}
-
-template <int MATCH>
-int resident_residency(const ResidentArgs& a, int n_groups, int shared) {
-  return shared ? resident_groups<MATCH, true>(a, n_groups)
-                : resident_groups<MATCH, false>(a, n_groups);
-}
-
-constexpr int kMaxRounds = 4;
 
 struct StreamedArgs {
   const int4* words;
@@ -224,8 +131,9 @@ int launch_streamed(const StreamedArgs& a) {
   // waits for its slowest word, so fewer, longer rounds lose less.
   const int base = a.block_b < threads ? threads / a.block_b : 1;
   const int rounds = (a.n_desc + base - 1) / base / capacity;
-  const int per = base * (rounds < 1 ? 1 : rounds > kMaxRounds ? kMaxRounds
-                                                                : rounds);
+  const int per =
+      base * (rounds < 1 ? 1 : rounds > rt::kMaxRounds ? rt::kMaxRounds
+                                                       : rounds);
   const int need = (a.n_desc + per - 1) / per;
   const int grid = capacity < need ? capacity : need;
   if (a.grid_out) *a.grid_out = grid;
@@ -242,9 +150,7 @@ int streamed_groups(const StreamedArgs& a, int n_groups) {
 }
 
 bool bad_common(int n_desc, int block_b, int n_groups, int match) {
-  return n_desc < 0 || block_b < 1 ||
-         (n_groups != 2 && n_groups != 5) ||
-         (match != kMatchBsearch && match != kMatchBank);
+  return n_desc < 0 || rt::bad_resident(block_b, n_groups, match);
 }
 
 }  // namespace
@@ -253,7 +159,8 @@ bool bad_common(int n_desc, int block_b, int n_groups, int match) {
 // n_visits, version slot); tables as for stem_fused_launch -> root
 // int32[n_words, 4], source int32[n_words] (rows of the descriptors' tiles
 // below n_words), flags int32[n_desc] (1 + version slot once descriptor d
-// has retired; the caller zeroes it). words and the tables 16-byte
+// has retired; the caller zeroes it; a descriptor cut into pieces counts
+// them below 0 until its last retires). words and the tables 16-byte
 // aligned. *grid_out (if not null) gets the number of blocks launched.
 // Launches on `stream` and returns the CUDA error code (0 on success).
 extern "C" int persistent_resident_launch(
@@ -266,25 +173,35 @@ extern "C" int persistent_resident_launch(
     return int(cudaErrorInvalidValue);
   }
   if (n_desc == 0) return 0;
-  const ResidentArgs a{static_cast<const int4*>(words),
-                       n_words,
-                       static_cast<const int32_t*>(desc),
-                       n_desc,
-                       static_cast<const int32_t*>(tri),
-                       tri_n,
-                       static_cast<const int32_t*>(quad),
-                       quad_n,
-                       static_cast<const int32_t*>(bi),
-                       bi_n,
-                       static_cast<int4*>(root),
-                       static_cast<int32_t*>(source),
-                       static_cast<int32_t*>(flags),
-                       block_b,
-                       static_cast<cudaStream_t>(stream),
-                       grid_out};
-  return match == kMatchBsearch
-             ? resident_residency<kMatchBsearch>(a, n_groups, dict_in_shared)
-             : resident_residency<kMatchBank>(a, n_groups, dict_in_shared);
+  const rt::ResidentArgs a{static_cast<const int4*>(words),
+                           n_words,
+                           static_cast<const int32_t*>(desc),
+                           n_desc,
+                           static_cast<const int32_t*>(tri),
+                           tri_n,
+                           static_cast<const int32_t*>(quad),
+                           quad_n,
+                           static_cast<const int32_t*>(bi),
+                           bi_n,
+                           static_cast<int4*>(root),
+                           static_cast<int32_t*>(source),
+                           static_cast<int32_t*>(flags),
+                           block_b,
+                           static_cast<cudaStream_t>(stream)};
+  const int e = rt::dispatch_resident<true>(a, n_groups, match,
+                                            dict_in_shared);
+  if (e == 0 && grid_out) *grid_out = rt::last_shape().grid;
+  return e;
+}
+
+// The lanes a word, blocks and resident-block capacity the calling
+// thread's last persistent_resident_launch took.
+extern "C" void persistent_resident_last_shape(int* lanes, int* grid,
+                                               int* capacity) {
+  const rt::LaunchShape& s = rt::last_shape();
+  *lanes = s.lanes;
+  *grid = s.grid;
+  *capacity = s.capacity;
 }
 
 // As persistent_resident_launch, with the dictionary as the DictTileSet

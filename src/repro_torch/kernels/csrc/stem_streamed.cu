@@ -52,7 +52,7 @@ stem_streamed_kernel(const int4* __restrict__ words, int n_words,
   int32_t keys[rt::kSlots];
   uint32_t live = 0;
   if (i < n_words) live = rt::load_word_keys<N_GROUPS>(words, i, keys);
-  rt::stage_fences_end();
+  rt::stage_end();
   for (; i < n_words; i += stride) {
     int32_t chosen, src;
     rt::search_word<MATCH, N_GROUPS>(keys, live, f, stream, l, chosen, src);

@@ -43,9 +43,12 @@ version. Streamed launches are chunked along the batch axis as the
 reference chunks its scalar-prefetch table (at most ``visit_budget`` /
 n_tiles batch tiles a launch), so both make the same number of launches.
 ``block_b`` is the logical tile (checksum tiles, descriptor rows), not the
-thread count: the kernels run at most 512 threads a block (1024 for the
-streamed ones), which stride over the tile, so every ``block_b >= 1``
-runs on the card as on the CPU.
+thread count, so every ``block_b >= 1`` runs on the card as on the CPU.
+The resident kernels (K1, K3 resident) run 256 threads a block and split
+each word's live slots across G lanes, G in {1, 2, 4, 8} picked per
+launch by the rule in ``csrc/stem_resident.cuh`` (which
+``build.host_resident_walk`` runs on the host); the streamed ones run 256
+to 1024 threads a block, one word a thread.
 """
 from __future__ import annotations
 
@@ -519,6 +522,17 @@ def dict_in_shared(tables, *, n_groups: int) -> bool:
         <= SMEM_BLOCK_BYTES
 
 
+def _record_shape(wrapper, lib, fn: str) -> None:
+    """The lanes a word, blocks and resident-block capacity the wrapper's
+    last launch took, as ``last_lanes``, ``last_grid``, ``last_capacity``."""
+    lanes, grid, cap = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    getattr(lib, fn)(ctypes.byref(lanes), ctypes.byref(grid),
+                     ctypes.byref(cap))
+    wrapper.last_lanes = lanes.value
+    wrapper.last_grid = grid.value
+    wrapper.last_capacity = cap.value
+
+
 def _check_cuda(name: str, t: torch.Tensor, ndim: int, dev: torch.device,
                 align: int = 16):
     if t.device.type != "cuda":
@@ -590,7 +604,10 @@ def stem_fused_cuda(words, tables, *, n_groups: int, match: str,
                     block_b: int):
     """Launch K1 (``csrc/stem_fused.cu``) on the current stream: same
     contract as :func:`stem_fused_plain`, for CUDA tensors. Adds one to
-    ``stem_fused_cuda.launches`` per launch."""
+    ``stem_fused_cuda.launches`` per launch and records the lanes a word,
+    blocks and resident-block capacity it took (the header's rule and
+    walk, which ``build.host_resident_walk`` runs on the host) in
+    ``last_lanes``, ``last_grid`` and ``last_capacity``."""
     from repro_torch.kernels import build  # lazy: builds at first launch
 
     dev = _check_words(words, block_b)
@@ -612,6 +629,7 @@ def stem_fused_cuda(words, tables, *, n_groups: int, match: str,
             MATCHES.index(match), int(shared), _cuda_stream(dev))
     _raise_on(err, lib, "stem_fused")
     stem_fused_cuda.launches += 1
+    _record_shape(stem_fused_cuda, lib, "stem_fused_last_shape")
     return root, source
 
 
@@ -656,7 +674,9 @@ def persistent_resident_cuda(words, tables, desc, *, n_groups: int,
     """Launch K3's resident variant (``csrc/stem_persistent.cu``): same
     contract as :func:`persistent_resident_plain`, for CUDA tensors. Adds
     one to ``persistent_resident_cuda.launches`` per launch and records
-    the blocks it launched in ``last_grid``."""
+    the lanes a word, blocks and resident-block capacity it took
+    (``build.host_resident_walk`` gives them on the host) in
+    ``last_lanes``, ``last_grid`` and ``last_capacity``."""
     from repro_torch.kernels import build
 
     dev = _check_words(words, block_b)
@@ -683,7 +703,8 @@ def persistent_resident_cuda(words, tables, desc, *, n_groups: int,
             int(shared), _cuda_stream(dev), ctypes.byref(grid))
     _raise_on(err, lib, "persistent_resident")
     persistent_resident_cuda.launches += 1
-    persistent_resident_cuda.last_grid = grid.value
+    _record_shape(persistent_resident_cuda, lib,
+                  "persistent_resident_last_shape")
     return root, source, flags
 
 

@@ -17,7 +17,9 @@ from repro.core import stemmer as rstemmer  # noqa: E402
 from repro.kernels import ops as rops  # noqa: E402
 from repro.kernels import stem_fused as rsf  # noqa: E402
 from repro_torch import serve as tserve  # noqa: E402
+from repro_torch.core import corpus as tcorpus  # noqa: E402
 from repro_torch.core import stemmer as tstemmer  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import stem_fused as tsf  # noqa: E402
 from repro_torch.kernels import stem_match as tsm  # noqa: E402
@@ -309,6 +311,11 @@ def test_streamed_store_prebuilds_and_validates_tiles(dicts):
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
+# ring sizes (words) at which K3 resident's rule picks each of 8, 4, 2 and
+# 1 lanes a word on an H100's 132 SMs
+LANE_SIZES = (4096, 8192, 16384, 65536)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("match", ["bsearch", "bank"])
 @pytest.mark.parametrize("infix", [True, False])
@@ -321,6 +328,10 @@ def test_persistent_kernels_match_plain_on_card(dicts, enc, infix, match):
     n_groups = 5 if infix else 2
     tables = tsf.padded_tables(arrays, match=match, infix=infix)
     zeros = torch.zeros(5, dtype=torch.int32, device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    big = torch.from_numpy(next(tcorpus.stream_corpus_words(
+        max(LANE_SIZES), seed=4, chunk_words=max(LANE_SIZES))).words).cuda()
+    seen = set()
     for version_slot in (0, 5):
         desc = tsf._descriptors(5, 64, zeros, version_slot)
         kern = dict(n_groups=n_groups, match=match, block_b=64)
@@ -328,6 +339,28 @@ def test_persistent_kernels_match_plain_on_card(dicts, enc, infix, match):
         want = tsf.persistent_resident_plain(w, tables, desc, **kern)
         torch.cuda.synchronize()
         assert all(torch.equal(g, x) for g, x in zip(got, want))
+        # rings whose sizes reach every G the launcher picks, whole tiles
+        # and tiles in pieces; lanes and blocks as the g++ build of the
+        # rule and walk gives them for this card
+        for ww in (big[:n] for n in LANE_SIZES):
+            for block_b in (64, 256, 2048):
+                bt = -(-ww.shape[0] // block_b)
+                desc = tsf._descriptors(
+                    bt, block_b, torch.zeros(bt, dtype=torch.int32,
+                                             device="cuda"), version_slot)
+                kern = dict(n_groups=n_groups, match=match, block_b=block_b)
+                want = tsf.persistent_resident_plain(ww, tables, desc, **kern)
+                got = tsf.persistent_resident_cuda(ww, tables, desc, **kern)
+                torch.cuda.synchronize()
+                assert all(torch.equal(a, x) for a, x in zip(got, want))
+                assert (got[2] == 1 + version_slot).all()
+                fn = tsf.persistent_resident_cuda
+                walk = build.host_resident_walk(
+                    bt * block_b, bt, block_b, fn.last_capacity, sms=sms,
+                    persistent=True)
+                assert (fn.last_lanes, fn.last_grid) == (walk["lanes"],
+                                                         walk["grid"])
+                seen.add(walk["lanes"])
         for dict_block_r, budget in ((2, tsm.FENCE_BUDGET_BYTES), (2, 256),
                                      (16, tsm.FENCE_BUDGET_BYTES)):
             tiles = tsm.build_dict_tiles(arrays.tri, arrays.quad, arrays.bi,
@@ -343,3 +376,4 @@ def test_persistent_kernels_match_plain_on_card(dicts, enc, infix, match):
                 torch.cuda.synchronize()
                 assert all(torch.equal(g, x) for g, x in zip(got, want))
                 assert (got[2] == 1 + version_slot).all()
+    assert seen == {1, 2, 4, 8}

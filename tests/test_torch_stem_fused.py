@@ -214,6 +214,11 @@ def test_cuda_wrapper_refuses_cpu_tensors(dicts, words):
                             match="bsearch", block_b=128)
 
 
+# launch sizes (words) at which the resident kernels' rule picks each of
+# 8, 4, 2 and 1 lanes a word on an H100's 132 SMs
+LANE_SIZES = (4096, 8192, 16384, 65536)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("match", ["bsearch", "bank"])
 @pytest.mark.parametrize("infix", [True, False])
@@ -221,15 +226,31 @@ def test_kernel_matches_plain_on_card(dicts, words, infix, match):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     _, tda = dicts
-    w = torch.from_numpy(words).cuda()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    big = next(tcorpus.stream_corpus_words(max(LANE_SIZES), seed=4,
+                                           chunk_words=max(LANE_SIZES)))
     n_groups = 5 if infix else 2
+    seen = set()
     for arrays in (tda.to("cuda"),
                    tcorpus.grow_root_arrays(tda.to("cuda"), 60_000)):
         tables = tsf.padded_tables(arrays, match=match, infix=infix)
-        for block_b in (64, 256, 512):
-            r, s = tsf.stem_fused_cuda(w, tables, n_groups=n_groups,
-                                       match=match, block_b=block_b)
-            torch.cuda.synchronize()
+        # the fixture's rows and launches whose sizes reach every G the
+        # launcher picks; lanes and blocks as the g++ build of the rule
+        # and walk gives them for this card
+        for w_np in (words, *(big.words[:n] for n in LANE_SIZES)):
+            w = torch.from_numpy(w_np).cuda()
+            n = w.shape[0]
             want_r, want_s = tsf.stem_fused_plain(
-                w, tables, n_groups=n_groups, match=match, block_b=block_b)
-            assert torch.equal(r, want_r) and torch.equal(s, want_s)
+                w, tables, n_groups=n_groups, match=match, block_b=256)
+            for block_b in (64, 256, 512, 2048):
+                r, s = tsf.stem_fused_cuda(w, tables, n_groups=n_groups,
+                                           match=match, block_b=block_b)
+                torch.cuda.synchronize()
+                assert torch.equal(r, want_r) and torch.equal(s, want_s)
+                walk = build.host_resident_walk(n, 1, n, 1, sms=sms,
+                                                persistent=False)
+                assert (tsf.stem_fused_cuda.last_lanes,
+                        tsf.stem_fused_cuda.last_grid) == (walk["lanes"],
+                                                           walk["grid"])
+                seen.add(walk["lanes"])
+    assert seen == {1, 2, 4, 8}
