@@ -42,9 +42,13 @@ def child(tree: Path, block_b: int) -> None:
     import torch
 
     from repro_torch.core import corpus, stemmer
+    from repro_torch.core import textnorm as tn
     from repro_torch.kernels import build
+    from repro_torch.kernels import stem_datapath as sdp
     from repro_torch.kernels import stem_fused as sf
     from repro_torch.kernels import stem_match as sm
+    from repro_torch.kernels import text_frontend as tf
+    from repro_torch.launch.serve import build_documents
 
     check_root = Path(sf.__file__).resolve().parents[3]
     cs.check(check_root == tree, f"imported {check_root}, not {tree}")
@@ -108,6 +112,47 @@ def child(tree: Path, block_b: int) -> None:
     out[key] = cs.device_ms(fn, 100, cs.call_ms(fn, 100))
     out["K1 lanes, index chunk"] = getattr(sf.stem_fused_cuda, "last_lanes",
                                             None)
+    # K4 at a served request's tile and at the 1M-word tile (the same
+    # contract in every checkout that has K4)
+    table = corpus.build_token_table()
+    big = tn.coalesce_docs([d for _, ds in corpus.stream_corpus_docs(
+        cs.INDEX_WORDS, seed=0, chunk_words=cs.INDEX_CHUNK,
+        words_per_doc=cs.INDEX_WORDS_PER_DOC, table=table) for d in ds])[0]
+    req = cs.request_tile(tn, build_documents(
+        cs.TEXT_REQUESTS * cs.TEXT_DOCS_PER_REQUEST,
+        cs.TEXT_WORDS_PER_DOC)[:cs.TEXT_DOCS_PER_REQUEST])
+    for label, chars in (("request tile", req), ("1M-word tile", big)):
+        tile = torch.from_numpy(chars).to(dev)
+        geo = tn.segment_geometry(tile, block_w=128)
+        fn = lambda: tf.text_frontend_cuda(tile, geo.starts,  # noqa: E731
+                                           geo.lens)
+        n = 200 if label == "request tile" else 20
+        out[f"K4 {label} B={int(geo.n_words)}"] = cs.device_ms(
+            fn, n, cs.call_ms(fn, n))
+    # K8 on the tri group's keys (6 a word) against the realistic tri
+    # table, and one call at 4096 words split by the profiler
+    for b in SIZES:
+        k = sdp.stem_datapath_cuda(words[:b])[0][:, :6].reshape(-1) \
+            .contiguous()
+        fn = lambda: sm.dict_match_bsearch_cuda(k, realistic.tri)  # noqa
+        n = 200 if b == min(SIZES) else 20
+        out[f"K8 B={k.shape[0]}"] = cs.device_ms(fn, n, cs.call_ms(fn, n))
+    from torch.profiler import ProfilerActivity, profile
+
+    k = sdp.stem_datapath_cuda(words[:min(SIZES)])[0][:, :6].reshape(-1) \
+        .contiguous()
+    calls = 50
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            sm.dict_match_bsearch_cuda(k, realistic.tri)
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            split[e.name] = (split.get(e.name, 0.0)
+                             + e.device_time_total / 1e3)
+    out["K8 profile, ms a call"] = {name: t / calls
+                                    for name, t in split.items()}
     print(json.dumps(out))
 
 
@@ -140,13 +185,15 @@ def main() -> int:
         row["label"] = label
         results.append(row)
         print(f"[ab] {label} ({tree}): {json.dumps(row)}")
-    keys = [k for k in results[0] if "B=" in k and "lanes" not in k]
+    keys = [k for k in results[0] if "B=" in k and "lanes" not in k
+            and k in results[1]]
     print(f"[ab] ms on the card at block_b={args.block_b}"
           " (other, this, this, other):")
     for k in keys:
         print(f"[ab] {k}: " + ", ".join(f"{r[k]:.6f}" for r in results))
-    for k in (k for k in results[1] if "lanes" in k):
-        print(f"[ab] {k}: " + ", ".join(str(r.get(k)) for r in results))
+    for k in (k for k in results[1] if "lanes" in k or "profile" in k):
+        print(f"[ab] {k}: " + ", ".join(json.dumps(r.get(k))
+                                         for r in results))
     print(cs.card_line())
     return 0
 

@@ -41,12 +41,17 @@ realistic size. Phases:
                through visit-budget chunks on the three streamed
                dictionaries
   5b. K4       the text front end against its plain version, identical
-               rows: documents with every clitic, function word, mark and
-               letter variant, over-long words, empty and punctuation-only
-               documents, at block_w {128, 256, 1024, 2048}; a
-               one-codepoint tile; an index chunk's tile at the index
-               path's block_w 2048; a ~7M-codepoint tile of 1,048,576
-               words, whose rows equal the word stream's
+               rows, by the launcher's rule (its lanes a word checked
+               against the g++ build of the rule, build.host_text_lanes)
+               and at every lane count G (1, 8) through the
+               measurement builds that fix it: documents with every
+               clitic, function word, mark and letter variant, over-long
+               words, empty and punctuation-only documents, at block_w
+               {128, 256, 1024, 2048} (their rows equal the host front
+               end's); a one-codepoint tile; an index chunk's tile at the
+               index path's block_w 2048; a ~7M-codepoint tile of
+               1,048,576 words, whose rows equal the word stream's; every
+               rule's lane count reached
   5c. K5       both postings instances against the plain version,
                identical hist and rank, each launch's instance read from
                its counter: the counting one at block_w {8, 128, 1024,
@@ -66,8 +71,12 @@ realistic size. Phases:
                share one bank, with the padding-hit keys -2, -1 and the
                sentinel and keys in the one bank; each table's largest
                bank and compares a key; K8 (the sorted search) on the
-               realistic tables (shared memory), a 32,768-entry table and
-               the 262,144-key grown dictionary's tables (global memory)
+               realistic tables, a 32,768-entry table and the 262,144-key
+               grown dictionary's tri table (the shared instance) and its
+               quad table (the global one), each launch's instance read
+               from its counter, the sentinel hitting exactly where the
+               table was padded, keys also at a 4-byte offset and in a
+               count that is not a multiple of 4
   5g. staged   1,048,576 words through stem_batch(backend="pallas") (5 K7
                launches), ops.extract_roots_multilaunch (1 K6 + 5 K7) and
                extract_roots(backend="fused", extended=True) (7 K8), each
@@ -128,20 +137,24 @@ realistic size. Phases:
                prefill-by-decode checked in bf16 and fp32 on the same
                weights cut to 2 layers, reported at all 32
   9. times     the launch floor (a one-element torch op, same timer);
-               the resident kernels' registers and spills per instance
-               (the build's -Xptxas -v log); each kernel's device time with
+               the registers and spills of every instance of the resident
+               kernels, K4 and K7/K8 (the build's -Xptxas -v log); each
+               kernel's device time with
                CUDA events at 4096 and
                1,048,576 words (K1 and K3 resident with their lanes a word
                and blocks, their bank instance too; K1 at 4096 words and at
                an index chunk, 131,072 words at block_b 2048, at each lane
                count through measurement builds that fix it; K4: a served
-               request's tile and the
-               1,048,576-word tile; K5: an index chunk of 131,072 words and
+               request's tile and the 1,048,576-word tile, by the rule and
+               at each lane count through its measurement builds; K5: an
+               index chunk of 131,072 words and
                1,048,576 words (counting), an index chunk of the 262,144-key
                vocabulary (bitonic), with torch.sort of the same keys
                beside each; K7 and K8: the tri group's 6 keys a word, with
                torch.isin of the same keys beside them, K7 with its
-               banks' compares), its wall time per
+               banks' compares; K8 also on the 262,144-key dictionary's
+               tri and quad tables at 1,048,576 words, its instance,
+               threads, blocks and tree step printed), its wall time per
                call with the host's share, the plain version's wall time
                per call, the streamed kernels' fence step and bytes, the
                reference's visit pre-pass (which the port no longer runs)
@@ -650,14 +663,18 @@ def k3_phase(sf, sm, ops, resident_dicts, streamed_dicts, words):
     return worst
 
 
-def k4_phase(tf, tn, docs, chunk_tile, big_tile, big_words):
+def k4_phase(tf, tn, build, docs, chunk_tile, big_tile, big_words):
     """The text front end against its plain version on the card, identical
-    rows; the 1M-word tile's rows also equal the word stream's."""
+    rows, by the launcher's rule (its lanes a word the g++ build's) and at
+    every lane count through the measurement builds; the documents' rows
+    also equal the host front end's, the 1M-word tile's the word
+    stream's."""
     import numpy as np
     import torch
 
     t0 = time.perf_counter()
-    worst, cases = 0, 0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    worst, cases, rule_lanes = 0, 0, set()
     chars, _, _ = tn.coalesce_docs(docs)
     n_host = sum(len(tn.tokenize_py(d)) for d in docs)
     tiles = [("documents", torch.from_numpy(chars).to(DEVICE), K4_BLOCK_WS),
@@ -668,16 +685,26 @@ def k4_phase(tf, tn, docs, chunk_tile, big_tile, big_words):
     for name, tile, block_ws in tiles:
         for block_w in block_ws:
             geo = tn.segment_geometry(tile, block_w=block_w)
-            got = tf.text_frontend_cuda(tile, geo.starts, geo.lens,
-                                        block_w=block_w)
-            torch.cuda.synchronize()
+            rows = geo.starts.shape[0]
             want = tf.text_frontend_plain(tile, geo.starts, geo.lens,
                                           block_w=block_w)
-            bad = same((got,), (want,))
-            worst = max(worst, max_err((got,), (want,)))
-            cases += 1
-            check(bad == 0, f"K4 vs plain: {bad} rows differ ({name},"
-                  f" block_w={block_w})")
+            got = tf.text_frontend_cuda(tile, geo.starts, geo.lens,
+                                        block_w=block_w)
+            rule = tf.text_frontend_cuda.last_lanes
+            check(rule == build.host_text_lanes(rows, sms=sms),
+                  f"K4 {name}: {rule} lanes a word, the rule's"
+                  f" {build.host_text_lanes(rows, sms=sms)}")
+            rule_lanes.add(rule)
+            outs = [(f"the rule's {rule}", got)]
+            outs += [(str(g), forced_k4(g, tile, geo.starts, geo.lens,
+                                        block_w)) for g in build.TEXT_LANES]
+            torch.cuda.synchronize()
+            for lanes, out in outs:
+                bad = same((out,), (want,))
+                worst = max(worst, max_err((out,), (want,)))
+                cases += 1
+                check(bad == 0, f"K4 vs plain: {bad} rows differ ({name},"
+                      f" block_w={block_w}, {lanes} lanes a word)")
             n = int(geo.n_words)
             if name == "documents":
                 want_rows = np.concatenate([tn.analyze_text_py(d)[0]
@@ -690,10 +717,14 @@ def k4_phase(tf, tn, docs, chunk_tile, big_tile, big_words):
                     got[:n], big_words), "the 1M-word tile's rows differ"
                     " from the word stream's")
             print(f"[K4] {name}: {tile.shape[0]} codepoints, {n} words,"
-                  f" {geo.starts.shape[0]} rows, block_w={block_w}:"
-                  " identical to the plain version")
-    print(f"[K4] {cases} launches identical to the plain version,"
-          f" max_abs_err {worst} ({time.perf_counter() - t0:.1f} s)")
+                  f" {rows} rows, block_w={block_w}: the rule's {rule} lanes"
+                  f" a word ({tf.text_frontend_cuda.last_grid} blocks) and"
+                  f" G in {build.TEXT_LANES} identical to the plain version")
+    check(rule_lanes == set(build.TEXT_LANES),
+          f"the rule reached only G in {rule_lanes}")
+    print(f"[K4] {cases} launches identical to the plain version (the"
+          f" rule reached G in {sorted(rule_lanes)}), max_abs_err {worst}"
+          f" ({time.perf_counter() - t0:.1f} s)")
     return worst
 
 
@@ -871,36 +902,54 @@ def k7_phase(sm, keys, tables):
     return worst
 
 
-def k8_phase(sm, sf, keys, tables):
-    """The sorted search against its plain version on the card, tables in
-    shared and in global memory, with the sentinel hitting exactly when
-    the table was padded."""
+def k8_phase(sm, build, keys, tables):
+    """The sorted search against its plain version on the card, each
+    launch's instance from its counter (both reached), with the sentinel
+    hitting exactly when the table was padded; keys also at a 4-byte
+    offset (the wrapper copies them) and in a count that is not a multiple
+    of 4."""
     import torch
 
     t0 = time.perf_counter()
-    worst, cases = 0, 0
+    worst, cases, reached = 0, 0, set()
     for name, table in tables:
         k = padded_keys(sm, keys, table)
-        rp = sm.pad_dict_sorted(table).numel()
-        where = "shared" if 4 * rp <= sf.SMEM_BLOCK_BYTES else "global"
-        want = sm.dict_match_bsearch_plain(k, table)
-        for block_n in K8_BLOCK_NS:
-            got = sm.dict_match_bsearch_cuda(k, table, block_n=block_n)
-            torch.cuda.synchronize()
-            bad = same(got, want)
-            worst = max(worst, max_err((got.int(),), (want.int(),)))
-            cases += 1
-            check(bad == 0 and bool(got[2]) == (rp != table.shape[0])
-                  and bool(got[1]) == bool((table == sm.KEY_PAD).any())
-                  and bool(got[3]),
-                  f"K8 vs plain: {bad} flags differ ({name}, block_n="
-                  f"{block_n}), or the sentinel hit differs from the"
-                  " reference's rule")
-        print(f"[K8] {name} ({table.shape[0]} keys, padded {rp}, {where}"
-              f" memory): {k.shape[0]} keys x block_n in {K8_BLOCK_NS}:"
-              " identical")
-    print(f"[K8] {cases} launches identical to the plain version,"
-          f" max_abs_err {worst} ({time.perf_counter() - t0:.1f} s)")
+        rp = sm.sorted_padded(table.shape[0])
+        inst = build.host_bsearch_instance(rp)
+        ragged = k.shape[0] // 4 * 4 - 1
+        # edge: the keys start at padded_keys' first (KEY_PAD at 1, the
+        # sentinel at 2, an entry at 3)
+        for label, kk, edge in (("aligned", k, True),
+                                ("at a 4-byte offset", k[1:], False),
+                                (f"{ragged} keys", k[:ragged], True)):
+            want = sm.dict_match_bsearch_plain(kk, table)
+            for block_n in K8_BLOCK_NS:
+                before = dict(sm.dict_match_bsearch_cuda.instances)
+                got = sm.dict_match_bsearch_cuda(kk, table, block_n=block_n)
+                torch.cuda.synchronize()
+                took = {i for i, c in sm.dict_match_bsearch_cuda.instances
+                        .items() if c != before[i]}
+                check(took == {inst}, f"K8 {name}: instance {took}, the"
+                      f" rule's {inst}")
+                reached |= took
+                bad = same(got, want)
+                worst = max(worst, max_err((got.int(),), (want.int(),)))
+                cases += 1
+                check(bad == 0, f"K8 vs plain: {bad} flags differ ({name},"
+                      f" keys {label}, block_n={block_n})")
+                check(not edge or bool(got[2]) == (rp != table.shape[0])
+                      and bool(got[1]) == bool((table == sm.KEY_PAD).any())
+                      and bool(got[3]),
+                      f"K8 {name}: the sentinel or KEY_PAD hit differs from"
+                      f" the reference's rule (keys {label},"
+                      f" block_n={block_n})")
+        print(f"[K8] {name} ({table.shape[0]} keys, padded {rp}, {inst}"
+              f" instance): {k.shape[0]} keys, also at a 4-byte offset and"
+              f" {ragged} of them, x block_n in {K8_BLOCK_NS}: identical")
+    check(reached == set(sm.BSEARCH_INSTANCES),
+          f"K8 reached only the instances {reached}")
+    print(f"[K8] {cases} launches identical to the plain version, max_abs_err"
+          f" {worst} ({time.perf_counter() - t0:.1f} s)")
     return worst
 
 
@@ -1597,29 +1646,42 @@ def lm_serve_phase(ops, serve, tm, pm, cfg, params) -> dict:
     return dict(tokens=tokens, wall=wall, steps=steps, decode_s=decode_s)
 
 
-def resident_registers(libs: dict) -> list:
-    """Registers and spills of every resident kernel instance (K1 and K3
-    resident) from the build's -Xptxas -v log: one line each, its template
-    arguments decoded."""
-    pat = re.compile(r"resident_kernelILi(\d)ELb(\d)ELi(\d)ELb(\d)E")
+def instance_registers(libs: dict) -> list:
+    """Registers and spills of every kernel instance of the resident
+    kernels (K1, K3 resident), K4 and K7/K8, from the build's -Xptxas -v
+    log: one line each, its template arguments decoded."""
+    resident = re.compile(r"resident_kernelILi(\d)ELb(\d)ELi(\d)ELb(\d)E")
+    pats = {"stem_fused": resident, "stem_persistent": resident,
+            "text_frontend": re.compile(r"text_frontend_kernelILi(\d+)E"),
+            "dict_match": re.compile(
+                r"dict_bank_kernel|dict_bsearch_kernelILi(\d)E")}
+
+    def label(name, m):
+        if name == "text_frontend":
+            return f"K4, {m.group(1)} lanes a word"
+        if name == "dict_match":
+            if m.group(1) is None:
+                return "K7, the banks"
+            return f"K8, {('shared', 'global')[int(m.group(1))]} instance"
+        match, shared, groups, split = m.groups()
+        return (f"{('bsearch', 'bank')[int(match)]},"
+                f" {('global', 'shared')[int(shared)]} tables,"
+                f" {groups} groups,"
+                f" {('one lane', 'G lanes')[int(split)]} a word")
+
     out = []
-    for name in ("stem_fused", "stem_persistent"):
+    for name, pat in pats.items():
         log = libs[name].with_suffix(".log")
         entry, spill = None, ""
         for line in log.read_text().splitlines() if log.exists() else []:
             if "Compiling entry function" in line:
                 m = pat.search(line)
-                entry = m.groups() if m else None
+                entry = label(name, m) if m else None
             elif entry and "spill" in line:
                 spill = line.strip()
             elif entry and "Used " in line:
-                match, shared, groups, split = entry
                 regs = line.split("Used ")[1].split(" registers")[0]
-                out.append(f"{name}: {('bsearch', 'bank')[int(match)]},"
-                           f" {('global', 'shared')[int(shared)]} tables,"
-                           f" {groups} groups,"
-                           f" {('one lane', 'G lanes')[int(split)]} a word:"
-                           f" {regs} registers; {spill}")
+                out.append(f"{name}: {entry}: {regs} registers; {spill}")
                 entry = None
     return out
 
@@ -1651,6 +1713,54 @@ def forced_grid(lib) -> int:
     shape = [ctypes.c_int(0) for _ in range(3)]
     lib.stem_fused_last_shape(*(ctypes.byref(x) for x in shape))
     return shape[1].value
+
+
+def forced_k4(lanes: int, tile, starts, lens, block_w: int = 128):
+    """K4's launch through a measurement build that fixes its lanes a word
+    (build.forced_text_lanes_library), as the wrapper makes it; counted
+    nowhere."""
+    import torch
+
+    from repro_torch.core import textnorm as tn
+    from repro_torch.kernels import build
+
+    lib = build.forced_text_lanes_library(lanes)
+    words = torch.empty((starts.shape[0], 16), dtype=torch.int32,
+                        device=tile.device)
+    lut, fw = tn.device_tables(tile.device)
+    err = lib.text_frontend_launch(
+        tile.data_ptr(), tile.shape[0], starts.data_ptr(), lens.data_ptr(),
+        starts.shape[0], lut.data_ptr(), fw.data_ptr(), fw.shape[0],
+        words.data_ptr(), block_w,
+        torch.cuda.current_stream(tile.device).cuda_stream)
+    check(err == 0, f"K4 measurement build at {lanes} lanes: CUDA error"
+          f" {err}")
+    return words
+
+
+def request_tile(tn, docs):
+    """The codepoint tile of one served text request: its documents
+    coalesced, zero-padded to the text workload's char block doubled until
+    it holds them."""
+    import numpy as np
+
+    chars, _, _ = tn.coalesce_docs(docs)
+    tile = np.zeros(TEXT_CHAR_BLOCK, np.int32)
+    while tile.shape[0] < chars.shape[0]:
+        tile = np.zeros(2 * tile.shape[0], np.int32)
+    tile[:chars.shape[0]] = chars
+    return tile
+
+
+def bsearch_shape(lib) -> str:
+    """The instance, threads, blocks and tree step of the last K8 launch."""
+    import ctypes
+
+    shape = [ctypes.c_int(0) for _ in range(4)]
+    lib.dict_bsearch_last_shape(*(ctypes.byref(x) for x in shape))
+    inst, threads, grid, log2s = (x.value for x in shape)
+    return (f"instance {('shared', 'global')[inst]}, {grid} blocks of"
+            f" {threads} threads, a tree of every {1 << log2s}th entry")
 
 
 def bound(n_bytes: int, n_ops: int) -> dict:
@@ -1767,7 +1877,8 @@ def main() -> int:
     print("[card] TF32 off for fp32 matrix products and convolutions")
 
     # ---- 2. build --------------------------------------------------------
-    build_s, libs = build.build_cuda(forced_lanes=FORCED_LANES)
+    build_s, libs = build.build_cuda(forced_lanes=FORCED_LANES,
+                                     forced_text_lanes=build.TEXT_LANES)
     print(f"[build] {len(libs)} kernel libraries built in {build_s:.1f} s")
     for name, path in libs.items():
         log = path.with_suffix(".log")
@@ -1821,7 +1932,7 @@ def main() -> int:
         c.words for c in corpus.stream_corpus_words(
             INDEX_WORDS, seed=0, chunk_words=INDEX_CHUNK,
             words_per_doc=INDEX_WORDS_PER_DOC, table=table)])).to(dev)
-    k4_err = k4_phase(tf, tn,
+    k4_err = k4_phase(tf, tn, build,
                       edge_documents() + build_documents(64, 256, seed=3),
                       chunk_tile, big_tile, big_words)
     vocab = ix.build_vocab(realistic)
@@ -1857,7 +1968,7 @@ def main() -> int:
                                  ("grown quad, shuffled", shuffled),
                                  ("one bank (adversarial)",
                                   one_bank_table(sm, 2000, dev))))
-    k8_err = k8_phase(sm, sf, cand, (
+    k8_err = k8_phase(sm, build, cand, (
         ("realistic tri", realistic.tri), ("realistic quad", realistic.quad),
         ("realistic bi", realistic.bi),
         ("32,768-entry table", torch.unique(torch.cat(
@@ -2035,7 +2146,7 @@ def main() -> int:
     floor_ms = device_ms(floor_fn, 200, call_ms(floor_fn, 200))
     print(f"[times] launch floor: a one-element torch op takes"
           f" {floor_ms:.6f} ms on the card (CUDA events, the same timer)")
-    for line in resident_registers(libs):
+    for line in instance_registers(libs):
         print(f"[times] registers, {line}")
     for b in (SERVE_REQUEST_WORDS, SERVE_WORDS):
         w = torch.from_numpy(serve_words[:b]).to(dev)
@@ -2175,13 +2286,11 @@ def main() -> int:
         print(f"[times] K1 B={b} block_b={block_b} by lanes a word: "
               + ", ".join(row))
 
-    # K4 at a served request's tile and at the 1M-word tile; K5 at an index
-    # chunk and at 1M words, with torch.sort of the same keys beside it
-    req_chars, _, _ = tn.coalesce_docs(text_docs[:TEXT_DOCS_PER_REQUEST])
-    req_tile = np.zeros(TEXT_CHAR_BLOCK, np.int32)
-    while req_tile.shape[0] < req_chars.shape[0]:
-        req_tile = np.zeros(2 * req_tile.shape[0], np.int32)
-    req_tile[:req_chars.shape[0]] = req_chars
+    # K4 at a served request's tile and at the 1M-word tile, by the rule
+    # and at each lane count through the measurement builds (the answers
+    # do not change); K5 at an index chunk and at 1M words, with
+    # torch.sort of the same keys beside it
+    req_tile = request_tile(tn, text_docs[:TEXT_DOCS_PER_REQUEST])
     for label, tile in (("request", torch.from_numpy(req_tile).to(dev)),
                         ("1M words", big_tile)):
         geo = tn.segment_geometry(tile, block_w=128)
@@ -2191,23 +2300,59 @@ def main() -> int:
         n_chars = int(live.sum())
         kernel = lambda: tf.text_frontend_cuda(tile, geo.starts, geo.lens)
         plain = lambda: tf.text_frontend_plain(tile, geo.starts, geo.lens)
-        check(same((kernel(),), (plain(),)) == 0,
+        want = plain()
+        check(same((kernel(),), (want,)) == 0,
               f"timed tile {label}: K4 differs from its plain version")
         n_k = 200 if label == "request" else 10
         k_call = call_ms(kernel, n_k)
         ms = device_ms(kernel, n_k, k_call)
+        rule = (tf.text_frontend_cuda.last_lanes,
+                tf.text_frontend_cuda.last_grid)
         plain_ms = call_ms(plain, 10 if label == "request" else 2)
         bd = bound(4 * tile.shape[0] + 8 * rows + 64 * rows,
                    K4_OPS_PER_CHAR * n_chars + K4_OPS_PER_WORD * n
                    + K4_OPS_PER_EMPTY_ROW * (rows - n))
         times[("K4", label)] = dict(ms=ms, call_ms=k_call, plain_ms=plain_ms,
                                     library_ms=None, **bd)
+        by_lanes = []
+        for lanes in build.TEXT_LANES:
+            forced = lambda: forced_k4(lanes, tile, geo.starts,  # noqa
+                                       geo.lens)
+            check(same((forced(),), (want,)) == 0, f"timed tile {label}: K4"
+                  f" at {lanes} lanes differs from its plain version")
+            f_ms = device_ms(forced, n_k, call_ms(forced, n_k))
+            by_lanes.append(f"{lanes} {f_ms:.6f}")
         print(f"[times] K4 {label} tile ({tile.shape[0]} codepoints, {n}"
-              f" words, {rows} rows): {ms:.6f} ms on the card"
-              f" ({k_call:.6f} ms a call with the host), plain"
-              f" {plain_ms:.6f} ms a call, bound {bd['bound_ms']:.6f} ms by"
-              f" {bd['bound_by']} ({bd['n_bytes']} B, {bd['n_ops']} int32"
-              " ops); no single PyTorch call computes it, library_ms null")
+              f" words, {rows} rows): {ms:.6f} ms on the card at the rule's"
+              f" {rule[0]} lanes a word, {rule[1]} blocks ({k_call:.6f} ms a"
+              f" call with the host), plain {plain_ms:.6f} ms a call, bound"
+              f" {bd['bound_ms']:.6f} ms by {bd['bound_by']} ({bd['n_bytes']}"
+              f" B, {bd['n_ops']} int32 ops): {bd['bound_ms'] / ms:.6f} of"
+              " the bound; no single PyTorch call computes it, library_ms"
+              " null; by lanes a word (measurement builds), ms: "
+              + ", ".join(by_lanes))
+    # K4's lane rule on either side of its threshold (SMs x 1024 rows:
+    # 135,168 on 132 SMs): prefixes of the 1M-word tile and an index
+    # chunk's tile at both lane counts through the measurement builds
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, tile in ([(f"{c} codepoints", big_tile[:c]) for c in
+                         (150_000, 262_144, 280_000, 400_000)]
+                        + [("index chunk", chunk_tile)]):
+        geo = tn.segment_geometry(tile, block_w=128)
+        rows = geo.starts.shape[0]
+        want = tf.text_frontend_plain(tile, geo.starts, geo.lens)
+        by_lanes = []
+        for lanes in build.TEXT_LANES:
+            forced = lambda: forced_k4(lanes, tile, geo.starts,  # noqa
+                                       geo.lens)
+            check(same((forced(),), (want,)) == 0, f"K4 at {label}, {lanes}"
+                  " lanes, differs from its plain version")
+            f_ms = device_ms(forced, 50, call_ms(forced, 50))
+            by_lanes.append(f"{lanes} {f_ms:.6f}")
+        print(f"[times] K4 lane rule, {label} ({rows} rows): the rule's"
+              f" {build.host_text_lanes(rows, sms=sms)} lanes a word on"
+              f" {sms} SMs; by lanes a word (measurement builds), ms: "
+              + ", ".join(by_lanes))
     # K5: the counting instance at an index chunk and at 1M words of the
     # realistic vocabulary; the bitonic one at an index chunk of the
     # 262,144-key dictionary's vocabulary
@@ -2302,6 +2447,8 @@ def main() -> int:
             lib = (f"torch.isin of the same keys (library_ms) {lib_ms:.6f} ms,"
                    f" {lib_ms / ms:.6f}x its speed"
                    if lib_ms is not None else "library_ms null")
+            if name == "K8":
+                note += "; " + bsearch_shape(build.dict_match_library())
             if name == "K7":
                 st = sm.bank_stats(k, realistic.tri)
                 note = note.format(compares=st["compares"],
@@ -2312,6 +2459,39 @@ def main() -> int:
                   f" plain {plain_ms:.6f} ms a call, {lib}, bound"
                   f" {bd['bound_ms']:.6f} ms by {bd['bound_by']}"
                   f" ({bd['n_bytes']} B, {bd['n_ops']} int32 ops); {note}")
+    # K8 on the 262,144-key dictionary's tri table (18,000 keys, padded
+    # 32,768: the shared instance at its largest) and quad table (243,614,
+    # padded 262,144: the global instance), on the tri-group keys of 1M
+    # words, torch.isin beside each
+    k = sdp.stem_datapath_cuda(staged_words)[0][:, :6].reshape(-1).contiguous()
+    n = k.shape[0]
+    k8_lib = build.dict_match_library()
+    for label, table in (("grown tri", grown.tri), ("grown quad", grown.quad)):
+        rp = sm.sorted_padded(table.shape[0])
+        kernel = lambda: sm.dict_match_bsearch_cuda(k, table)  # noqa: E731
+        plain = lambda: sm.dict_match_bsearch_plain(k, table)  # noqa: E731
+        library = lambda: torch.isin(k, table)  # noqa: E731
+        got = kernel()
+        check(torch.equal(got, plain()) and torch.equal(got, library()),
+              f"timed table {label}: K8 differs from its plain version or"
+              " from torch.isin")
+        shape = bsearch_shape(k8_lib)
+        k_call = call_ms(kernel, 10)
+        ms = device_ms(kernel, 10, k_call)
+        lib_ms = event_ms(library, 10)
+        plain_ms = call_ms(plain, 2)
+        steps = (rp - 1).bit_length()
+        bd = bound(5 * n + 4 * rp, n * steps * OPS_PER_PROBE)
+        times[("K8", label)] = dict(ms=ms, call_ms=k_call, plain_ms=plain_ms,
+                                    library_ms=lib_ms, **bd)
+        print(f"[times] K8 {label} table ({table.shape[0]} keys, padded {rp};"
+              f" {shape}) at B={SERVE_WORDS} ({n} keys): {ms:.6f} ms on the"
+              f" card ({k_call:.6f} ms a call with the host), plain"
+              f" {plain_ms:.6f} ms a call, torch.isin of the same keys"
+              f" (library_ms) {lib_ms:.6f} ms, {lib_ms / ms:.6f}x its speed,"
+              f" bound {bd['bound_ms']:.6f} ms by {bd['bound_by']}"
+              f" ({bd['n_bytes']} B, {bd['n_ops']} int32 ops):"
+              f" {bd['bound_ms'] / ms:.6f} of the bound")
     for label, (launches, secs) in staged.items():
         key = "K8" if label == "K8" else "K7"
         busy = (launches.get("dict_match_cuda", 0)

@@ -11,7 +11,8 @@ run under a file lock: parallel test workers or processes build once.
 ``host_datapath`` compiles the ``__host__ __device__`` headers (the
 datapath, the streamed fence search, the resident kernels' walk and lane
 split, the text front end's per-word rules, both
-postings instances' tile steps and the comparator bank's banks) with
+postings instances' tile steps, the comparator bank's banks and the
+sorted search's fence tree) with
 ``g++`` for the CPU tests; nothing on the port's CPU path uses it.
 """
 from __future__ import annotations
@@ -48,9 +49,11 @@ def _mask(codes) -> str:
 
 
 def codes_header() -> str:
-    """stem_codes.h: the affix code sets, letter codes and candidate-group
-    tables, generated from ``core.alphabet`` and ``kernels.stem_fused``."""
+    """stem_codes.h: the affix code sets, letter codes, candidate-group
+    tables and the sorted layout's sentinel, generated from
+    ``core.alphabet``, ``kernels.stem_fused`` and ``kernels.stem_match``."""
     from repro_torch.kernels import stem_fused as sf
+    from repro_torch.kernels import stem_match as sm
 
     tables = {"tri": 0, "quad": 1, "bi": 2}
 
@@ -62,8 +65,9 @@ def codes_header() -> str:
 
     dicts = [tables[name] for name in sf.GROUP_DICTS]
     return "\n".join([
-        "// Generated from repro_torch/core/alphabet.py and",
-        "// repro_torch/kernels/stem_fused.py by kernels/build.py.",
+        "// Generated from repro_torch/core/alphabet.py,",
+        "// repro_torch/kernels/stem_fused.py and stem_match.py by",
+        "// kernels/build.py.",
         "#pragma once",
         "#include <stdint.h>",
         "#ifdef __CUDACC__",
@@ -72,6 +76,7 @@ def codes_header() -> str:
         "#define RT_CODES_HD inline",
         "#endif",
         f"#define RT_MAXLEN {ab.MAXLEN}",
+        f"#define RT_DICT_SENTINEL {sm.DICT_SENTINEL}",
         f"#define RT_ALEF {int(ab.ALEF)}",
         f"#define RT_WAW {int(ab.WAW)}",
         f"#define RT_YEH {int(ab.YEH)}",
@@ -219,14 +224,17 @@ CUDA_LIBRARIES = ("stem_fused", "stem_streamed", "stem_persistent",
                   "dict_match", "flash_attention")
 
 
-def build_cuda(forced_lanes: tuple = ()) -> tuple[float, dict[str, Path]]:
-    """Build every CUDA library of the port in parallel, and K1's
-    measurement builds at each of ``forced_lanes`` (see
-    :func:`forced_lanes_library`); -> (seconds, {name: library path}).
-    Zero-cost when all are already built."""
+def build_cuda(forced_lanes: tuple = (), forced_text_lanes: tuple = ()
+               ) -> tuple[float, dict[str, Path]]:
+    """Build every CUDA library of the port in parallel, and the
+    measurement builds of K1 at each of ``forced_lanes`` and of K4 at each
+    of ``forced_text_lanes`` (see :func:`forced_lanes_library`,
+    :func:`forced_text_lanes_library`); -> (seconds, {name: library
+    path}). Zero-cost when all are already built."""
     t0 = time.perf_counter()
     specs = [_cuda_spec(n) for n in CUDA_LIBRARIES]
     specs += [_cuda_spec("stem_fused", g) for g in forced_lanes]
+    specs += [_cuda_spec("text_frontend", g) for g in forced_text_lanes]
     paths = _build(specs)
     return time.perf_counter() - t0, {s.name: p
                                       for s, p in zip(specs, paths)}
@@ -253,13 +261,15 @@ _SIGNATURES = {
                                        ctypes.POINTER(_I)]},
     "text_frontend": {
         "text_frontend_launch": [_P, _LL, _P, _P, _I, _P, _P, _I, _P, _I,
-                                 _P]},
+                                 _P],
+        "text_frontend_last_shape": [_IP, _IP]},
     "postings": {"postings_launch": [_P, _I, _I, _I, _P, _P, _P, _I, _P],
                  "postings_instance": [_I, _I, _I]},
     "stem_candidates": {"stem_candidates_launch": [_P, _I, _P, _P, _I, _P]},
     "dict_match": {
         "dict_match_bank_launch": [_P, _I, _P, _I, _I, _P, _I, _P],
-        "dict_match_bsearch_launch": [_P, _I, _P, _I, _P, _I, _I, _P]},
+        "dict_match_bsearch_launch": [_P, _I, _P, _I, _I, _P, _P],
+        "dict_bsearch_last_shape": [_IP, _IP, _IP, _IP]},
     "flash_attention": {
         "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    ctypes.c_float, _P],
@@ -317,6 +327,16 @@ def text_frontend_library() -> ctypes.CDLL:
     return _cuda_library("text_frontend")
 
 
+def forced_text_lanes_library(lanes: int) -> ctypes.CDLL:
+    """A measurement build of K4 (csrc/text_frontend.cu with
+    -DRT_FORCED_LANES) whose every launch runs a word on ``lanes`` lanes
+    (one of TEXT_LANES), whatever the launcher's rule picks; for timing
+    the rule's choices at one shape. Nothing in the port loads it."""
+    if lanes not in TEXT_LANES:
+        raise ValueError(f"lanes must be one of {TEXT_LANES}, got {lanes}")
+    return _cuda_library("text_frontend", lanes)
+
+
 def postings_library() -> ctypes.CDLL:
     """K5, the postings reduction, both instances (csrc/postings.cu)."""
     return _cuda_library("postings")
@@ -355,8 +375,10 @@ def _host_library() -> ctypes.CDLL:
                                            _I, _I]
         lib.host_stem_resident.restype = ctypes.c_int
         lib.host_text_frontend.argtypes = [_P, _LL, _P, _P, _I, _P, _P, _I,
-                                           _P]
-        lib.host_text_frontend.restype = None
+                                           _I, _P]
+        lib.host_text_frontend.restype = ctypes.c_int
+        lib.host_text_lanes.argtypes = [_LL, _I]
+        lib.host_text_lanes.restype = ctypes.c_int
         lib.host_postings.argtypes = [_P, _I, _I, _I, _P, _P]
         lib.host_postings.restype = None
         lib.host_postings_counting.argtypes = [_P, _I, _I, _I, _P, _P]
@@ -365,6 +387,10 @@ def _host_library() -> ctypes.CDLL:
         lib.host_postings_instance.restype = ctypes.c_int
         lib.host_dict_bank.argtypes = [_P, _I, _P, _I, _I, _I, _P]
         lib.host_dict_bank.restype = None
+        lib.host_dict_bsearch.argtypes = [_P, _I, _P, _I, _I, _I, _I, _P]
+        lib.host_dict_bsearch.restype = ctypes.c_int
+        lib.host_bsearch_instance.argtypes = [_I]
+        lib.host_bsearch_instance.restype = ctypes.c_int
         _LOADED["host_datapath"] = lib
     return lib
 
@@ -464,10 +490,18 @@ def host_stem_resident(words: np.ndarray, tables, *, n_groups: int,
                                                         blocks)
 
 
+TEXT_LANES = (1, 8)
+
+
 def host_text_frontend(chars: np.ndarray, starts: np.ndarray,
-                       lens: np.ndarray) -> np.ndarray:
-    """The g++ build of text_frontend.cuh, every row through the per-word
-    rules: chars int32[t], starts/lens int32[wp] -> words int32[wp, 16]."""
+                       lens: np.ndarray, *, lanes: int = 1) -> np.ndarray:
+    """The g++ build of text_frontend.cuh, run as a K4 launch at ``lanes``
+    lanes a word (one of TEXT_LANES) runs it: block by block through the
+    piece walk, live rows listed and run a word a group (the kernel's
+    ``lane_word`` over the host's group policy, each vote and shuffle over
+    the lanes in order), empty rows cleared:
+    chars int32[t], starts/lens int32[wp] -> words int32[wp, 16]. A row no
+    block wrote would keep -7."""
     from repro_torch.core import textnorm as tn
 
     lib = _host_library()
@@ -478,13 +512,21 @@ def host_text_frontend(chars: np.ndarray, starts: np.ndarray,
         raise ValueError(f"chars {chars.shape}, starts {starts.shape}, lens"
                          f" {lens.shape}: want a non-empty tile and"
                          " matching geometry")
+    if lanes not in TEXT_LANES:
+        raise ValueError(f"lanes must be one of {TEXT_LANES}, got {lanes}")
     lut = np.ascontiguousarray(tn.CLASS_LUT, dtype=np.int32)
     fw = np.ascontiguousarray(tn.FW_FLAT, dtype=np.int32)
-    words = np.zeros((starts.shape[0], ab.MAXLEN), np.int32)
+    words = np.full((starts.shape[0], ab.MAXLEN), -7, np.int32)
     lib.host_text_frontend(chars.ctypes.data, chars.size, starts.ctypes.data,
                            lens.ctypes.data, starts.shape[0], lut.ctypes.data,
-                           fw.ctypes.data, fw.size, words.ctypes.data)
+                           fw.ctypes.data, fw.size, lanes, words.ctypes.data)
     return words
+
+
+def host_text_lanes(rows: int, *, sms: int) -> int:
+    """The lanes a word K4's launcher takes for ``rows`` rows on a card of
+    ``sms`` SMs (the g++ build of ``tf::frontend_lanes``)."""
+    return _host_library().host_text_lanes(rows, sms)
 
 
 def host_postings(ids: np.ndarray, *, n_roots: int, block_w: int,
@@ -531,6 +573,36 @@ def host_dict_bank(keys: np.ndarray, dict_keys: np.ndarray, *, rp: int,
     lib.host_dict_bank(keys.ctypes.data, keys.size, table.ctypes.data,
                        table.size, rp, chunk, out.ctypes.data)
     return out.astype(bool)
+
+
+def host_bsearch_instance(rp: int) -> str:
+    """K8's instance for a table padded to ``rp`` entries, as its launcher
+    picks it (the g++ build of ``ds::instance``): "shared" or "global"."""
+    from repro_torch.kernels import stem_match as sm
+
+    return sm.BSEARCH_INSTANCES[_host_library().host_bsearch_instance(rp)]
+
+
+def host_dict_bsearch(keys: np.ndarray, dict_keys: np.ndarray, *,
+                      instance: str, grid: int = 1) -> tuple[np.ndarray, int]:
+    """The g++ build of dict_search.cuh, run as a block of K8's
+    ``instance`` ("shared": the whole padded table as a tree in shared
+    memory; "global": a tree of every S-th entry, S by a launch of
+    ``grid`` blocks over these keys, the dictionary and its padding read
+    virtually) runs it: keys int32[n] against the sorted dict_keys
+    int32[r] padded with the sentinel to the next power of two >= 128 ->
+    (bool[n], log2 S)."""
+    from repro_torch.kernels import stem_match as sm
+
+    lib = _host_library()
+    keys = np.ascontiguousarray(keys, dtype=np.int32).reshape(-1)
+    table = np.ascontiguousarray(dict_keys, dtype=np.int32).reshape(-1)
+    out = np.zeros(keys.size, np.uint8)
+    log2s = lib.host_dict_bsearch(
+        keys.ctypes.data, keys.size, table.ctypes.data, table.size,
+        sm.sorted_padded(table.size), sm.BSEARCH_INSTANCES.index(instance),
+        grid, out.ctypes.data)
+    return out.astype(bool), log2s
 
 
 def _host_words(words: np.ndarray) -> np.ndarray:

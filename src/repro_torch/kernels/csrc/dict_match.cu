@@ -35,28 +35,40 @@
 // int32 value are exact; an adversarial table with every entry in one
 // bank only costs compares.
 //
-// K8, dict_match_bsearch_kernel, replaces
+// K8, dict_bsearch_kernel, replaces
 // repro/kernels/stem_match.py:_bsearch_kernel (behind
-// dict_match_bsearch_pallas): ceil(log2 Rp) branchless bisection steps a
-// key against the sorted table padded to a power of two Rp >= 128 with
-// the sentinel, the same rt::bsearch_hit that K1's stage 5 runs. One
-// block per tile of block_n * 128 keys, one thread per key (min(tile,
-// 512) threads). The table is copied into shared memory once per block
-// while it fits (Rp up to 32,768); a larger one (the 262,144-key tables
-// that stream in K2) is read through __ldg from global memory, where the
-// first probes of every key hit the same few L2 lines.
+// dict_match_bsearch_pallas): membership in the sorted table padded to a
+// power of two rp >= 128 with the sentinel, which the reference finds by
+// ceil(log2 rp) bisection probes a key.
 //
-// What bounds K8: bytes as well (keys in, flags out, the table once);
-// its own work is ceil(log2 Rp) dependent probes a key, each a load.
+// What bounds K8 on an H100: bytes as well (keys in, flags out, the table
+// once), about 0.0094 ms for 6.3M keys. The first port was 7x
+// that: a block a 1024-key tile, 6144 blocks at 6.3M keys, each staging
+// the whole table (50 MB of L2 -> shared copies, more than the keys), then
+// 12 dependent scalar probes a key whose first levels all fall in one
+// shared-memory bank; and its wrapper queued two more kernels to pad the
+// table.
+//
+// What the design does about it (the search's steps in dict_search.cuh):
+// one kernel a call, reading the unpadded table and its padding
+// virtually; a persistent grid (the blocks that fit the SMs, fewer when
+// one pass covers the keys; 128-1024 threads by the launch's keys), each
+// block staging the table once, as a breadth-first tree, with 4-byte
+// cp.async copies while its first keys load; a thread reads 4 keys as
+// one 16-byte load (the next 4 in flight meanwhile), walks their 4 trees
+// together (one contiguous run of nodes a level, so the first six levels
+// are one wavefront each) and writes the 4 flags as one 32-bit store; the
+// ragged tail of n % 4 keys one at a time. A table past kSharedMaxRp (the
+// 262,144-key dictionaries) stages only a tree of every S-th entry (S by
+// the launch) and reads one 8-entry block a key from L2.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "dict_bank.cuh"
+#include "dict_search.cuh"
 #include "stem_resident.cuh"
 
 namespace {
-
-using rt::kMaxThreads;
 
 constexpr int kBankThreads = 1024;
 // 16-byte key loads a thread issues at once: the first pass's are in
@@ -182,30 +194,68 @@ dict_bank_kernel(const int32_t* __restrict__ keys, int n,
   }
 }
 
-template <bool SHARED>
-__global__ void __launch_bounds__(kMaxThreads)
-dict_match_bsearch_kernel(const int32_t* __restrict__ keys, int n,
-                          const int32_t* __restrict__ dict, int rp,
-                          uint8_t* __restrict__ out, int tile_keys) {
-  const int32_t* table = dict;
-  if constexpr (SHARED) {            // the table into shared memory
-    extern __shared__ int4 smem4[];
-    int32_t* smem = reinterpret_cast<int32_t*>(smem4);
-    rt::stage_begin(smem, dict, rp);
-    rt::stage_end();
-    table = smem;
+// Threads a K8 block runs: the fewest from kMinSearchThreads whose blocks,
+// a quad of keys a thread, take every key in one pass on the card's SMs,
+// else kSearchThreads.
+constexpr int kSearchThreads = 1024;
+constexpr int kMinSearchThreads = 128;
+
+// Stage the tree of every 2^log2s-th entry of the padded table into
+// shared memory: node j <- its entry, an asynchronous 4-byte copy
+// (cp.async) for the dictionary's entries, the sentinel stored for the
+// padding's. The copy is ready after rt::stage_end.
+__device__ __forceinline__ void stage_tree(int32_t* tree, int fences,
+                                           int levels, int log2s,
+                                           const int32_t* __restrict__ dict,
+                                           int r) {
+  for (int j = threadIdx.x; j < fences; j += blockDim.x) {
+    const int i = ds::node_entry(j, levels, log2s);
+    if (i < r) {
+      const unsigned to =
+          static_cast<unsigned>(__cvta_generic_to_shared(tree + j));
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(to),
+                   "l"(dict + i)
+                   : "memory");
+    } else {
+      tree[j] = ds::kSentinel;
+    }
   }
-  const int steps = rt::ceil_log2(rp);
-  const long long base = (long long)blockIdx.x * tile_keys;
-  const int rows = int(min((long long)tile_keys, n - base));
-  for (int i = threadIdx.x; i < rows; i += blockDim.x) {
-    const int32_t key = __ldg(keys + base + i);
-    out[base + i] = rt::bsearch_hit<SHARED>(table, rp, steps, key);
-  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-int grid_for(int n, int tile_keys) {
-  return int((n + (long long)tile_keys - 1) / tile_keys);
+// keys 16-byte aligned, out 4-byte aligned; INST ds::kShared (log2s 0: the
+// tree is the whole table) or ds::kGlobal. A pass covers gridDim.x *
+// blockDim.x quads, one a thread.
+template <int INST>
+__global__ void __launch_bounds__(kSearchThreads)
+dict_bsearch_kernel(const int32_t* __restrict__ keys, int n,
+                    const int32_t* __restrict__ dict, int r, int rp,
+                    int log2s, uint8_t* __restrict__ out) {
+  extern __shared__ int4 smem4[];
+  int32_t* tree = reinterpret_cast<int32_t*>(smem4);
+  const int levels = ds::log2_of(rp) - log2s;
+  const ds::GlobalTable table{dict, r,
+                              reinterpret_cast<uintptr_t>(dict) % 16 == 0};
+  const int4* keys4 = reinterpret_cast<const int4*>(keys);
+  uint32_t* out4 = reinterpret_cast<uint32_t*>(out);
+  const long long quads = n / 4;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  int4 k = first < quads ? __ldg(keys4 + first) : make_int4(0, 0, 0, 0);
+  stage_tree(tree, 1 << levels, levels, log2s, dict, r);
+  rt::stage_end();
+  for (long long q = first; q < quads; q += stride) {
+    const int4 next =
+        q + stride < quads ? __ldg(keys4 + q + stride) : make_int4(0, 0, 0, 0);
+    const int32_t four[4] = {k.x, k.y, k.z, k.w};
+    out4[q] = ds::search<4, INST>(tree, levels, log2s, table, four);
+    k = next;
+  }
+  const long long tail = 4 * quads + first;       // the last n % 4 keys
+  if (tail < n) {
+    const int32_t one[1] = {__ldg(keys + tail)};
+    out[tail] = uint8_t(ds::search<1, INST>(tree, levels, log2s, table, one));
+  }
 }
 
 }  // namespace
@@ -250,31 +300,68 @@ extern "C" int dict_match_bank_launch(const void* keys, int n,
   return int(cudaGetLastError());
 }
 
-// K8: keys int32[n]; dict int32[rp] sorted, padded with the sentinel to a
-// power of two rp >= 128, 16-byte aligned; tile_keys = block_n * 128 ->
-// out uint8[n]. dict_in_shared copies the table into shared memory once
-// per block (4 * rp bytes), else it is read from global memory.
+namespace {
+// What the last K8 launch of this thread took.
+thread_local int last_bsearch[4] = {0, 0, 0, 0};
+}  // namespace
+
+// K8: keys int32[n], 16-byte aligned; dict int32[r] sorted, read as the
+// table padded with the sentinel to rp entries (a power of two >= 128,
+// at least r) -> out uint8[n] (4-byte aligned), 1 where the key is an
+// entry. One kernel on `stream`; returns the CUDA error code (0 on
+// success).
 extern "C" int dict_match_bsearch_launch(const void* keys, int n,
-                                         const void* dict, int rp, void* out,
-                                         int tile_keys, int dict_in_shared,
-                                         void* stream) {
+                                         const void* dict, int r, int rp,
+                                         void* out, void* stream) {
   if (n <= 0) return 0;
-  if (tile_keys < 1 || rp < 128 || (rp & (rp - 1))) {
+  if (r < 0 || rp < 128 || (rp & (rp - 1)) || rp < r ||
+      reinterpret_cast<uintptr_t>(keys) % 16 ||
+      reinterpret_cast<uintptr_t>(out) % 4 ||
+      reinterpret_cast<uintptr_t>(dict) % 4) {
     return int(cudaErrorInvalidValue);
   }
-  const auto* k = static_cast<const int32_t*>(keys);
-  const auto* d = static_cast<const int32_t*>(dict);
-  auto* o = static_cast<uint8_t*>(out);
-  const int grid = grid_for(n, tile_keys);
-  const int threads = rt::block_threads(tile_keys);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto kernel = dict_in_shared ? dict_match_bsearch_kernel<true>
-                               : dict_match_bsearch_kernel<false>;
-  const size_t smem = dict_in_shared ? sizeof(int32_t) * size_t(rp) : 0;
-  const cudaError_t e = rt::allow_smem(kernel, smem);
+  const int inst = ds::instance(rp);
+  auto kernel = inst == ds::kShared ? dict_bsearch_kernel<ds::kShared>
+                                    : dict_bsearch_kernel<ds::kGlobal>;
+  int dev = 0, sms = 0;
+  cudaError_t e = rt::current_sms(&dev, &sms);
   if (e != cudaSuccess) return int(e);
-  kernel<<<grid, threads, smem, s>>>(k, n, d, rp, o, tile_keys);
+  const long long quads = (n + 3) / 4;
+  int threads = kMinSearchThreads;
+  while (threads < kSearchThreads && (quads + threads - 1) / threads > sms) {
+    threads *= 2;
+  }
+  const long long want = (quads + threads - 1) / threads;
+  // the largest tree first: the step depends on the grid it sizes
+  const size_t max_smem = size_t(ds::smem_bytes(
+      rp, ds::log2_step(rp, inst, n, 1)));
+  int grid = 0;
+  if ((e = rt::allow_smem(kernel, max_smem)) != cudaSuccess ||
+      (e = rt::resident_grid(kernel, threads, max_smem,
+                             int(want < INT_MAX ? want : INT_MAX), &grid)) !=
+          cudaSuccess) {
+    return int(e);
+  }
+  const int log2s = ds::log2_step(rp, inst, n, grid);
+  const size_t smem = size_t(ds::smem_bytes(rp, log2s));
+  last_bsearch[0] = inst;
+  last_bsearch[1] = threads;
+  last_bsearch[2] = grid;
+  last_bsearch[3] = log2s;
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(keys), n, static_cast<const int32_t*>(dict),
+      r, rp, log2s, static_cast<uint8_t*>(out));
   return int(cudaGetLastError());
+}
+
+// The instance, threads a block, blocks and log2 of the tree's step of
+// this thread's last K8 launch.
+extern "C" void dict_bsearch_last_shape(int* inst, int* threads, int* grid,
+                                        int* log2s) {
+  *inst = last_bsearch[0];
+  *threads = last_bsearch[1];
+  *grid = last_bsearch[2];
+  *log2s = last_bsearch[3];
 }
 
 extern "C" const char* dict_match_error_string(int code) {

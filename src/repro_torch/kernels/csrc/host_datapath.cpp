@@ -3,8 +3,9 @@
 // same streamed per-key search (stem_fences.cuh), the same resident walk,
 // lane split and round vote (stem_resident.cuh), the same text front-end
 // rules (text_frontend.cuh), the same postings steps of both instances
-// (postings.cuh) and the same bank build and probe of the comparator bank
-// (dict_bank.cuh) that the CUDA kernels run, and the tests hold them bit
+// (postings.cuh), the same bank build and probe of the comparator bank
+// (dict_bank.cuh) and the same fence tree and search of the sorted search
+// (dict_search.cuh) that the CUDA kernels run, and the tests hold them bit
 // for bit against the plain PyTorch versions. Where a kernel uses a warp
 // or block primitive (a lane vote, a shuffle, a block scan, an atomic),
 // the host runs a small function that does the same over the lanes in
@@ -16,6 +17,7 @@
 #include <vector>
 
 #include "dict_bank.cuh"
+#include "dict_search.cuh"
 #include "postings.cuh"
 #include "stem_datapath.cuh"
 #include "stem_fences.cuh"
@@ -201,21 +203,72 @@ extern "C" int host_stem_resident(const int32_t* words, int n_words,
   return grid;
 }
 
-// The text front end's contract (text_frontend_launch), on the host, every
-// row through the per-word rules (empty rows too): chars int32[t],
-// starts/lens int32[wp], lut int32[256], fw int32[fw_n] -> words
-// int32[wp, 16].
-extern "C" void host_text_frontend(const int32_t* chars, long long t,
-                                   const int32_t* starts,
-                                   const int32_t* lens, int wp,
-                                   const int32_t* lut, const int32_t* fw,
-                                   int fw_n, int32_t* words) {
+// The lanes a word text_frontend_launch takes for `rows` rows on a card
+// of `sms` SMs.
+extern "C" int host_text_lanes(long long rows, int sms) {
+  return tf::frontend_lanes(rows, sms);
+}
+
+// The text front end's contract (text_frontend_launch) on the host, as a
+// launch at `lanes` lanes a word (1 or 8) runs it, block by block through
+// the same steps: each block's pieces read and their live rows listed in
+// piece order (list_rows, at the block scan's offsets, summed here in
+// thread order), its empty rows cleared a warp a piece (clear_lane), its
+// live rows a word a group in the kernel's order of rounds (word_row, or
+// lane_word over HostLanes): chars int32[t], starts/lens int32[wp], lut
+// int32[256], fw int32[fw_n] -> words int32[wp, 16] (rows no block writes
+// keep what was there). Returns the blocks.
+extern "C" int host_text_frontend(const int32_t* chars, long long t,
+                                  const int32_t* starts, const int32_t* lens,
+                                  int wp, const int32_t* lut,
+                                  const int32_t* fw, int fw_n, int lanes,
+                                  int32_t* words) {
+  if (wp <= 0) return 0;
+  if (lanes != 1 && lanes != 8) return -1;
   const long long tp = (t + 127) / 128 * 128;
   const int steps = tf::ceil_log2(fw_n);
-  for (int r = 0; r < wp; ++r) {
-    tf::word_row(chars, t, tp, starts[r], lens[r], lut, fw, fw_n, steps,
-                 words + size_t(r) * tf::kRow);
+  const long long grid = tf::frontend_grid(wp, lanes);
+  const long long pieces = tf::n_pieces(wp);
+  const int groups = tf::kThreads / lanes;
+  const tf::HostLanes<8> g8;
+  std::vector<int32_t> list(groups * tf::kPieceRows),
+      list_start(list.size()), list_len(list.size());
+  std::vector<uint32_t> live(groups);
+  for (long long b = 0; b < grid; ++b) {
+    int total = 0;                               // 1. the live rows
+    for (int k = 0; k < groups; ++k) {
+      const long long p = tf::piece_of(b, k, grid);
+      int32_t start[tf::kPieceRows], len[tf::kPieceRows];
+      live[k] = p < pieces ? tf::piece_rows(starts, lens, wp, p, start, len)
+                           : 0;
+      tf::list_rows(live[k], p, start, len, total, list.data(),
+                    list_start.data(), list_len.data());
+      total += tf::popc(live[k]);
+    }
+    for (int k = 0; k < groups; ++k) {           // 2. the empty rows
+      for (int lane = 0; lane < 32; ++lane) {
+        tf::clear_lane(words, wp, pieces, tf::piece_of(b, k, grid), live[k],
+                       lane);
+      }
+    }
+    for (int tid = 0; tid < tf::kThreads; tid += lanes) {   // 3. the words
+      if (lanes == 1) {
+        for (int i = tid; i < total; i += groups) {
+          tf::word_row(chars, t, tp, list_start[i], list_len[i], lut, fw,
+                       fw_n, steps, words + size_t(list[i]) * tf::kRow);
+        }
+        continue;
+      }
+      for (int i0 = tid / 32 * (32 / lanes); i0 < total; i0 += groups) {
+        const int i = i0 + tid % 32 / lanes;
+        const bool has = i < total;
+        tf::lane_word(g8, chars, t, tp, has ? list_start[i] : 0,
+                      has ? list_len[i] : 0, lut, fw, fw_n, has,
+                      words + size_t(has ? list[i] : 0) * tf::kRow);
+      }
+    }
   }
+  return int(grid);
 }
 
 // The postings kernel's contract (postings_launch), on the host, one tile
@@ -369,4 +422,42 @@ extern "C" void host_dict_bank(const int32_t* keys, int n,
                                   keys[i]));
     }
   }
+}
+
+// The sorted search's instance (0 shared, 1 global) for a table padded to
+// rp entries, as dict_match_bsearch_launch picks it.
+extern "C" int host_bsearch_instance(int rp) { return ds::instance(rp); }
+
+// The sorted search's contract (dict_match_bsearch_launch) on the host, as
+// a block of instance `inst` (0 shared, 1 global) of a launch of `grid`
+// blocks runs it: the tree staged as the kernel stages it (the whole
+// padded table, or every S-th entry with S by the launch; the global
+// instance reads the dictionary and its padding virtually), keys four at
+// a time through the same search, the ragged tail one by one: keys
+// int32[n], dict int32[r] sorted, read as the table padded with the
+// sentinel to rp entries -> out uint8[n]. Returns log2 S.
+extern "C" int host_dict_bsearch(const int32_t* keys, int n,
+                                 const int32_t* dict, int r, int rp, int inst,
+                                 int grid, uint8_t* out) {
+  const int log2s = ds::log2_step(rp, inst, n, grid);
+  const int levels = ds::log2_of(rp) - log2s;
+  std::vector<int32_t> tree(size_t(1) << levels);
+  for (int j = 0; j < (1 << levels); ++j) {
+    tree[j] = ds::entry(dict, r, ds::node_entry(j, levels, log2s));
+  }
+  const ds::GlobalTable t{dict, r,
+                          reinterpret_cast<uintptr_t>(dict) % 16 == 0};
+  auto four = inst == ds::kShared ? ds::search<4, ds::kShared>
+                                  : ds::search<4, ds::kGlobal>;
+  auto one = inst == ds::kShared ? ds::search<1, ds::kShared>
+                                 : ds::search<1, ds::kGlobal>;
+  const int quads = n / 4;
+  for (int q = 0; q < quads; ++q) {
+    const uint32_t flags = four(tree.data(), levels, log2s, t, keys + 4 * q);
+    for (int u = 0; u < 4; ++u) out[4 * q + u] = (flags >> (8 * u)) & 1;
+  }
+  for (int i = 4 * quads; i < n; ++i) {
+    out[i] = uint8_t(one(tree.data(), levels, log2s, t, keys + i));
+  }
+  return log2s;
 }

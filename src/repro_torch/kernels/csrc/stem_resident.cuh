@@ -66,14 +66,6 @@ constexpr int kMaxLanes = 8;
 // waits for its slowest word, so fewer, longer rounds lose less).
 constexpr int kMaxRounds = 4;
 
-// Threads a block of the staged-path kernels runs for a tile of block_b
-// keys or words (K6, K8): min(block_b, kMaxThreads), striding over it.
-constexpr int kMaxThreads = 512;
-
-RT_HD int block_threads(int block_b) {
-  return block_b < kMaxThreads ? block_b : kMaxThreads;
-}
-
 RT_HD int imin(int a, int b) { return a < b ? a : b; }
 
 template <bool SHARED>

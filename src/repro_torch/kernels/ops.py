@@ -37,14 +37,13 @@ CUDA_WRAPPERS = (sf.CUDA_WRAPPERS + tf.CUDA_WRAPPERS + pk.CUDA_WRAPPERS
 
 # -- dispatch accounting -----------------------------------------------------
 def reset_dispatch_count() -> None:
-    """Zero the launch counters of every kernel (K1-K9), and K5's and
-    K9's counts per instance."""
+    """Zero the launch counters of every kernel (K1-K9), and K5's, K8's
+    and K9's counts per instance."""
     for wrapper in CUDA_WRAPPERS:
         wrapper.launches = 0
-    pk.postings_cuda.instances = dict.fromkeys(
-        pk.postings_cuda.instances, 0)
-    fa.flash_attention_cuda.instances = dict.fromkeys(
-        fa.flash_attention_cuda.instances, 0)
+    for wrapper in (pk.postings_cuda, sm.dict_match_bsearch_cuda,
+                    fa.flash_attention_cuda):
+        wrapper.instances = dict.fromkeys(wrapper.instances, 0)
 
 
 def dispatch_count() -> int:

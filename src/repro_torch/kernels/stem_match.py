@@ -19,7 +19,9 @@ plain PyTorch version (``csrc/dict_match.cu``):
       with its own bank;
   dict_match_bsearch_plain / dict_match_bsearch_cuda (K8, replaces
       ``:208``, ``_bsearch_kernel``): ``bsearch_hit`` against the sorted
-      table of :func:`pad_dict_sorted`.
+      table of :func:`pad_dict_sorted`; the kernel reads the unpadded
+      table, its padding virtually, and searches a fence tree, then one
+      8-entry block (``csrc/dict_search.cuh``).
 
 Padding never matches a candidate key, which is >= 0: the bank pads with
 DICT_PAD = -2, and the sorted layout pads on the right with a sentinel
@@ -30,6 +32,7 @@ search whenever R is not already the padded size. The port keeps both.
 """
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 
 import numpy as np
@@ -44,6 +47,11 @@ DICT_SENTINEL = 1 << 28
 # whose fences fit one block's shared memory (232,448 bytes on an H100).
 FENCE_MIN_STEP = 8
 FENCE_BUDGET_BYTES = 227 * 1024
+# K8's two instances by their number in csrc/dict_search.cuh (kShared,
+# kGlobal): the padded table staged in shared memory, or read from global
+# memory with only a tree of its fences staged; the header's ds::instance
+# picks one by the padded table's size (build.host_bsearch_instance)
+BSEARCH_INSTANCES = ("shared", "global")
 # the plain comparator bank's all-pairs temporary, in bytes (bool)
 _BANK_TEMP_BYTES = 1 << 28
 # K7's banks (csrc/dict_bank.cuh): entries a block banks at once, the
@@ -72,11 +80,17 @@ def pad_dict_lanes(dict_keys: torch.Tensor) -> torch.Tensor:
     return _pad_right(dict_keys, r + (-r) % LANE, DICT_PAD).reshape(-1, LANE)
 
 
+def sorted_padded(r: int) -> int:
+    """Entries of the sorted search's table of ``r`` keys after padding:
+    the next power of two >= LANE."""
+    return max(LANE, 1 << _ceil_log2(r))
+
+
 def pad_dict_sorted(dict_keys: torch.Tensor) -> torch.Tensor:
     """Pad a *sorted* dictionary to the next pow2 >= LANE with DICT_SENTINEL,
     reshaped (rows, LANE)."""
-    rp = max(LANE, 1 << _ceil_log2(dict_keys.shape[0]))
-    return _pad_right(dict_keys, rp, DICT_SENTINEL).reshape(-1, LANE)
+    return _pad_right(dict_keys, sorted_padded(dict_keys.shape[0]),
+                      DICT_SENTINEL).reshape(-1, LANE)
 
 
 def pad_dict_tiles(dict_keys: torch.Tensor, tile_rows: int) -> torch.Tensor:
@@ -338,13 +352,24 @@ def dict_match_cuda(keys: torch.Tensor, dict_keys: torch.Tensor, *,
     return out
 
 
+def _last_bsearch_instance(lib) -> str:
+    """The instance the library's last K8 launch took."""
+    shape = [ctypes.c_int(0) for _ in range(4)]
+    lib.dict_bsearch_last_shape(*(ctypes.byref(x) for x in shape))
+    return BSEARCH_INSTANCES[shape[0].value]
+
+
 def dict_match_bsearch_cuda(keys: torch.Tensor, dict_keys: torch.Tensor, *,
                             block_n: int = 8) -> torch.Tensor:
     """Launch K8 (``csrc/dict_match.cu``) on the current stream: same
-    contract as :func:`dict_match_bsearch_plain`, for CUDA tensors. The
-    table sits in shared memory while it fits one block's budget. Adds
-    one to ``dict_match_bsearch_cuda.launches`` per launch."""
-    from repro_torch.kernels import build
+    contract as :func:`dict_match_bsearch_plain`, for CUDA tensors. One
+    kernel: it reads the unpadded table and its sentinel padding
+    virtually, in shared memory while the padded table fits
+    (``build.host_bsearch_instance``); ``block_n`` is only checked (a
+    persistent grid strides over the keys). Adds one to
+    ``dict_match_bsearch_cuda.launches`` and to ``.instances[instance]``
+    (the instance the launch took) per launch."""
+    from repro_torch.kernels import build  # lazy: builds at first launch
     from repro_torch.kernels import stem_fused as sf
 
     _check_blocks(block_n)
@@ -353,19 +378,22 @@ def dict_match_bsearch_cuda(keys: torch.Tensor, dict_keys: torch.Tensor, *,
     out = torch.empty((n,), dtype=torch.bool, device=dev)
     if n == 0:
         return out
-    table = pad_dict_sorted(dict_keys).reshape(-1)
-    shared = 4 * table.shape[0] <= sf.SMEM_BLOCK_BYTES
+    r = dict_keys.shape[0]
+    rp = sorted_padded(r)           # the kernel reads the padding
+    if keys.data_ptr() % 16:        # it reads keys 16 B at a time
+        keys = keys.clone()
     lib = build.dict_match_library()
     with torch.cuda.device(dev):
         err = lib.dict_match_bsearch_launch(
-            keys.data_ptr(), n, table.data_ptr(), table.shape[0],
-            out.data_ptr(), block_n * LANE, int(shared),
+            keys.data_ptr(), n, dict_keys.data_ptr(), r, rp, out.data_ptr(),
             sf._cuda_stream(dev))
     sf._raise_on(err, lib, "dict_match_bsearch")
     dict_match_bsearch_cuda.launches += 1
+    dict_match_bsearch_cuda.instances[_last_bsearch_instance(lib)] += 1
     return out
 
 
 CUDA_WRAPPERS = (dict_match_cuda, dict_match_bsearch_cuda)
 for _wrapper in CUDA_WRAPPERS:
     _wrapper.launches = 0
+dict_match_bsearch_cuda.instances = dict.fromkeys(BSEARCH_INSTANCES, 0)

@@ -16,13 +16,17 @@ the clitics and pack (``core.textnorm.strip_and_pack``).
                        (replaces ``repro/kernels/text_frontend.py:41``,
                        ``_frontend_kernel``); bound by bytes: every row of
                        the T // 2 + 1 word capacity is written, 64 B each,
-                       so the kernel writes rows with 16-byte stores and
-                       skips the rules for empty ones
+                       so a block writes its empty rows a warp a 512-byte
+                       piece and hands only the live rows to its groups of
+                       G lanes, a word a group (G by the launch's rows,
+                       ``last_lanes``)
 
 :func:`text_frontend` takes the plain version for a CPU tensor only; a
 CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -90,8 +94,10 @@ def text_frontend_plain(chars: torch.Tensor, starts: torch.Tensor,
 def text_frontend_cuda(chars: torch.Tensor, starts: torch.Tensor,
                        lens: torch.Tensor, *, block_w: int = 128):
     """Launch K4 (``csrc/text_frontend.cu``) on the current stream: same
-    contract as :func:`text_frontend_plain`, for CUDA tensors. Adds one to
-    ``text_frontend_cuda.launches`` per launch."""
+    contract as :func:`text_frontend_plain`, for CUDA tensors. Records the
+    lanes a word and blocks the launch took (``last_lanes``,
+    ``last_grid``; ``build.host_text_lanes`` gives the rule's lanes) and
+    adds one to ``text_frontend_cuda.launches`` per launch."""
     from repro_torch.kernels import build  # lazy: builds at first launch
 
     dev = chars.device
@@ -110,11 +116,16 @@ def text_frontend_cuda(chars: torch.Tensor, starts: torch.Tensor,
             lens.data_ptr(), wp, lut.data_ptr(), fw.data_ptr(), fw.shape[0],
             words.data_ptr(), block_w, _cuda_stream(dev))
     _raise_on(err, lib, "text_frontend")
+    lanes, grid = ctypes.c_int(0), ctypes.c_int(0)
+    lib.text_frontend_last_shape(ctypes.byref(lanes), ctypes.byref(grid))
+    text_frontend_cuda.last_lanes = lanes.value
+    text_frontend_cuda.last_grid = grid.value
     text_frontend_cuda.launches += 1
     return words
 
 
 text_frontend_cuda.launches = 0
+text_frontend_cuda.last_lanes = text_frontend_cuda.last_grid = 0
 CUDA_WRAPPERS = (text_frontend_cuda,)
 
 

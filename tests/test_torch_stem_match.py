@@ -4,6 +4,8 @@ against the JAX package's interpret-mode Pallas kernels, bool[N] flags
 identical, the padding hits included; the g++ build of K7's banks
 (csrc/dict_bank.cuh: the bank build and the four-key probe) against the
 plain version."""
+import functools
+
 import numpy as np
 import pytest
 
@@ -280,6 +282,73 @@ def test_bank_stats_count_what_the_banks_do():
     np.testing.assert_array_equal(tsm.bank_of(_adversarial(64), 16), 0)
 
 
+# the sorted search's table sizes: below, at and past LANE, the realistic
+# tri table's padded size, the shared instance's largest table and one
+# past it, and the 262,144-key dictionaries
+SEARCH_SIZES = (1, 127, 128, 129, 2000, 32_768, 32_769, 262_144)
+
+
+@functools.lru_cache(maxsize=None)
+def _search_case(r: int):
+    """A sorted table of r keys, keys that hit and miss with the sentinel,
+    KEY_PAD, the table's ends and a key below it (a count that is not a
+    multiple of 4), and the plain and interpret-mode Pallas flags."""
+    table = _table(r, r + 17, sort=True)
+    keys = _keys(1001, table, r + 18)
+    keys[:5] = [tsm.DICT_SENTINEL, tsm.KEY_PAD, table[0], table[-1],
+                table[0] - 1]
+    got, want = _bsearch(keys, table)
+    return table, keys, got.numpy(), want
+
+
+@pytest.mark.parametrize("instance", ["shared", "global"])
+@pytest.mark.parametrize("r", SEARCH_SIZES)
+def test_host_build_of_search_matches_plain_and_pallas(r, instance):
+    """The g++ build of csrc/dict_search.cuh (the fence tree, the 8-entry
+    block, the padding read virtually; four keys a probe and the ragged
+    tail one by one) against the plain version and the interpret-mode
+    Pallas kernel, bit for bit: the sentinel hits exactly when the table
+    was padded, KEY_PAD never (no table here holds it)."""
+    table, keys, plain, ref = _search_case(r)
+    np.testing.assert_array_equal(plain, ref)
+    for n in (1001, 1000, 3):
+        for grid in (1, 132):
+            got, log2s = build.host_dict_bsearch(keys[:n], table,
+                                                 instance=instance, grid=grid)
+            np.testing.assert_array_equal(got, plain[:n])
+            assert (log2s == 0) == (instance == "shared")
+    assert bool(plain[0]) == (tsm.sorted_padded(r) != r)
+    assert not plain[1] and plain[2] and plain[3] and not plain[4]
+
+
+@pytest.mark.parametrize("instance", ["shared", "global"])
+def test_host_build_of_search_takes_odd_tables(instance):
+    """The placeholder [-1] (KEY_PAD hits), a table with duplicates, a
+    table read at a 4-byte offset (the global instance's scalar path), and
+    one past the fence budget; the global instance at launches of 1 and
+    132 blocks, whose steps differ (a bisection of 8-entry blocks in the
+    segment past S = 8)."""
+    rng = np.random.default_rng(5)
+    dup = np.sort(np.repeat(_table(300, 6, sort=False), 3)).astype(np.int32)
+    big = _table(600_001, 7, sort=True)
+    for table in (np.array([-1], np.int32), dup, big[1:], big[:300_000]):
+        keys = _keys(4099, table, 8)
+        keys[:3] = [tsm.DICT_SENTINEL, tsm.KEY_PAD, table[-1]]
+        keys[3::50] = rng.integers(-(1 << 31), 1 << 31, keys[3::50].size)
+        want = tsm.dict_match_bsearch_plain(torch.from_numpy(keys),
+                                            torch.from_numpy(table))
+        steps = set()
+        for grid in (1, 132):
+            got, log2s = build.host_dict_bsearch(keys, table,
+                                                 instance=instance, grid=grid)
+            np.testing.assert_array_equal(got, want.numpy())
+            steps.add(log2s)
+        if instance == "global" and table.size > 100_000:
+            assert len(steps) == 2 and min(steps) >= 3
+    assert build.host_bsearch_instance(tsm.sorted_padded(32_768)) == "shared"
+    assert build.host_bsearch_instance(tsm.sorted_padded(32_769)) == "global"
+
+
 def _on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
@@ -310,18 +379,39 @@ def test_bank_kernel_matches_plain_on_card(block_n, block_r):
 @pytest.mark.cuda
 def test_bsearch_kernel_matches_plain_on_card():
     """Tables in shared memory (up to 32,768 padded entries) and in global
-    memory (the 262,144-key grown dictionary)."""
+    memory (the 262,144-key grown dictionary, SEARCH_SIZES past 32,768),
+    each launch's instance from its counter; keys with the sentinel and
+    KEY_PAD, counts not a multiple of 4, keys at a 4-byte offset (the
+    wrapper copies them); and one kernel queued a call."""
     _on_card()
     da = tstemmer.RootDictArrays.from_rootdict(tcorpus.build_dictionary())
     grown = tcorpus.grow_root_arrays(da, 262_144)
     tables = [da.tri, da.quad, da.bi, grown.tri,
               torch.from_numpy(_table(32_768, 1, sort=True)).cuda(),
               torch.from_numpy(_table(40_000, 2, sort=True)).cuda()]
+    tables += [torch.from_numpy(_search_case(r)[0]).cuda()
+               for r in SEARCH_SIZES]
     for table in tables:
-        keys = torch.from_numpy(_keys(200_000, table.cpu().numpy(), 3)).cuda()
+        keys = torch.from_numpy(_keys(200_003, table.cpu().numpy(), 3)).cuda()
         keys[:2] = torch.tensor([tsm.DICT_SENTINEL, -1])
+        inst = build.host_bsearch_instance(tsm.sorted_padded(table.shape[0]))
         for block_n in (1, 8):
-            got = tsm.dict_match_bsearch_cuda(keys, table, block_n=block_n)
+            for k in (keys[:200_000], keys[1:], keys[:4097], keys[3:6]):
+                tsm.dict_match_bsearch_cuda.instances[inst] = 0
+                got = tsm.dict_match_bsearch_cuda(k, table, block_n=block_n)
+                torch.cuda.synchronize()
+                want = tsm.dict_match_bsearch_plain(k, table)
+                assert torch.equal(got, want)
+                assert tsm.dict_match_bsearch_cuda.instances[inst] == 1
+    from torch.profiler import ProfilerActivity, profile
+
+    keys = torch.from_numpy(_keys(24_576, da.tri.cpu().numpy(), 4)).cuda()
+    for table in (da.tri, grown.tri):
+        tsm.dict_match_bsearch_cuda(keys, table)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            tsm.dict_match_bsearch_cuda(keys, table)
             torch.cuda.synchronize()
-            want = tsm.dict_match_bsearch_plain(keys, table)
-            assert torch.equal(got, want)
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(kernels) == 1, [e.name for e in kernels]

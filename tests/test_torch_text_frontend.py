@@ -143,6 +143,148 @@ def test_host_build_of_frontend_header_matches_plain(tile, odd_geometry):
                                       want.numpy())
 
 
+def _segmented(tile):
+    geo = ttn.segment_geometry(torch.from_numpy(tile), block_w=128)
+    return geo.starts.numpy(), geo.lens.numpy()
+
+
+def _sparse_blocks(tile):
+    """4096 rows, every even piece of 8 rows empty (so block 0 has no live
+    row at every lane count: each launch's grid is even and block 0 takes
+    pieces 0, grid, 2 grid, ...), the odd pieces a mix of live and empty
+    rows."""
+    starts, lens = _segmented(tile)
+    live = np.flatnonzero(lens > 0)
+    rng = np.random.default_rng(11)
+    rows = np.arange(4096).reshape(-1, 8)
+    slots = rows[1::2].reshape(-1)
+    slots = slots[rng.random(slots.size) < 0.6]
+    pick = rng.choice(live, size=slots.size)
+    s, n = np.zeros(4096, np.int32), np.zeros(4096, np.int32)
+    s[slots], n[slots] = starts[pick], lens[pick]
+    return s, n
+
+
+def _words_tile(words):
+    chars, _, _ = rtn.coalesce_docs([" ".join(words)])
+    return chars
+
+
+# words of 31, 32 and 40 raw codepoints with marks inside, and of exactly
+# MIN_STEM letters left after a proclitic or an enclitic (and one letter
+# short of it)
+_LONG = ["\u0628\u064e" * 15 + "\u062a",          # 31 raw, 16 letters
+         "\u0643\u0651\u062a" * 10 + "\u0628\u064f",  # 32 raw
+         "\u0648\u0627\u0644" + "\u0645\u0650" * 18 + "\u0647\u0627",
+         "\u0640" * 12 + "\u0643\u062a\u0628" * 9 + "\u0647\u0645"]
+_STEM = "\u062f\u0631\u0633"          # three letters, no clitic among them
+_MIN_STEM = ["\u0648\u0627\u0644" + _STEM,     # wal + stem
+             "\u0628\u0627\u0644" + _STEM,     # bal + stem
+             _STEM + "\u0647\u0645\u0627",     # stem + huma
+             "\u0648" + _STEM + "\u0647\u0627",  # wa + stem + ha
+             "\u0644\u0644" + _STEM,            # lil + stem
+             _STEM + "\u0643\u0645",            # stem + kum
+             "\u0648\u0627\u0644" + _STEM[:2],   # wal + 2 letters: wa only
+             _STEM[:2] + "\u0647\u0645\u0627"]   # 2 letters + huma: none
+
+FRONTEND_CASES = ("segmented", "odd", "sparse blocks", "long words",
+                  "min stem")
+
+
+@pytest.fixture(scope="module")
+def frontend_cases(tile, odd_geometry):
+    """name -> (tile, starts, lens, plain rows), each plain result held to
+    the interpret-mode Pallas kernel once."""
+    out = {}
+    for name in FRONTEND_CASES:
+        t = {"long words": _words_tile(_LONG),
+             "min stem": _words_tile(_MIN_STEM)}.get(name, tile)
+        if name == "odd":
+            s, n = odd_geometry
+        elif name == "sparse blocks":
+            s, n = _sparse_blocks(t)
+        else:
+            s, n = _segmented(t)
+        want = ttf.text_frontend_plain(torch.from_numpy(t),
+                                       torch.from_numpy(s),
+                                       torch.from_numpy(n), block_w=128)
+        out[name] = (t, s, n, want.numpy())
+    return out
+
+
+@pytest.mark.parametrize("case", FRONTEND_CASES)
+def test_frontend_cases_plain_matches_pallas(frontend_cases, case):
+    """The cases the lane counts are checked on, plain K4 against the
+    interpret-mode Pallas kernel; the long and short words also against
+    the host oracle."""
+    t, s, n, want = frontend_cases[case]
+    ref = rtf.text_frontend_pallas(t, s, n, block_w=128, interpret=True)
+    np.testing.assert_array_equal(want, np.asarray(ref))
+    if case in ("long words", "min stem"):
+        words = _LONG if case == "long words" else _MIN_STEM
+        rows, _ = rtn.analyze_text_py(" ".join(words))
+        assert rows.shape[0] == len(words)
+        np.testing.assert_array_equal(want[:len(words)], rows)
+    if case == "min stem":            # the clitics were stripped
+        assert (want[:6, 3] == 0).all() and (want[:6, 2] > 0).all()
+        assert want[6, 3] > 0 and want[7, 4] > 0
+
+
+@pytest.mark.parametrize("lanes", build.TEXT_LANES)
+@pytest.mark.parametrize("case", FRONTEND_CASES)
+def test_host_build_at_each_lane_count_matches_plain(frontend_cases, case,
+                                                     lanes):
+    """The g++ build of csrc/text_frontend.cuh run as a launch at `lanes`
+    lanes a word (the piece walk block by block, live rows compacted and
+    run a word a group with the votes and shuffles emulated, empty rows
+    zeroed) against plain K4, every row written."""
+    t, s, n, want = frontend_cases[case]
+    got = build.host_text_frontend(t, s, n, lanes=lanes)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("lanes", build.TEXT_LANES)
+@pytest.mark.parametrize("seed", range(5))
+def test_host_build_on_seeded_documents_matches_plain(seed, lanes):
+    """The g++ build at `lanes` lanes a word on seeded documents, their
+    rows in segmentation order (equal to the host oracle's) and shuffled,
+    so live rows sit anywhere among empty ones, against plain K4."""
+    docs = build_documents(3, 64, seed=seed)
+    t = _words_tile([" ".join(docs)])
+    starts, lens = _segmented(t)
+    perm = np.random.default_rng(seed).permutation(starts.shape[0])
+    rows, _ = rtn.analyze_text_py(" ".join(docs))
+    for s, n in ((starts, lens), (starts[perm], lens[perm])):
+        want = ttf.text_frontend_plain(torch.from_numpy(t),
+                                       torch.from_numpy(s),
+                                       torch.from_numpy(n), block_w=128)
+        got = build.host_text_frontend(t, s, n, lanes=lanes)
+        np.testing.assert_array_equal(got, want.numpy())
+    np.testing.assert_array_equal(want.numpy()[np.argsort(perm)][:len(rows)],
+                                  rows)
+
+
+def test_lane_rule_and_piece_walk():
+    """The launcher's lanes a word by rows (on an H100's 132 SMs: 8 below
+    135,168 rows, from a one-codepoint tile's 128 to a served request's
+    32,896 and 75,008; 1 from 135,168 on: an index chunk's 446,464, a
+    1M-word tile's 3,574,912), and sparse_blocks' premise: block 0 of
+    every lane count's grid takes only even pieces."""
+    assert [build.host_text_lanes(r, sms=132) for r in
+            (32_896, 75_008, 135_167, 135_168, 446_464, 3_574_912)] == \
+        [8, 8, 8, 1, 1, 1]
+    assert [build.host_text_lanes(r, sms=132) for r in
+            (16_896, 16_895, 8_448, 8_447, 128)] == [8] * 5
+    lanes = [build.host_text_lanes(r, sms=132)
+             for r in (1, 2_000, 20_000, 40_000, 80_000, 140_000, 600_000)]
+    assert lanes == sorted(lanes, reverse=True)
+    assert set(lanes) <= set(build.TEXT_LANES)
+    for g in build.TEXT_LANES:
+        pieces = 4096 // 8
+        grid = -(-pieces // (256 // g))
+        assert grid % 2 == 0 and grid * (256 // g) >= pieces
+
+
 def test_text_to_words_matches_host_oracle(docs, tile):
     words, spans, n_words = tops.text_to_words(tile, block_w=256,
                                                device="cpu")
@@ -187,9 +329,28 @@ def test_guards():
             tops.text_to_words(np.zeros(8, np.int32))
 
 
+def _forced_frontend(lanes, tile, starts, lens, block_w):
+    """K4 through the measurement build that fixes its lanes a word."""
+    lib = build.forced_text_lanes_library(lanes)
+    words = torch.empty((starts.shape[0], 16), dtype=torch.int32,
+                        device="cuda")
+    lut, fw = ttn.device_tables("cuda")
+    err = lib.text_frontend_launch(
+        tile.data_ptr(), tile.shape[0], starts.data_ptr(), lens.data_ptr(),
+        starts.shape[0], lut.data_ptr(), fw.data_ptr(), fw.shape[0],
+        words.data_ptr(), block_w, torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    return words
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("block_w", [128, 256, 1024])
-def test_frontend_kernel_matches_plain_on_card(tile, odd_geometry, block_w):
+def test_frontend_kernel_matches_plain_on_card(tile, odd_geometry,
+                                               frontend_cases, block_w):
+    """The segmented tile and odd geometry at block_w, the cases of
+    FRONTEND_CASES at every lane count (the measurement builds) and by the
+    launcher's rule (its lanes the g++ build's), and a one-codepoint
+    tile."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     t = torch.from_numpy(tile).cuda()
@@ -205,6 +366,22 @@ def test_frontend_kernel_matches_plain_on_card(tile, odd_geometry, block_w):
             torch.cuda.synchronize()
             want = ttf.text_frontend_plain(t, s, n, block_w=block_w)
             assert torch.equal(got, want)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, (ct, s, n, want) in frontend_cases.items():
+        rows = s.shape[0] // block_w * block_w
+        if rows == 0:
+            continue
+        ct, s, n = (torch.from_numpy(x).cuda() for x in (ct, s[:rows],
+                                                          n[:rows]))
+        for lanes in build.TEXT_LANES:
+            got = _forced_frontend(lanes, ct, s, n, block_w)
+            torch.cuda.synchronize()
+            assert np.array_equal(got.cpu().numpy(), want[:rows]), \
+                (name, lanes)
+        got = ttf.text_frontend_cuda(ct, s, n, block_w=block_w)
+        assert np.array_equal(got.cpu().numpy(), want[:rows])
+        assert ttf.text_frontend_cuda.last_lanes == build.host_text_lanes(
+            rows, sms=sms)
     one = torch.tensor([0x0628], dtype=torch.int32, device="cuda")
     g1 = ttn.segment_geometry(one, block_w=block_w)
     assert torch.equal(ttf.text_frontend_cuda(one, g1.starts, g1.lens,
