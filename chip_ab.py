@@ -7,7 +7,8 @@ CUDA card.
 For the checkouts (other, this, this, other), in that order, a subprocess
 imports ``repro_torch`` from that checkout's ``src``, builds its kernels
 (into that checkout's ``build/``) and times K1, K2 and both K3 variants at
-``block_b = N`` (default 256) on 4096 and 1,048,576 corpus words, and K1
+``block_b = N`` (default 256) on 4096 and 1,048,576 corpus words (K3 also
+with its flags in host-mapped memory, where the checkout has them), and K1
 as the index builds launch it (131,072 words at block_b 2048), with
 ``chip_smoke.py``'s timers and dictionaries: the realistic dictionary for
 the resident kernels (and the lanes a word they took, where the checkout
@@ -95,6 +96,16 @@ def child(tree: Path, block_b: int) -> None:
                 w, tables, res_desc, **res),
             "K3 streamed": k3,
         }
+        if hasattr(sf, "MappedFlags"):
+            # K3 as the serving ring launches it, its flags in host-mapped
+            # memory (a checkout from before them has no such launch)
+            mapped = sf.MappedFlags(bt, dev)
+            runs["K3 resident, mapped flags"] = \
+                lambda: sf.persistent_resident_cuda(  # noqa: E731
+                    w, tables, res_desc, flags_out=mapped, **res)
+            runs["K3 streamed, mapped flags"] = \
+                lambda: sf.persistent_streamed_cuda(  # noqa: E731
+                    w, tiles, res_desc, flags_out=mapped, **res)
         n = 200 if b == min(SIZES) else 20
         for name, fn in runs.items():
             out[f"{name} B={b}"] = cs.device_ms(fn, n, cs.call_ms(fn, n))
@@ -185,12 +196,13 @@ def main() -> int:
         row["label"] = label
         results.append(row)
         print(f"[ab] {label} ({tree}): {json.dumps(row)}")
-    keys = [k for k in results[0] if "B=" in k and "lanes" not in k
-            and k in results[1]]
+    keys = [k for k in results[1] if "B=" in k and "lanes" not in k]
     print(f"[ab] ms on the card at block_b={args.block_b}"
-          " (other, this, this, other):")
+          " (other, this, this, other; - where a checkout has no such"
+          " launch):")
     for k in keys:
-        print(f"[ab] {k}: " + ", ".join(f"{r[k]:.6f}" for r in results))
+        print(f"[ab] {k}: " + ", ".join(
+            f"{r[k]:.6f}" if k in r else "-" for r in results))
     for k in (k for k in results[1] if "lanes" in k or "profile" in k):
         print(f"[ab] {k}: " + ", ".join(json.dumps(r.get(k))
                                          for r in results))

@@ -109,8 +109,28 @@ realistic size. Phases:
                dictionary (K3 streamed); persistent on the realistic one
                (K3 resident); then the two resident ways again in the
                other order. Every request equals the plain sorted-search
-               stemmer, every retire's checksum (and flags) is verified,
-               and launches equal the planned launches
+               stemmer, every retire's checksum (and flags, read from the
+               slots' host-mapped memory) is verified, and launches equal
+               the planned launches
+  6b. faults   the same 256 requests, persistent on the realistic
+               dictionary (block_b 256, 16 tiles a launch, 2 in flight),
+               under a FaultPlan: two dispatch failures, one corrupted
+               retire, one wedge after 5 retired descriptors (watchdog
+               0.05 s) and one poison request; every other request equals
+               the plain stemmer, the poison one is quarantined, and the
+               counters, fired log and events are the ones the plan
+               implies (5 x 256 words salvaged, K3 resident 256 launches,
+               K1 one); a DegradationPolicy driven by queue pressure walks
+               persistent -> megabatch x16 -> per-tile -> streamed-dict and
+               back, every request equal to the plain stemmer, K3
+               resident, K1 and K2 each launched; a journaled serve
+               dropped mid-drain with a torn journal tail, recovered by
+               Engine.recover over DictStore.restore, together equal to
+               the plain stemmer; the fault-free persistent serve with and
+               without the journal, twice each; one 1M-word K3 resident
+               launch into host-mapped flags polled by the host until it
+               completes (the count never falls, the final flags equal the
+               plain version's, read with no copy)
   7. extract   the same words through core.stemmer.extract_roots
                (backend "fused") on the 262,144-key dictionary, which
                streams them through K2
@@ -175,6 +195,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -196,6 +217,26 @@ OPS_PER_PROBE = 9
 WORD_BYTES = 16 * 4 + 4 * 4 + 4          # word row in, root + source out
 SERVE_WORDS = 1 << 20
 SERVE_REQUEST_WORDS = 4096
+# phase 6b: the faulted persistent serve's plan (dispatch events 3 and 7
+# fail, the 3rd retire is corrupted, the 6th persistent launch wedges
+# after 5 descriptors, request 200 fails every dispatch) and its watchdog.
+# The corrupted retire comes before the wedge, so it is a K3 launch's
+FAULT_DISPATCH_AT = (3, 7)
+FAULT_RETIRE_AT = 2
+FAULT_STALL_AT = 5
+FAULT_RETIRED_TILES = 5
+FAULT_POISON_RID = 200
+FAULT_WATCHDOG_S = 0.05
+# the ladder walk: requests of 1024 words, one admitted at a time (a mode
+# lands only at a tick whose ring is empty), queue pressure down to the
+# bottom rung and healthy steps back up
+LADDER_REQUESTS = 128
+LADDER_REQUEST_WORDS = 1024
+LADDER_QUEUE_HIGH = 100
+LADDER_DOWN_AFTER = 2
+LADDER_UP_AFTER = 10
+# the journaled serve dropped after this many engine steps
+KILL_STEPS = 64
 GROWN_KEYS = 262_144
 # a dictionary whose 8-entry fences do not fit one block's shared memory
 FENCE_KEYS = 524_288
@@ -1333,14 +1374,17 @@ def k9_phase(fa):
 # the main paths
 # ---------------------------------------------------------------------------
 def serve_phase(label, ops, sf, arrays, serve_words, want, *,
-                persistent: bool, store_kw=None):
+                persistent: bool, store_kw=None, journal_dir=None):
     """Serve every word through Engine + StemmerWorkload (after an 8-request
     warm-up), with the launch counters set to 0 just before and read just
-    after; check every request and the accounting -> (launches, seconds)."""
+    after; check every request and the accounting (a persistent serve's
+    flags read from the slots' host-mapped memory) -> (launches, seconds).
+    With ``journal_dir`` the engine journals every admit and retire there
+    (the write-ahead journal of ``--journal``)."""
     import numpy as np
     import torch
 
-    from repro_torch.serve import DictStore, Engine, StemmerWorkload
+    from repro_torch.serve import DictStore, Engine, Journal, StemmerWorkload
 
     n_req = SERVE_WORDS // SERVE_REQUEST_WORDS
 
@@ -1348,7 +1392,11 @@ def serve_phase(label, ops, sf, arrays, serve_words, want, *,
         store = DictStore(arrays, device=arrays.device, **(store_kw or {}))
         wl = StemmerWorkload(store, block_b=BLOCK_B, megabatch_tiles=16,
                              max_inflight=2, persistent=persistent)
-        eng = Engine(wl)
+        journal = None
+        if journal_dir is not None:
+            path = Path(journal_dir) / f"wal-{time.perf_counter_ns()}.jsonl"
+            journal = Journal(path)
+        eng = Engine(wl, journal=journal)
         t = time.perf_counter()
         rids = [eng.submit(serve_words[i * SERVE_REQUEST_WORDS:
                                        (i + 1) * SERVE_REQUEST_WORDS])
@@ -1381,6 +1429,15 @@ def serve_phase(label, ops, sf, arrays, serve_words, want, *,
           f"{wl.checksum_tiles} tiles checksum-verified, want {tiles}")
     check(wl.flag_tiles == (tiles if persistent else 0),
           f"{wl.flag_tiles} tiles flag-verified")
+    mapped = [f for f in wl._flags if f is not None]
+    check(all(isinstance(f, sf.MappedFlags) for f in mapped)
+          and bool(mapped) == persistent,
+          f"{label}: the flags must come from host-mapped memory")
+    if journal_dir is not None:
+        eng.journal.close()
+        records, _ = type(eng.journal).read(eng.journal.path)
+        check(len(records) == 2 * n_req,
+              f"{label}: {len(records)} journal records, want {2 * n_req}")
     check(total == planned == wl.ticks_launched,
           f"{label}: kernel launches {total}, planned {planned}, engine"
           f" {wl.ticks_launched}")
@@ -1392,6 +1449,279 @@ def serve_phase(label, ops, sf, arrays, serve_words, want, *,
           f" tiles checksum-verified, {wl.flag_tiles} flag-verified,"
           f" residency {handle.residency})")
     return ran, serve_s
+
+
+def fault_serve_phase(ops, sf, arrays, serve_words, want) -> dict:
+    """Phase 6b, the faulted persistent serve: the 1M words in 256
+    requests through Engine + StemmerWorkload (block_b 256, 16 tiles a
+    launch, 2 in flight, persistent, watchdog) under a FaultPlan of two
+    dispatch failures, one retire corruption, one wedge after 5 retired
+    descriptors and one poison request, the launch counters set to 0 just
+    before and read just after. Every other request equals the plain
+    stemmer, the poison one is quarantined, and the counters, the fired
+    log and the events are exactly those the plan implies -> launches."""
+    import numpy as np
+
+    from repro_torch.serve import (DictStore, Engine, FaultInjector,
+                                   FaultPlan, FaultSpec, StemmerWorkload)
+
+    n_req = SERVE_WORDS // SERVE_REQUEST_WORDS
+    plan = FaultPlan(specs=tuple(
+        [FaultSpec("dispatch", at=a) for a in FAULT_DISPATCH_AT]
+        + [FaultSpec("retire", at=FAULT_RETIRE_AT),
+           FaultSpec("stall", at=FAULT_STALL_AT,
+                     retired_tiles=FAULT_RETIRED_TILES)]),
+        poison_rids=frozenset({FAULT_POISON_RID}))
+    inj = FaultInjector(plan)
+    wl = StemmerWorkload(DictStore(arrays, device=arrays.device),
+                         block_b=BLOCK_B, megabatch_tiles=16, max_inflight=2,
+                         persistent=True, watchdog_s=FAULT_WATCHDOG_S,
+                         injector=inj)
+    eng = Engine(wl)
+    ops.reset_dispatch_count()
+    t = time.perf_counter()
+    rids = [eng.submit(serve_words[i * SERVE_REQUEST_WORDS:
+                                   (i + 1) * SERVE_REQUEST_WORDS])
+            for i in range(n_req)]
+    rep = eng.run_until_drained(max_ticks=100_000)
+    wall = time.perf_counter() - t
+    launches = {w.__name__: w.launches for w in sf.CUDA_WRAPPERS}
+    want_r, want_s = want
+    for i, rid in enumerate(rids):
+        req = eng.result(rid)
+        sl = slice(i * SERVE_REQUEST_WORDS, (i + 1) * SERVE_REQUEST_WORDS)
+        if rid == FAULT_POISON_RID:
+            check(req.failure is not None
+                  and req.failure.code == "quarantined"
+                  and req.failure.retries == wl.max_retries + 1,
+                  f"the poison request ended as {req.failure}")
+            continue
+        check(req.failure is None and np.array_equal(req.roots, want_r[sl])
+              and np.array_equal(req.sources, want_s[sl]),
+              f"faulted serve: request {rid} differs from the plain stemmer"
+              f" ({req.failure})")
+    # what the plan implies: each dispatch failure and the corrupted
+    # retire one retry; the poison request max_retries + 1 retries and a
+    # quarantine (a launch holds one request: no bisection); one stall
+    # whose 5 retired descriptors are salvaged and whose other 11 go out
+    # again through one K1 launch; the corrupted launch goes out again
+    # through K3
+    poison_tries = wl.max_retries + 1
+    want_counts = {"retries_total": len(FAULT_DISPATCH_AT) + 1 + poison_tries,
+                   "bisections": 0, "quarantined": 1, "timeouts": 0,
+                   "checksum_failures": 1, "watchdog_stalls": 1,
+                   "device_losses": 0, "ticks_launched": n_req + 1}
+    got_counts = {k: getattr(wl, k) for k in want_counts}
+    check(got_counts == want_counts,
+          f"faulted serve counters {got_counts}, the plan implies"
+          f" {want_counts}")
+    fired = sorted((site, kind) for site, kind, _ in inj.fired)
+    want_fired = sorted([("dispatch", "fail")] * len(FAULT_DISPATCH_AT)
+                        + [("dispatch", "poison")] * poison_tries
+                        + [("retire", "corrupt"), ("stall", "wedge")])
+    check(fired == want_fired, f"fired {inj.fired}")
+    kinds: dict = {}
+    for ev in eng.events():
+        kinds[ev.kind] = kinds.get(ev.kind, 0) + 1
+    want_kinds = {"retry": want_counts["retries_total"],
+                  "checksum_failure": 1, "watchdog_stall": 1, "failure": 1}
+    check(kinds == want_kinds, f"events {kinds}, want {want_kinds}")
+    (stall,) = [e for e in eng.events() if e.kind == "watchdog_stall"]
+    check(stall.data["salvaged_words"] == FAULT_RETIRED_TILES * BLOCK_B
+          and stall.data["redispatched_words"]
+          == SERVE_REQUEST_WORDS - FAULT_RETIRED_TILES * BLOCK_B,
+          f"watchdog stall {stall.data}")
+    check(launches["persistent_resident_cuda"] == n_req
+          and launches["stem_fused_cuda"] == 1
+          and ops.dispatch_count() == n_req + 1,
+          f"faulted serve launches {launch_counts(ops)}")
+    ran = {n: c for n, c in launches.items() if c}
+    print(f"[faults] {n_req} requests / {SERVE_WORDS} words, persistent,"
+          f" under {len(plan.specs)} faults and poison request"
+          f" {FAULT_POISON_RID}: {wall:.6f} s"
+          f" ({(SERVE_WORDS - SERVE_REQUEST_WORDS) / wall:.0f} served"
+          f" words/s), {rep.ticks} ticks, launches {ran}; counters"
+          f" {got_counts}; events {kinds}; watchdog salvaged"
+          f" {stall.data['salvaged_words']} words and re-dispatched"
+          f" {stall.data['redispatched_words']}; {wl.flag_tiles} tiles"
+          f" flag-verified (host-mapped), {wl.checksum_tiles}"
+          " checksum-verified; every other request equal to the plain"
+          " stemmer, the poison one quarantined")
+    return ran
+
+
+def ladder_phase(ops, sf, arrays, serve_words, want) -> dict:
+    """Phase 6b, the degradation ladder: LADDER_REQUESTS requests through
+    an engine with a DegradationPolicy driven by queue pressure (one
+    request admitted at a time): it walks persistent -> megabatch x16 ->
+    per-tile -> streamed-dict and back up, every rung applied in turn,
+    every request equal to the plain stemmer, and the launch counters,
+    from 0, show K3 resident, K1 and K2 ran -> launches."""
+    import numpy as np
+
+    from repro_torch.serve import (DegradationPolicy, DictStore, Engine,
+                                   StemmerWorkload)
+
+    wl = StemmerWorkload(DictStore(arrays, device=arrays.device),
+                         block_b=BLOCK_B, megabatch_tiles=16, max_inflight=2,
+                         persistent=True, max_requests=1)
+    pol = DegradationPolicy(queue_high=LADDER_QUEUE_HIGH,
+                            down_after=LADDER_DOWN_AFTER,
+                            up_after=LADDER_UP_AFTER)
+    eng = Engine(wl, policy=pol)
+    labels = [r.label for r in pol.rungs]
+    check(labels == ["persistent", "megabatch x16", "per-tile",
+                     "streamed-dict"], f"ladder {labels}")
+
+    def rung() -> str:
+        if wl.residency_override == "streamed":
+            return "streamed-dict"
+        if wl.persistent:
+            return "persistent"
+        return "megabatch x16" if wl.megabatch_tiles > 1 else "per-tile"
+
+    ops.reset_dispatch_count()
+    n = LADDER_REQUESTS * LADDER_REQUEST_WORDS
+    rids = [eng.submit(serve_words[i * LADDER_REQUEST_WORDS:
+                                   (i + 1) * LADDER_REQUEST_WORDS])
+            for i in range(LADDER_REQUESTS)]
+    walk, served = [], {}
+    steps = 0
+    while (eng.queue or wl.active) and steps < 100_000:
+        before = wl.ticks_launched
+        eng.step()
+        steps += 1
+        now = rung()
+        if not walk or walk[-1] != now:
+            walk.append(now)
+        served[now] = served.get(now, 0) + wl.ticks_launched - before
+    launches = {w.__name__: w.launches for w in sf.CUDA_WRAPPERS}
+    check(not eng.queue and not wl.active, "the ladder serve did not drain")
+    want_walk = labels + labels[-2::-1]
+    check(walk == want_walk, f"ladder walk {walk}, want {want_walk}")
+    want_r, want_s = want
+    for i, rid in enumerate(rids):
+        req = eng.result(rid)
+        sl = slice(i * LADDER_REQUEST_WORDS, (i + 1) * LADDER_REQUEST_WORDS)
+        check(req.failure is None and np.array_equal(req.roots, want_r[sl])
+              and np.array_equal(req.sources, want_s[sl]),
+              f"ladder: request {rid} differs from the plain stemmer")
+    check(all(served.get(r, 0) > 0 for r in labels),
+          f"launches by rung {served}")
+    check(launches["persistent_resident_cuda"] > 0
+          and launches["stem_fused_cuda"] > 0
+          and launches["stem_streamed_cuda"] > 0,
+          f"ladder launches {launch_counts(ops)}")
+    ran = {k: c for k, c in launches.items() if c}
+    print(f"[faults] ladder: {LADDER_REQUESTS} requests / {n} words in"
+          f" {steps} steps walked {' -> '.join(walk)}"
+          f" ({[t[2] for t in pol.transitions]}), launches by rung"
+          f" {served}, kernel launches {ran}; every request equal to the"
+          " plain stemmer")
+    return ran
+
+
+def restart_phase(sf, arrays, serve_words, want, workdir) -> None:
+    """Phase 6b, kill and restart: a journaled persistent serve of the 1M
+    words, its DictStore snapshotted, is dropped after KILL_STEPS engine
+    steps (launches still in flight, no close), its journal given a torn
+    tail; Engine.recover over DictStore.restore re-serves exactly the
+    unfinished requests, and the outputs of both engines together equal
+    the plain stemmer's."""
+    import numpy as np
+
+    from repro_torch.serve import DictStore, Engine, Journal, StemmerWorkload
+
+    n_req = SERVE_WORDS // SERVE_REQUEST_WORDS
+    jp, sp = Path(workdir) / "restart.jsonl", Path(workdir) / "dict.npz"
+    store = DictStore(arrays, device=arrays.device, keep_history=True)
+    store.snapshot(sp)
+    kw = dict(block_b=BLOCK_B, megabatch_tiles=16, max_inflight=2,
+              persistent=True)
+    eng = Engine(StemmerWorkload(store, **kw), journal=Journal(jp))
+    rids = [eng.submit(serve_words[i * SERVE_REQUEST_WORDS:
+                                   (i + 1) * SERVE_REQUEST_WORDS])
+            for i in range(n_req)]
+    for _ in range(KILL_STEPS):
+        eng.step()
+    done_before = {r: eng.result(r) for r in rids
+                   if eng.result(r) is not None}
+    in_flight = len(eng.workload.ring)
+    eng.journal._f.flush()               # what a killed process left
+    with open(jp, "ab") as f:            # and half a record after it
+        f.write(b"0123456789abcdef {\"kind\":\"ret")
+    del eng
+    t = time.perf_counter()
+    eng2 = Engine.recover(jp, StemmerWorkload(
+        DictStore.restore(sp, device=arrays.device), **kw))
+    check(eng2.run_until_drained(max_ticks=100_000).drained,
+          "the recovered engine did not drain")
+    recover_s = time.perf_counter() - t
+    rec = eng2.recovery
+    check(0 < len(done_before) < n_req and rec.dropped_bytes > 0
+          and sorted(rec.replayed) == [r for r in rids
+                                       if r not in done_before]
+          and rec.already_retired == len(done_before),
+          f"recovery {rec.already_retired} retired, {len(rec.replayed)}"
+          f" replayed, {rec.dropped_bytes} B dropped; {len(done_before)}"
+          " finished before the drop")
+    want_r, want_s = want
+    for i, rid in enumerate(rids):
+        req = done_before.get(rid) or eng2.result(rid)
+        sl = slice(i * SERVE_REQUEST_WORDS, (i + 1) * SERVE_REQUEST_WORDS)
+        check(req.failure is None and np.array_equal(req.roots, want_r[sl])
+              and np.array_equal(req.sources, want_s[sl])
+              and (req.dict_versions == 0).all(),
+              f"restart: request {rid} differs from the plain stemmer")
+    print(f"[faults] kill and restart: dropped after {KILL_STEPS} steps"
+          f" with {len(done_before)} requests finished and {in_flight}"
+          f" launches in flight; recovered {len(rec.replayed)} requests"
+          f" ({rec.dropped_bytes} B of torn tail dropped) in"
+          f" {recover_s:.6f} s; both engines' outputs equal the plain"
+          " stemmer")
+
+
+def mapped_flags_phase(sf, arrays, serve_words) -> None:
+    """Phase 6b, mapped flags: one 1M-word K3 resident launch writing its
+    flags into host-mapped memory, queued behind a ~1 ms spin so the host
+    is polling when it starts, polled until the launch's event completes:
+    the retired count never falls, and the final flags, read from that
+    memory with no copy, equal the plain version's."""
+    import numpy as np
+    import torch
+
+    dev = arrays.device
+    w = torch.from_numpy(serve_words).to(dev)
+    bt = SERVE_WORDS // BLOCK_B
+    tables = sf.padded_tables(arrays, match="bsearch", infix=True)
+    desc = sf._descriptors(bt, BLOCK_B, torch.zeros(bt, dtype=torch.int32,
+                                                    device=dev), 0)
+    kern = dict(n_groups=5, match="bsearch", block_b=BLOCK_B)
+    want = sf.persistent_resident_plain(w, tables, desc, **kern)[2].cpu()
+    flags = sf.MappedFlags(bt, dev)
+    host = flags.host.numpy()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000)          # ~1 ms: the host polls from 0
+    got = sf.persistent_resident_cuda(w, tables, desc, flags_out=flags,
+                                      **kern)[2]
+    done = torch.cuda.Event()
+    done.record()
+    polls = partial = last = 0
+    while not done.query():
+        n = int(np.count_nonzero(host == 1))
+        check(n >= last, f"the retired count fell from {last} to {n}")
+        polls += 1
+        partial += 0 < n < bt
+        last = n
+    n = int(np.count_nonzero(host == 1))
+    check(n >= last and got.data_ptr() == flags.host.data_ptr()
+          and torch.equal(flags.host, want),
+          "the mapped flags differ from the plain version's")
+    print(f"[faults] mapped flags: one {SERVE_WORDS}-word K3 resident"
+          f" launch, {bt} flags in host-mapped memory, {polls} polls before"
+          f" its event completed, {partial} saw a partial count (reported"
+          " only), the count never fell, the final flags equal the plain"
+          " version's with no device-to-host copy")
 
 
 def lm_attention_phase(ops, fa, ta, tl, tm, cfg, params):
@@ -2016,6 +2346,33 @@ def main() -> int:
 
     lap("serve")
 
+    # ---- 6b. faults ------------------------------------------------------
+    fault_launches = fault_serve_phase(ops, sf, realistic, serve_words,
+                                       want_real)
+    ladder_launches = ladder_phase(ops, sf, realistic, serve_words,
+                                   want_real)
+    with tempfile.TemporaryDirectory() as workdir:
+        restart_phase(sf, realistic, serve_words, want_real, workdir)
+        rates = {}
+        for journaled in (False, True, False, True):
+            label = ("persistent, realistic dict (K3 resident), "
+                     + ("journaled" if journaled else "no journal"))
+            _, sec = serve_phase(label, ops, sf, realistic, serve_words,
+                                 want_real, persistent=True,
+                                 journal_dir=workdir if journaled else None)
+            rates.setdefault(journaled, []).append(SERVE_WORDS / sec)
+    mapped_flags_phase(sf, realistic, serve_words)
+    print(f"[faults] fault-free persistent serve, words/s: without the"
+          f" journal {rates[False]}, with it {rates[True]} (phase 6:"
+          f" {SERVE_WORDS / k3r_serve_s:.0f}); {card_line()}")
+    check(set(fault_launches) == {"persistent_resident_cuda",
+                                  "stem_fused_cuda"}
+          and {"persistent_resident_cuda", "stem_fused_cuda",
+               "stem_streamed_cuda"} <= set(ladder_launches),
+          "phase 6b must run K3 resident, K1 and K2")
+
+    lap("faults")
+
     # ---- 7. extract_roots through K2 -------------------------------------
     stemmer.extract_roots(serve_words, grown, backend="fused",
                           device=dev)       # warm-up: allocations at size
@@ -2174,6 +2531,19 @@ def main() -> int:
                 lambda: sf.persistent_streamed_plain(
                     w, tiles, res_desc, block_b=BLOCK_B, **skern)),
         }
+        # K3 as the serving ring launches it: its flags into host-mapped
+        # memory (the same kernel; a system-scope fence before each item's
+        # flag stores either way)
+        mapped = sf.MappedFlags(bt, dev)
+        runs["K3 resident, mapped flags"] = (
+            lambda: sf.persistent_resident_cuda(w, real_tables, res_desc,
+                                                flags_out=mapped, **rkern),
+            runs["K3 resident"][1])
+        runs["K3 streamed, mapped flags"] = (
+            lambda: sf.persistent_streamed_cuda(w, tiles, res_desc,
+                                                block_b=BLOCK_B,
+                                                flags_out=mapped, **skern),
+            runs["K3 streamed"][1])
         res_probes = resident_probes(sf, w, real_tables, steps=steps)
         str_probes = streamed_probes(sf, w, tiles)
         # bytes: words in and outputs out once, the tables once (the
@@ -2189,8 +2559,12 @@ def main() -> int:
             "K3 streamed": bound(b * WORD_BYTES + stream_bytes + 16 * bt,
                                  n_ops_str),
         }
+        bounds["K3 resident, mapped flags"] = bounds["K3 resident"]
+        bounds["K3 streamed, mapped flags"] = bounds["K3 streamed"]
         for name, (kernel, plain) in runs.items():
-            check(same(kernel(), plain()) == 0,
+            got = kernel()
+            torch.cuda.synchronize()        # mapped flags: read after it
+            check(same(tuple(t.to(dev) for t in got), plain()) == 0,
                   f"timed shape B={b}: {name} differs from its plain version")
             k_call = call_ms(kernel, n_k)
             ms = device_ms(kernel, n_k, k_call)
@@ -2203,8 +2577,9 @@ def main() -> int:
             bd = bounds[name]
             extra = ""
             if name.startswith("K3"):
-                grid = wrapper(sf, "persistent_resident_cuda" if name.endswith(
-                    "resident") else "persistent_streamed_cuda").last_grid
+                grid = wrapper(sf, "persistent_resident_cuda" if "resident"
+                               in name else "persistent_streamed_cuda"
+                               ).last_grid
                 extra = f", {grid} blocks for {bt} descriptors"
             if name in ("K1", "K3 resident"):
                 fn = wrapper(sf, "stem_fused_cuda" if name == "K1"
@@ -2522,9 +2897,9 @@ def main() -> int:
     for label, kernel, launches, serve_s in (
             ("K1, resident serve", "K1", sum(k1_launches.values()),
              k1_serve_s),
-            ("K3 streamed, persistent serve", "K3 streamed",
+            ("K3 streamed, persistent serve", "K3 streamed, mapped flags",
              sum(k3s_launches.values()), k3s_serve_s),
-            ("K3 resident, persistent serve", "K3 resident",
+            ("K3 resident, persistent serve", "K3 resident, mapped flags",
              sum(k3r_launches.values()), k3r_serve_s)):
         busy = launches * times[(kernel, serve_b)]["ms"] * 1e-3 / serve_s
         print(f"[times] {label}: the kernel ran for {busy:.6f} of the wall"
@@ -2594,10 +2969,10 @@ def main() -> int:
               k1_launches["stem_fused_cuda"], k1_err),
         entry("stem_streamed", "K2", csrc + "stem_streamed.cu", ref + "312",
               k2_launches, k2_err),
-        entry("persistent_resident", "K3 resident",
+        entry("persistent_resident", "K3 resident, mapped flags",
               csrc + "stem_persistent.cu", ref + "403",
               k3r_launches["persistent_resident_cuda"], k3_err),
-        entry("persistent_streamed", "K3 streamed",
+        entry("persistent_streamed", "K3 streamed, mapped flags",
               csrc + "stem_persistent.cu", ref + "364",
               k3s_launches["persistent_streamed_cuda"], k3_err),
         entry("text_frontend", "K4", csrc + "text_frontend.cu",

@@ -1,4 +1,4 @@
-"""Accuracy analysis harness (paper Table 6 analogue)."""
+"""Accuracy analysis harness (paper Tables 6 and 7 analogues)."""
 from __future__ import annotations
 
 from collections import Counter, defaultdict
@@ -77,3 +77,21 @@ def table6(n_words: int = 20000, seed: int = 0, backend: str = "sorted",
     without = evaluate(words, truths, roots, infix=False, backend=backend,
                        device=device)
     return {"with_infix": with_infix, "without_infix": without}
+
+
+def table7(n_words: int = 20000, seed: int = 0, top_k: int = 10,
+           device=devmod.DEFAULT_DEVICE):
+    """Per-root accuracy for the highest-frequency roots (paper Table 7):
+    rows of {root, actual, with_infix, without_infix}."""
+    words, truths, _ = corpus_mod.build_corpus(n_words, seed)
+    roots = corpus_mod.build_dictionary()
+    rep_with = evaluate(words, truths, roots, infix=True, device=device)
+    rep_wo = evaluate(words, truths, roots, infix=False, device=device)
+    freq = Counter(truths)
+    rows = []
+    for root, actual in freq.most_common(top_k):
+        w = rep_with.per_root.get(root, (0, 0))
+        wo = rep_wo.per_root.get(root, (0, 0))
+        rows.append({"root": root, "actual": actual, "with_infix": w[1],
+                     "without_infix": wo[1]})
+    return rows

@@ -17,8 +17,10 @@ by readback + hash before the rename, so a torn write never leaves a
 renamed-but-corrupt chunk; ``resume=True`` replays the manifest:
 completed chunks load from disk after their hash is re-verified, and a
 missing, torn or hash-divergent partial is recomputed from its stream
-item. Chunk compute and checkpoint writes both retry (``chunk_retries``).
-Fault injection (the reference's ``injector``) is not ported yet.
+item. Chunk compute and checkpoint writes both retry (``chunk_retries``),
+and an ``injector`` (``serve.faults.FaultInjector``) fails chunk computes
+(site ``dispatch``) and tears checkpoint writes (site ``checkpoint``) to
+drive those retries.
 """
 from __future__ import annotations
 
@@ -183,10 +185,10 @@ def _load_partial(ckpt_dir: str, i: int,
 
 
 def _write_partial(ckpt_dir: str, i: int, part: IndexPartial,
-                   retries: int = 2) -> str:
+                   injector=None, retries: int = 2) -> str:
     """Write chunk i tmp-then-rename with readback verification; returns
-    the renamed file's content hash. A torn write is caught by the
-    readback and retried up to ``retries`` times."""
+    the renamed file's content hash. An injected (or real) torn write is
+    caught by the readback and retried up to ``retries`` times."""
     path = _chunk_path(ckpt_dir, i)
     tmp = path + ".tmp"
     last = None
@@ -194,6 +196,8 @@ def _write_partial(ckpt_dir: str, i: int, part: IndexPartial,
         with open(tmp, "wb") as f:
             np.savez(f, counts=part.counts, docs=part.docs,
                      positions=part.positions)
+        if injector is not None:
+            injector.on_checkpoint(tmp)     # may tear the file
         try:
             got = _read_partial(tmp)
             if (got.n_postings != part.n_postings
@@ -214,7 +218,8 @@ def _write_partial(ckpt_dir: str, i: int, part: IndexPartial,
 # ---------------------------------------------------------------------------
 def build_corpus_index(stream, roots, *, mesh=None, checkpoint_dir=None,
                        resume: bool = False, block_b: int = 2048,
-                       block_w: int = 2048, chunk_retries: int = 2,
+                       block_w: int = 2048, injector=None,
+                       chunk_retries: int = 2,
                        device=devmod.DEFAULT_DEVICE,
                        **stem_kw) -> RootIndex:
     """Stream of ``core.corpus.CorpusChunk`` -> merged :class:`RootIndex`,
@@ -227,8 +232,10 @@ def build_corpus_index(stream, roots, *, mesh=None, checkpoint_dir=None,
     start, so mid-build publishes change *stemming* but never the id
     space). ``checkpoint_dir`` + ``resume`` give chunk-granular restart
     with bit-identical results; resumed partials are hash-verified and
-    recomputed if missing or torn. ``chunk_retries`` bounds per-chunk
-    retry of the compute and of the checkpoint write. ``mesh`` (the
+    recomputed if missing or torn. ``injector`` threads a
+    ``serve.faults.FaultInjector`` through the chunk compute (site
+    ``dispatch``) and the checkpoint writes (site ``checkpoint``);
+    ``chunk_retries`` bounds per-chunk retry of either. ``mesh`` (the
     sharded build) is not ported yet and raises NotImplementedError.
     """
     from repro_torch.kernels import ops  # lazy: keep index importable light
@@ -285,6 +292,8 @@ def build_corpus_index(stream, roots, *, mesh=None, checkpoint_dir=None,
             dv = store.acquire() if store else None
             handle = dv.handle if dv else roots
             try:
+                if injector is not None:
+                    injector.on_dispatch()
                 counts, docs, poss, n_post = ops.build_root_index(
                     ch.words, handle, vocab, ch.doc_ids, ch.positions,
                     block_b=block_b, block_w=block_w, device=device,
@@ -307,7 +316,7 @@ def build_corpus_index(stream, roots, *, mesh=None, checkpoint_dir=None,
         versions.append(dv.version if dv else 0)
         if checkpoint_dir:
             sha = _write_partial(checkpoint_dir, i, part,
-                                 retries=chunk_retries)
+                                 injector=injector, retries=chunk_retries)
             rec = {"i": i, "start_word": int(ch.start_word),
                    "n_words": int(ch.n_words),
                    "n_postings": part.n_postings,

@@ -253,8 +253,11 @@ _SIGNATURES = {
                                  _I, _I, _P, ctypes.POINTER(_I)]},
     "stem_persistent": {
         "persistent_resident_launch": [_P, _I, _P, _I, _P, _I, _P, _I, _P,
-                                       _I, _P, _P, _P, _I, _I, _I, _I, _P,
-                                       _IP],
+                                       _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                                       _P, _IP],
+        "persistent_flags_alloc": [_I, ctypes.POINTER(_P),
+                                   ctypes.POINTER(_P)],
+        "persistent_flags_free": [_P],
         "persistent_resident_last_shape": [_IP, _IP, _IP],
         "persistent_streamed_launch": [_P, _I, _P, _I, _P, _P, _I, _I, _I,
                                        _I, _I, _P, _P, _P, _I, _I, _I, _P,

@@ -107,7 +107,8 @@ int host_group_search(const int32_t keys[rt::kSlots], uint32_t live,
 template <int MATCH, int N_GROUPS>
 void host_resident(const int32_t* words, int n_words, const int32_t* desc,
                    const rt::Tables& t, const rt::Walk& w, int grid,
-                   int32_t* root, int32_t* source, int32_t* flags) {
+                   int32_t* root, int32_t* source, int32_t* counts,
+                   int32_t* flags) {
   for (int b = 0; b < grid; ++b) {               // the blocks, in turn
     for (int i = b; i < w.n_items; i += grid) {
       const rt::Item it = rt::walk_item(w, i);
@@ -130,12 +131,12 @@ void host_resident(const int32_t* words, int n_words, const int32_t* desc,
           source[r] = src;
         }
       }
-      if (desc == nullptr) continue;             // the retire
+      if (desc == nullptr) continue;             // the retire (rt::retire)
       if (w.parts == 1) {
         for (int k = 0; k < it.nd; ++k) {
           flags[it.d0 + k] = 1 + desc[3 * (it.d0 + k) + 2];
         }
-      } else if (flags[it.d0]-- == 1 - w.parts) {
+      } else if (counts[it.d0]-- == 1 - w.parts) {
         flags[it.d0] = 1 + desc[3 * it.d0 + 2];
       }
     }
@@ -187,18 +188,22 @@ extern "C" int host_stem_resident(const int32_t* words, int n_words,
                               capacity, rt::kMaxRounds);
   const int grid =
       desc != nullptr && capacity < w.n_items ? capacity : w.n_items;
+  // a tile in pieces counts them down here, apart from its flag
+  std::vector<int32_t> counts(desc == nullptr ? 0 : n_tiles, 0);
   if (match == rt::kMatchBsearch) {
     const rt::Tables t = rt::make_tables<rt::kMatchBsearch>(
         tri, tri_n, quad, quad_n, bi, bi_n);
     (n_groups == 5 ? host_resident<rt::kMatchBsearch, 5>
                    : host_resident<rt::kMatchBsearch, 2>)(
-        words, n_words, desc, t, w, grid, root, source, flags);
+        words, n_words, desc, t, w, grid, root, source, counts.data(),
+        flags);
   } else {
     const rt::Tables t = rt::make_tables<rt::kMatchBank>(
         tri, tri_n, quad, quad_n, bi, bi_n);
     (n_groups == 5 ? host_resident<rt::kMatchBank, 5>
                    : host_resident<rt::kMatchBank, 2>)(
-        words, n_words, desc, t, w, grid, root, source, flags);
+        words, n_words, desc, t, w, grid, root, source, counts.data(),
+        flags);
   }
   return grid;
 }

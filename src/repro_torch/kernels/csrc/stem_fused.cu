@@ -58,6 +58,7 @@ extern "C" int stem_fused_launch(const void* words, int n_words,
                            static_cast<int4*>(root),
                            static_cast<int32_t*>(source),
                            nullptr,
+                           nullptr,
                            n_words,
                            static_cast<cudaStream_t>(stream)};
   return rt::dispatch_resident<false>(a, n_groups, match, dict_in_shared);

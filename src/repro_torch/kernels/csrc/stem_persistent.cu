@@ -15,7 +15,13 @@
 // most what the descriptors need), and blocks stride over the ring:
 // descriptors retire out of order. Every thread fences its output writes
 // (__threadfence) before the barrier after which the flags are written,
-// so a flag that reads set proves its tile's rows.
+// and the writing warp fences at system scope before its volatile flag
+// stores, so a flag that reads set proves its tile's rows, also to a host
+// thread. The flags may be host-mapped pinned memory
+// (persistent_flags_alloc): the serving ring's watchdog reads them without
+// a sync while the launch runs. A tile cut into pieces counts them down in
+// a device-memory array (counts), never in the flag: device atomics on
+// mapped host memory are not guaranteed over PCIe.
 //
 // Two variants, as template instances:
 //   - resident: the megakernel's body (stem_resident.cuh) over the ring,
@@ -92,7 +98,7 @@ persistent_streamed_kernel(const int4* __restrict__ words, int n_words,
                                        src);
       rt::store_root(root, source, i, chosen, src);
     }
-    rt::retire(desc, d0, nd, 1, flags);
+    rt::retire(desc, d0, nd, 1, nullptr, flags);
   }
 }
 
@@ -159,15 +165,17 @@ bool bad_common(int n_desc, int block_b, int n_groups, int match) {
 // n_visits, version slot); tables as for stem_fused_launch -> root
 // int32[n_words, 4], source int32[n_words] (rows of the descriptors' tiles
 // below n_words), flags int32[n_desc] (1 + version slot once descriptor d
-// has retired; the caller zeroes it; a descriptor cut into pieces counts
-// them below 0 until its last retires). words and the tables 16-byte
-// aligned. *grid_out (if not null) gets the number of blocks launched.
-// Launches on `stream` and returns the CUDA error code (0 on success).
+// has retired, 0 before; the caller zeroes it; device or host-mapped
+// memory, through its device pointer). counts int32[n_desc] in device
+// memory, zeroed by the caller: a descriptor cut into pieces counts them
+// down there. words and the tables 16-byte aligned. *grid_out (if not
+// null) gets the number of blocks launched. Launches on `stream` and
+// returns the CUDA error code (0 on success).
 extern "C" int persistent_resident_launch(
     const void* words, int n_words, const void* desc, int n_desc,
     const void* tri, int tri_n, const void* quad, int quad_n, const void* bi,
-    int bi_n, void* root, void* source, void* flags, int block_b,
-    int n_groups, int match, int dict_in_shared, void* stream,
+    int bi_n, void* root, void* source, void* flags, void* counts,
+    int block_b, int n_groups, int match, int dict_in_shared, void* stream,
     int* grid_out) {
   if (bad_common(n_desc, block_b, n_groups, match)) {
     return int(cudaErrorInvalidValue);
@@ -185,6 +193,7 @@ extern "C" int persistent_resident_launch(
                            bi_n,
                            static_cast<int4*>(root),
                            static_cast<int32_t*>(source),
+                           static_cast<int32_t*>(counts),
                            static_cast<int32_t*>(flags),
                            block_b,
                            static_cast<cudaStream_t>(stream)};
@@ -235,6 +244,29 @@ extern "C" int persistent_streamed_launch(
       grid_out};
   return match == kMatchBsearch ? streamed_groups<kMatchBsearch>(a, n_groups)
                                 : streamed_groups<kMatchBank>(a, n_groups);
+}
+
+// n int32 flags in pinned host memory mapped into the device's address
+// space: *host the host pointer, *dev the pointer a kernel writes through.
+// Returns the CUDA error code (0 on success); free with
+// persistent_flags_free.
+extern "C" int persistent_flags_alloc(int n, void** host, void** dev) {
+  *host = nullptr;
+  *dev = nullptr;
+  if (n < 1) return int(cudaErrorInvalidValue);
+  cudaError_t e = cudaHostAlloc(host, sizeof(int32_t) * size_t(n),
+                                cudaHostAllocMapped);
+  if (e != cudaSuccess) return int(e);
+  e = cudaHostGetDevicePointer(dev, *host, 0);
+  if (e != cudaSuccess) {
+    cudaFreeHost(*host);
+    *host = nullptr;
+  }
+  return int(e);
+}
+
+extern "C" int persistent_flags_free(void* host) {
+  return int(cudaFreeHost(host));
 }
 
 extern "C" const char* stem_persistent_error_string(int code) {

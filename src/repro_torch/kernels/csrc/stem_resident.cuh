@@ -34,9 +34,13 @@
 //     otherwise; its grid is at most the blocks the card keeps resident,
 //     striding over the ring's items, so it stages the tables once a
 //     resident block;
-//   - K3 retires each item with one fence and one barrier; a tile cut
-//     into parts is retired by the last part to arrive, counted down in
-//     its flag (a negative flag is never a set one).
+//   - K3 retires each item with one fence and one barrier, then a
+//     system-scope fence and volatile flag stores by one warp, so the
+//     flags may live in host-mapped memory that the host reads while the
+//     launch runs; a tile cut into parts is retired by the last part to
+//     arrive, counted down in a device-memory array beside the flags
+//     (device atomics on mapped host memory are not guaranteed over
+//     PCIe), so a flag only ever holds 0 or 1 + its version slot.
 // The lane split, the round vote, the walk and the rule for G are
 // __host__ __device__: a g++ build of this header (host_datapath.cpp)
 // runs the same walk and search for the CPU tests, each group's lanes in
@@ -445,25 +449,28 @@ __device__ __forceinline__ int group_search(const int32_t keys[kSlots],
 }
 
 // Items d0 .. d0 + nd - 1 of the ring are done: every thread's output
-// writes are fenced device-wide before the barrier, then the flags are
-// stored (1 + the version slot). A tile cut into parts counts its parts
-// down from 0 in its flag; the last to arrive, after a fence that orders
-// it after the other parts' (each fenced before its count), stores the
-// flag. A flag that reads set proves its tile's rows.
+// writes are fenced device-wide before the barrier; then the first warp,
+// after a system-scope fence (the flags may be host-mapped memory that the
+// host polls while the launch runs), stores the flags (1 + the version
+// slot) with volatile stores. A tile cut into parts counts its parts down
+// from 0 in counts[d0], device memory the caller zeroes; the last to
+// arrive, after a fence that orders it after the other parts' rows (each
+// fenced before its count), stores the flag. A flag that reads set proves
+// its tile's rows, to the device and to the host.
 __device__ __forceinline__ void retire(const int32_t* __restrict__ desc,
                                        int d0, int nd, int parts,
-                                       int32_t* flags) {
+                                       int32_t* counts, int32_t* flags) {
   __threadfence();
   __syncthreads();
-  if (parts == 1) {
-    for (int k = threadIdx.x; k < nd; k += blockDim.x) {
-      const int32_t done = 1 + __ldg(desc + 3 * (d0 + k) + 2);
-      *reinterpret_cast<volatile int32_t*>(flags + d0 + k) = done;
-    }
-  } else if (threadIdx.x == 0 && atomicSub(flags + d0, 1) == 1 - parts) {
-    __threadfence();
-    *reinterpret_cast<volatile int32_t*>(flags + d0) =
-        1 + __ldg(desc + 3 * d0 + 2);
+  if (parts > 1) {
+    if (threadIdx.x != 0 || atomicSub(counts + d0, 1) != 1 - parts) return;
+  } else if (threadIdx.x >= 32) {
+    return;
+  }
+  __threadfence_system();
+  for (int k = threadIdx.x; k < nd; k += 32) {
+    *reinterpret_cast<volatile int32_t*>(flags + d0 + k) =
+        1 + __ldg(desc + 3 * (d0 + k) + 2);
   }
 }
 
@@ -494,15 +501,16 @@ __device__ __forceinline__ void resident_row(
 // pass of them, so a thread has at most one word, row blockIdx.x * width
 // + its group, with no walk arithmetic and no loop (either costs the
 // one-lane word registers, and blocks an SM, which at 1M words cost more
-// than staging the tables once a resident block saves); desc and flags
-// are unused.
+// than staging the tables once a resident block saves); desc, counts and
+// flags are unused.
 // K3 (PERSISTENT): the grid is at most the resident blocks, striding over
 // the ring's items, and each item retires.
 template <int MATCH, bool SHARED, int N_GROUPS, bool PERSISTENT, bool SPLIT>
 __device__ __forceinline__ void resident_body(
     const int4* __restrict__ words, int n_words,
     const int32_t* __restrict__ desc, Tables t, const Walk& w,
-    int4* __restrict__ root, int32_t* __restrict__ source, int32_t* flags) {
+    int4* __restrict__ root, int32_t* __restrict__ source, int32_t* counts,
+    int32_t* flags) {
   if constexpr (SHARED) stage_tables_begin<N_GROUPS>(t);
   const int g = threadIdx.x / w.lanes;
   int32_t keys[kSlots];
@@ -541,7 +549,7 @@ __device__ __forceinline__ void resident_body(
       resident_row<MATCH, SHARED, N_GROUPS, SPLIT>(r, keys, live, t, w.lanes,
                                                    root, source);
     }
-    retire(desc, it.d0, it.nd, w.parts, flags);
+    retire(desc, it.d0, it.nd, w.parts, counts, flags);
   }
 }
 
@@ -556,10 +564,10 @@ __global__ void __launch_bounds__(kResidentThreads)
 fused_resident_kernel(const int4* __restrict__ words, int n_words,
                       const int32_t* __restrict__ desc, Tables t, Walk w,
                       int4* __restrict__ root, int32_t* __restrict__ source,
-                      int32_t* flags) {
+                      int32_t* counts, int32_t* flags) {
   resident_body<MATCH, SHARED, N_GROUPS, false, SPLIT>(words, n_words, desc,
                                                        t, w, root, source,
-                                                       flags);
+                                                       counts, flags);
 }
 
 template <int MATCH, bool SHARED, int N_GROUPS, bool SPLIT>
@@ -567,10 +575,11 @@ __global__ void __launch_bounds__(kResidentThreads, SPLIT ? 1 : 4)
 persistent_resident_kernel(const int4* __restrict__ words, int n_words,
                            const int32_t* __restrict__ desc, Tables t, Walk w,
                            int4* __restrict__ root,
-                           int32_t* __restrict__ source, int32_t* flags) {
+                           int32_t* __restrict__ source, int32_t* counts,
+                           int32_t* flags) {
   resident_body<MATCH, SHARED, N_GROUPS, true, SPLIT>(words, n_words, desc,
                                                       t, w, root, source,
-                                                      flags);
+                                                      counts, flags);
 }
 
 // K1's or K3 resident's instance of a (match, residency, group count,
@@ -688,6 +697,7 @@ struct ResidentArgs {
   int bi_n;
   int4* root;
   int32_t* source;
+  int32_t* counts;
   int32_t* flags;
   int block_b;
   cudaStream_t stream;
@@ -731,7 +741,8 @@ int launch_resident(const ResidentArgs& a) {
   const Tables t =
       make_tables<MATCH>(a.tri, a.tri_n, a.quad, a.quad_n, a.bi, a.bi_n);
   kernel<<<grid, kResidentThreads, smem, a.stream>>>(
-      a.words, a.n_words, a.desc, t, w, a.root, a.source, a.flags);
+      a.words, a.n_words, a.desc, t, w, a.root, a.source, a.counts,
+      a.flags);
   return int(cudaGetLastError());
 }
 

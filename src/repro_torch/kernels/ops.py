@@ -151,14 +151,17 @@ def extract_roots_persistent(words, roots, *, infix: bool = True,
                              num_buffers: int = 2, skip_index: bool = True,
                              version_slot: int = 0,
                              visit_budget: int | None = None,
-                             with_checksum: bool = False,
+                             with_checksum: bool = False, flags_out=None,
                              device=devmod.DEFAULT_DEVICE):
     """The persistent serving kernel (K3) on ``device``: one launch (one a
     chunk, streamed) walks a descriptor ring of the batch's tiles. Returns
     ``(root, source, flags)``: flags int32[batch_tiles] is ``1 +
     version_slot`` for every retired descriptor, the completion word the
-    serving ring checks. Roots and sources are bit-identical to
-    :func:`extract_roots_fused`; ``with_checksum=True`` appends the
+    serving ring checks. Without ``flags_out`` the flags are on
+    ``device``; with it (``stem_fused.MappedFlags`` on a card, a CPU
+    tensor on the CPU) the kernel writes them straight into host memory,
+    and its host tensor is returned. Roots and sources are bit-identical
+    to :func:`extract_roots_fused`; ``with_checksum=True`` appends the
     :func:`tile_checksum` row.
     """
     return _launch(words, roots, infix=infix, match=match, block_b=block_b,
@@ -166,7 +169,7 @@ def extract_roots_persistent(words, roots, *, infix: bool = True,
                    num_buffers=num_buffers, skip_index=skip_index,
                    persistent=True, version_slot=version_slot,
                    visit_budget=visit_budget, with_checksum=with_checksum,
-                   device=device)
+                   flags_out=flags_out, device=device)
 
 
 def extract_roots_multilaunch(words, roots, *, infix: bool = True,

@@ -471,20 +471,36 @@ def _scatter_rows(b: int, rows, root, source):
     return out_r, out_s
 
 
+def _plain_flags(desc, flags_out):
+    """The flags of a plain persistent call, 1 + version slot a descriptor,
+    written into ``flags_out`` (a CPU int32 tensor of n_desc) if given."""
+    flags = (1 + desc[:, 2]).to(torch.int32)
+    if flags_out is None:
+        return flags
+    if (not isinstance(flags_out, torch.Tensor) or flags_out.device.type
+            != "cpu" or tuple(flags_out.shape) != (desc.shape[0],)):
+        raise ValueError(f"flags_out: want a CPU int32 tensor of"
+                         f" {desc.shape[0]} flags")
+    flags_out.copy_(flags)
+    return flags_out
+
+
 def persistent_resident_plain(words, tables, desc, *, n_groups: int,
-                              match: str, block_b: int):
+                              match: str, block_b: int, flags_out=None):
     """K3's resident variant in plain PyTorch: every descriptor's tile runs
     stages 1-5 on the resident tables -> (root int32[B,4], source
-    int32[B], flags int32[n_desc] = 1 + version slot)."""
+    int32[B], flags int32[n_desc] = 1 + version slot; ``flags_out`` when
+    given, a CPU tensor the flags are written into)."""
     wd, rows = _descriptor_rows(words, desc, block_b)
     root, source = stem_fused_plain(wd, tables, n_groups=n_groups,
                                     match=match, block_b=block_b)
     return _scatter_rows(words.shape[0], rows, root, source) + (
-        (1 + desc[:, 2]).to(torch.int32),)
+        _plain_flags(desc, flags_out),)
 
 
 def persistent_streamed_plain(words, tiles: sm.DictTileSet, desc, *,
-                              n_groups: int, match: str, block_b: int):
+                              n_groups: int, match: str, block_b: int,
+                              flags_out=None):
     """K3's streamed variant in plain PyTorch: every descriptor's tile runs
     stages 1-5 through the fence search -> (root, source, flags), as
     :func:`persistent_resident_plain`. desc[:, 1] is not read."""
@@ -492,7 +508,7 @@ def persistent_streamed_plain(words, tiles: sm.DictTileSet, desc, *,
     root, source = stem_streamed_plain(wd, tiles, n_groups=n_groups,
                                        match=match)
     return _scatter_rows(words.shape[0], rows, root, source) + (
-        (1 + desc[:, 2]).to(torch.int32),)
+        _plain_flags(desc, flags_out),)
 
 
 def salvage_descriptor_rows(flags, version_slot: int, block_b: int) -> int:
@@ -503,7 +519,9 @@ def salvage_descriptor_rows(flags, version_slot: int, block_b: int) -> int:
     The reference retires descriptors in ring order. The CUDA kernel's
     blocks retire them out of order, but each flag is written after a
     fence that follows its tile's output writes, so every set flag proves
-    its rows: the prefix rule stays sound, only more conservative.
+    its rows: the prefix rule stays sound, only more conservative (a set
+    flag past the first hole is not salvaged; any other value, such as a
+    negative count, reads as unretired).
     """
     f = np.asarray(flags)
     good = f == 1 + version_slot
@@ -662,6 +680,97 @@ def stem_streamed_cuda(words, tiles: sm.DictTileSet, *, n_groups: int,
     return root, source
 
 
+class _MappedBlock:
+    """Owner of one cudaHostAlloc'd block: frees it with cudaFreeHost when
+    the last view of it goes."""
+
+    def __init__(self, lib, host: int):
+        self.lib, self.ptr = lib, host
+
+    def __del__(self):
+        if self.ptr:
+            self.lib.persistent_flags_free(self.ptr)
+            self.ptr = 0
+
+
+class MappedFlags:
+    """int32 completion flags in pinned host memory mapped into the card's
+    address space, which K3 writes directly and the host reads without a
+    sync, also while a launch runs.
+
+    The memory comes from ``cudaHostAlloc(..., cudaHostAllocMapped)``
+    through the persistent library (``persistent_flags_alloc``; PyTorch's
+    pinned allocator may register memory rather than map it), and goes
+    with ``cudaFreeHost`` when the last view of it does. ``host`` is an
+    int32 CPU tensor over the memory, ``device_ptr`` the address a kernel
+    writes through; ``flags[a:b]`` is a view of flags a..b-1. A tensor
+    taken from ``host`` is valid only while a view of it lives. Raises if
+    the card cannot map host memory: there is no device-memory fallback.
+    """
+
+    def __init__(self, n: int, device):
+        from repro_torch.kernels import build  # lazy: builds at first use
+
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        if dev.type != "cuda" or n < 1:
+            raise ValueError(f"MappedFlags: want n >= 1 flags for a CUDA"
+                             f" device, got {n} on {dev}")
+        lib = build.stem_persistent_library()
+        host, dptr = ctypes.c_void_p(), ctypes.c_void_p()
+        with torch.cuda.device(dev):
+            err = lib.persistent_flags_alloc(n, ctypes.byref(host),
+                                             ctypes.byref(dptr))
+        if err:
+            raise RuntimeError(
+                f"mapped completion flags: CUDA error {err}"
+                f" ({lib.error_string(err).decode()})")
+        self._block = _MappedBlock(lib, host.value)
+        buf = (ctypes.c_int32 * n).from_address(host.value)
+        self.host = torch.from_numpy(np.ctypeslib.as_array(buf))
+        self.host.zero_()
+        self.device_ptr = dptr.value
+        self.device = dev
+
+    def __len__(self) -> int:
+        return self.host.shape[0]
+
+    def __getitem__(self, sl: slice) -> "MappedFlags":
+        start, stop, step = sl.indices(len(self))
+        if step != 1 or stop <= start:
+            raise ValueError(f"MappedFlags: want a non-empty contiguous"
+                             f" slice, got {sl}")
+        view = object.__new__(MappedFlags)
+        view._block = self._block
+        view.host = self.host[start:stop]
+        view.device_ptr = self.device_ptr + 4 * start
+        view.device = self.device
+        return view
+
+
+def _flag_buffers(bt: int, dev, flags_out, counts: bool):
+    """A persistent launch's flags -> (the flags it returns, their device
+    pointer, zeroed device counts or None). Without ``flags_out`` the flags
+    are device memory, as the counts are (one zeroed allocation); with it
+    (a :class:`MappedFlags` of bt flags, in use by no running launch) the
+    host zeroes the mapped flags here, and the call returns their host
+    tensor."""
+    if flags_out is None:
+        scratch = torch.zeros((2 * bt if counts else bt,), dtype=torch.int32,
+                              device=dev)
+        flags = scratch[bt:] if counts else scratch
+        return flags, flags.data_ptr(), scratch[:bt] if counts else None
+    if not isinstance(flags_out, MappedFlags) or flags_out.device != dev \
+            or len(flags_out) != bt:
+        raise ValueError(f"flags_out: want MappedFlags of {bt} flags on"
+                         f" {dev} (host-mapped memory), got {flags_out!r}")
+    flags_out.host.zero_()
+    cnt = (torch.zeros((bt,), dtype=torch.int32, device=dev) if counts
+           else None)
+    return flags_out.host, flags_out.device_ptr, cnt
+
+
 def _check_desc(desc, dev, bt: int):
     _check_cuda("desc", desc, 2, dev, align=4)
     if tuple(desc.shape) != (bt, 3):
@@ -670,9 +779,11 @@ def _check_desc(desc, dev, bt: int):
 
 
 def persistent_resident_cuda(words, tables, desc, *, n_groups: int,
-                             match: str, block_b: int):
+                             match: str, block_b: int, flags_out=None):
     """Launch K3's resident variant (``csrc/stem_persistent.cu``): same
-    contract as :func:`persistent_resident_plain`, for CUDA tensors. Adds
+    contract as :func:`persistent_resident_plain`, for CUDA tensors, with
+    ``flags_out`` a :class:`MappedFlags` (the flags land in host-mapped
+    memory and the call returns its host tensor; else device flags). Adds
     one to ``persistent_resident_cuda.launches`` per launch and records
     the lanes a word, blocks and resident-block capacity it took
     (``build.host_resident_walk`` gives them on the host) in
@@ -687,9 +798,10 @@ def persistent_resident_cuda(words, tables, desc, *, n_groups: int,
     _check_desc(desc, dev, bt)
     root = torch.empty((b, 4), dtype=torch.int32, device=dev)
     source = torch.empty((b,), dtype=torch.int32, device=dev)
-    flags = torch.zeros((bt,), dtype=torch.int32, device=dev)
     if bt == 0:
-        return root, source, flags
+        return root, source, torch.zeros((0,), dtype=torch.int32,
+                                         device=dev)
+    flags, flags_ptr, counts = _flag_buffers(bt, dev, flags_out, True)
     lib = build.stem_persistent_library()
     grid = ctypes.c_int(0)
     tri, quad, bi = tables
@@ -698,8 +810,8 @@ def persistent_resident_cuda(words, tables, desc, *, n_groups: int,
         err = lib.persistent_resident_launch(
             words.data_ptr(), b, desc.data_ptr(), bt, tri.data_ptr(),
             tri.shape[0], quad.data_ptr(), quad.shape[0], bi.data_ptr(),
-            bi.shape[0], root.data_ptr(), source.data_ptr(),
-            flags.data_ptr(), block_b, n_groups, MATCHES.index(match),
+            bi.shape[0], root.data_ptr(), source.data_ptr(), flags_ptr,
+            counts.data_ptr(), block_b, n_groups, MATCHES.index(match),
             int(shared), _cuda_stream(dev), ctypes.byref(grid))
     _raise_on(err, lib, "persistent_resident")
     persistent_resident_cuda.launches += 1
@@ -709,11 +821,13 @@ def persistent_resident_cuda(words, tables, desc, *, n_groups: int,
 
 
 def persistent_streamed_cuda(words, tiles: sm.DictTileSet, desc, *,
-                             n_groups: int, match: str, block_b: int):
+                             n_groups: int, match: str, block_b: int,
+                             flags_out=None):
     """Launch K3's streamed variant (``csrc/stem_persistent.cu``): same
-    contract as :func:`persistent_streamed_plain`, for CUDA tensors. Adds
-    one to ``persistent_streamed_cuda.launches`` per launch and records
-    the blocks it launched in ``last_grid``."""
+    contract as :func:`persistent_streamed_plain`, for CUDA tensors, with
+    ``flags_out`` as for :func:`persistent_resident_cuda`. Adds one to
+    ``persistent_streamed_cuda.launches`` per launch and records the
+    blocks it launched in ``last_grid``."""
     from repro_torch.kernels import build
 
     dev = _check_words(words, block_b)
@@ -723,9 +837,10 @@ def persistent_streamed_cuda(words, tiles: sm.DictTileSet, desc, *,
     _check_desc(desc, dev, bt)
     root = torch.empty((b, 4), dtype=torch.int32, device=dev)
     source = torch.empty((b,), dtype=torch.int32, device=dev)
-    flags = torch.zeros((bt,), dtype=torch.int32, device=dev)
     if bt == 0:
-        return root, source, flags
+        return root, source, torch.zeros((0,), dtype=torch.int32,
+                                         device=dev)
+    flags, flags_ptr, _ = _flag_buffers(bt, dev, flags_out, False)
     lib = build.stem_persistent_library()
     grid = ctypes.c_int(0)
     with torch.cuda.device(dev):
@@ -733,7 +848,7 @@ def persistent_streamed_cuda(words, tiles: sm.DictTileSet, desc, *,
             words.data_ptr(), b, desc.data_ptr(), bt,
             tiles.stream.data_ptr(), tiles.fences.data_ptr(),
             *_tile_args(tiles), root.data_ptr(), source.data_ptr(),
-            flags.data_ptr(), block_b, n_groups, MATCHES.index(match),
+            flags_ptr, block_b, n_groups, MATCHES.index(match),
             _cuda_stream(dev), ctypes.byref(grid))
     _raise_on(err, lib, "persistent_streamed")
     persistent_streamed_cuda.launches += 1
@@ -753,11 +868,14 @@ def stem_fused(words: torch.Tensor, roots, *, infix: bool = True,
                residency: str = "auto", dict_block_r: int = 8,
                num_buffers: int = 2, skip_index: bool = True,
                persistent: bool = False, version_slot: int = 0,
-               visit_budget: int | None = None):
+               visit_budget: int | None = None, flags_out=None):
     """words int32[B,16] + RootDictArrays (or a resolved handle) ->
     (root int32[B,4], source int32[B]) on the words' device, plus
     ``flags`` int32[batch_tiles] (``1 + version_slot`` per retired
-    descriptor) when ``persistent=True``.
+    descriptor) when ``persistent=True``: written into ``flags_out`` if
+    given (a :class:`MappedFlags` for CUDA words, a CPU tensor for CPU
+    words; its host tensor is returned), else returned on the words'
+    device.
 
     A CUDA tensor launches the CUDA kernels (or raises); a CPU tensor runs
     their plain versions. Bit-identical to ``core.stemmer.extract_roots``
@@ -800,7 +918,7 @@ def stem_fused(words: torch.Tensor, roots, *, infix: bool = True,
                                          device=words.device), version_slot)
             run = persistent_resident_cuda if on_cuda \
                 else persistent_resident_plain
-            return run(words, tables, desc, **kern)
+            return run(words, tables, desc, flags_out=flags_out, **kern)
         run = stem_fused_cuda if on_cuda else stem_fused_plain
         return run(words, tables, **kern)
 
@@ -819,10 +937,16 @@ def stem_fused(words: torch.Tensor, roots, *, infix: bool = True,
                                 version_slot)
             run = persistent_streamed_cuda if on_cuda \
                 else persistent_streamed_plain
-            outs.append(run(cw, tiles, desc, block_b=block_b, **kern))
+            outs.append(run(cw, tiles, desc, block_b=block_b,
+                            flags_out=None if flags_out is None
+                            else flags_out[c0:c1], **kern))
         else:
             run = stem_streamed_cuda if on_cuda else stem_streamed_plain
             outs.append(run(cw, tiles, **kern))
+    if flags_out is not None:
+        host = flags_out.host if on_cuda else flags_out
+        return (torch.cat([o[0] for o in outs]),
+                torch.cat([o[1] for o in outs]), host)
     if len(outs) == 1:
         return outs[0]
     return tuple(torch.cat(parts) for parts in zip(*outs))

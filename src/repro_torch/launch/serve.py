@@ -14,6 +14,13 @@ same-family config (``configs.smoke_config``) of ``--arch`` with weights
 drawn from seed 0. Runs on the CUDA device unless ``--device cpu`` is
 given; with no CUDA device present the default raises instead of falling
 back to the CPU.
+
+The reference's robustness flags: ``--deadline-ms``, ``--max-retries``
+(stemmer and text), ``--queue-cap`` with ``--on-full``, ``--journal PATH``
+(the write-ahead request journal behind ``Engine.recover``),
+``--watchdog-ms`` (needs ``--persistent``) and ``--degrade on`` (the
+degradation ladder, stemmer and text). Bad combinations are rejected
+before any engine is built (exit code 2).
 """
 from __future__ import annotations
 
@@ -28,8 +35,59 @@ from repro_torch import device as devmod
 from repro_torch.core import corpus, stemmer
 from repro_torch.models import model as model_mod
 from repro_torch.models import params as pm
-from repro_torch.serve import (DictStore, Engine, LMDecodeWorkload,
-                               StemmerWorkload, TextAnalysisWorkload)
+from repro_torch.serve import (DegradationPolicy, DictStore, Engine, Journal,
+                               LMDecodeWorkload, StemmerWorkload,
+                               TextAnalysisWorkload)
+
+
+def _engine_kw(args) -> dict:
+    """Engine admission-control and crash-safety arguments shared by the
+    three workloads (the flags are checked in main() first)."""
+    kw = dict(queue_cap=args.queue_cap or None, on_full=args.on_full)
+    if args.journal:
+        kw["journal"] = Journal(args.journal)
+    if args.degrade == "on":
+        kw["policy"] = DegradationPolicy()
+    return kw
+
+
+def _deadline_s(args) -> float | None:
+    return args.deadline_ms / 1000.0 if args.deadline_ms else None
+
+
+def _retry_kw(args) -> dict:
+    """StemmerWorkload/TextAnalysisWorkload retry arguments (lm has none)."""
+    kw = {} if args.max_retries is None else dict(
+        max_retries=args.max_retries)
+    if args.watchdog_ms:
+        kw["watchdog_s"] = args.watchdog_ms / 1000.0
+    return kw
+
+
+def _report_events(eng) -> None:
+    """The structured incident stream (Engine.events): retries, stalls
+    and ladder transitions, counted by kind."""
+    events = eng.events()
+    if not events:
+        return
+    counts: dict[str, int] = {}
+    for ev in events:
+        counts[ev.kind] = counts.get(ev.kind, 0) + 1
+    print("  events: " + ", ".join(f"{k} x{n}"
+                                   for k, n in sorted(counts.items())))
+    for ev in events:
+        if ev.kind in ("degrade", "upshift"):
+            print(f"    {ev.kind}: {ev.data['from']} -> {ev.data['to']}"
+                  f" ({ev.data['reason']})")
+
+
+def _report_failures(eng, rids) -> str:
+    failed = [eng.result(r) for r in rids]
+    failed = [r for r in failed if r is not None and r.failure is not None]
+    for req in failed[:4]:
+        print(f"  req {req.rid} FAILED: {req.failure.code}"
+              f" ({req.failure.detail})")
+    return f", {len(failed)} failed, {eng.shed} shed" if failed else ""
 
 
 def required_cache_len(prompt_len: int, max_new: int) -> int:
@@ -52,19 +110,20 @@ def serve_lm(args) -> None:
     params = pm.init_params(model_mod.model_spec(cfg),
                             torch.Generator(dev).manual_seed(0), device=dev)
     eng = Engine(LMDecodeWorkload(cfg, params, max_batch=args.max_batch,
-                                  cache_len=cache_len, device=dev))
+                                  cache_len=cache_len, device=dev),
+                 **_engine_kw(args))
 
     rng = np.random.default_rng(0)
     t0 = time.time()
     rids = [eng.submit(rng.integers(0, cfg.vocab, args.prompt_len),
-                       max_new=args.max_new)
+                       max_new=args.max_new, deadline_s=_deadline_s(args))
             for _ in range(args.requests)]
     rep = eng.run_until_drained()
     dt = time.time() - t0
     total_tokens = sum(len(eng.result(r).tokens_out) for r in rids)
     print(f"served {args.requests} requests / {total_tokens} tokens in "
           f"{dt:.2f}s ({total_tokens / dt:.1f} tok/s, {rep.ticks} ticks, "
-          f"cache_len {cache_len})")
+          f"cache_len {cache_len}{_report_failures(eng, rids)})")
     for rid in rids[:4]:
         print(f"  req {rid}: {eng.result(rid).tokens_out}")
 
@@ -80,14 +139,16 @@ def serve_stemmer(args) -> None:
                                  skip_index=not args.full_sweep,
                                  max_inflight=args.inflight,
                                  megabatch_tiles=args.megabatch,
-                                 persistent=args.persistent))
+                                 persistent=args.persistent,
+                                 **_retry_kw(args)), **_engine_kw(args))
 
     wpr = args.words_per_request
     words, _, _ = corpus.build_corpus(n_words=args.requests * wpr, seed=1)
     enc = corpus.encode_corpus(words)
 
     t0 = time.time()
-    rids = [eng.submit(enc[i * wpr:(i + 1) * wpr])
+    rids = [eng.submit(enc[i * wpr:(i + 1) * wpr],
+                       deadline_s=_deadline_s(args))
             for i in range(args.requests)]
     rep = eng.run_until_drained()
     dt = time.time() - t0
@@ -97,10 +158,13 @@ def serve_stemmer(args) -> None:
           f"{eng.workload.ticks_launched} launches, dict v{store.version}, "
           f"super-tile 1x{args.block_b}, megabatch {args.megabatch}"
           f"{', persistent' if args.persistent else ''}, "
-          f"inflight {args.inflight})")
+          f"inflight {args.inflight}{_report_failures(eng, rids)})")
+    _report_events(eng)
     for rid in rids[:2]:
         req = eng.result(rid)
-        print(f"  req {rid}: {req.n_words} roots, dict v{req.dict_version}")
+        if req.failure is None:
+            print(f"  req {rid}: {req.n_words} roots,"
+                  f" dict v{req.dict_version}")
 
 
 def build_documents(n_docs: int, words_per_doc: int, seed: int = 1):
@@ -161,12 +225,13 @@ def serve_text(args) -> None:
                                       skip_index=not args.full_sweep,
                                       max_inflight=args.inflight,
                                       megabatch_tiles=args.megabatch,
-                                      persistent=args.persistent))
+                                      persistent=args.persistent,
+                                      **_retry_kw(args)), **_engine_kw(args))
 
     docs = build_documents(args.requests, args.words_per_request)
     n_bytes = sum(len(doc.encode("utf-8")) for doc in docs)
     t0 = time.time()
-    rids = [eng.submit(doc) for doc in docs]
+    rids = [eng.submit(doc, deadline_s=_deadline_s(args)) for doc in docs]
     rep = eng.run_until_drained()
     dt = time.time() - t0
     n_words = sum(eng.result(r).n_words for r in rids)
@@ -176,9 +241,12 @@ def serve_text(args) -> None:
           f" {eng.workload.ticks_launched} launches,"
           f" frontend {args.frontend}, megabatch {args.megabatch}"
           f"{', persistent' if args.persistent else ''},"
-          f" inflight {args.inflight})")
+          f" inflight {args.inflight}{_report_failures(eng, rids)})")
+    _report_events(eng)
     for rid in rids[:2]:
         req = eng.result(rid)
+        if req.failure is not None:
+            continue
         root, src, span = req.analyses()[0][0]
         print(f"  req {rid}: {req.n_words} tokens, first root {root!r}"
               f" (src {src}, bytes {span})")
@@ -228,9 +296,66 @@ def main(argv=None):
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="cuda runs the CUDA kernels; cpu their plain"
                          " PyTorch versions")
+    # robustness
+    ap.add_argument("--deadline-ms", type=float, default=0.0,
+                    help="per-request deadline in milliseconds; expired"
+                         " requests finish with FailureInfo code"
+                         " 'deadline' (0 = no deadline)")
+    ap.add_argument("--max-retries", type=int, default=None,
+                    help="launch retries before bisect/quarantine"
+                         " (stemmer/text only; 0 = strict fail-fast,"
+                         " default 2)")
+    ap.add_argument("--queue-cap", type=int, default=0,
+                    help="admission-control bound on queued requests"
+                         " (0 = unbounded)")
+    ap.add_argument("--on-full", choices=Engine.ON_FULL, default="raise",
+                    help="full-queue policy: raise QueueFull, shed the"
+                         " new request (FailureInfo 'shed'), or block"
+                         " until a place frees")
+    # crash safety and degraded modes
+    ap.add_argument("--journal", default="", metavar="PATH",
+                    help="write-ahead request journal: every accepted"
+                         " request is durable before it is served, so a"
+                         " killed server restarts through"
+                         " Engine.recover(PATH) losing no request")
+    ap.add_argument("--watchdog-ms", type=float, default=0.0,
+                    help="persistent-kernel watchdog: a launch older"
+                         " than this is abandoned and its words"
+                         " re-dispatched down the megabatch path"
+                         " (requires --persistent; 0 = off)")
+    ap.add_argument("--degrade", choices=("on", "off"), default="off",
+                    help="degradation ladder: under sustained faults or"
+                         " queue pressure the serving mode downshifts"
+                         " persistent -> megabatch -> per-tile ->"
+                         " streamed-dict, and upshifts when healthy"
+                         " (stemmer/text only)")
     args = ap.parse_args(argv)
     if args.requests < 1 or args.words_per_request < 1:
         ap.error("--requests and --words-per-request must be >= 1")
+    if args.deadline_ms < 0:
+        ap.error("--deadline-ms must be >= 0")
+    if args.queue_cap < 0:
+        ap.error("--queue-cap must be >= 0")
+    if args.max_retries is not None and args.max_retries < 0:
+        ap.error("--max-retries must be >= 0")
+    if args.on_full != "raise" and not args.queue_cap:
+        ap.error(f"--on-full {args.on_full} needs --queue-cap > 0"
+                 " (an unbounded queue is never full)")
+    if args.workload == "lm" and args.max_retries is not None:
+        ap.error("--max-retries applies to the stemmer/text workloads"
+                 " (the LM decode loop has no launch retry path)")
+    # the crash-safety flags are checked before any engine exists, so a
+    # bad combination never half-builds serving state
+    if args.watchdog_ms < 0:
+        ap.error("--watchdog-ms must be >= 0")
+    if args.watchdog_ms and not args.persistent:
+        ap.error("--watchdog-ms guards the persistent descriptor ring;"
+                 " it requires --persistent")
+    if args.watchdog_ms and args.workload == "lm":
+        ap.error("--watchdog-ms applies to the stemmer/text workloads")
+    if args.degrade == "on" and args.workload == "lm":
+        ap.error("--degrade applies to the stemmer/text workloads (the"
+                 " LM decode loop has no mode ladder)")
     if args.workload == "text":
         serve_text(args)
     elif args.workload == "stemmer":

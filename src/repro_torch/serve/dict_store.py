@@ -1,7 +1,6 @@
 """Versioned root-dictionary store for serving-time lexicon hot swaps.
 
-The counterpart of ``repro.serve.dict_store.DictStore`` (publish,
-acquire, get, version and two-phase validation):
+The counterpart of ``repro.serve.dict_store.DictStore``:
 
   publish(arrays)  upload a new dictionary to the store's device, once,
                    as the next monotonically increasing version; it
@@ -23,10 +22,22 @@ int32 tables of strictly sorted unique packed 24-bit keys, or the single
 whose boundary tables are its tiles' first and last entries and whose
 fence level is every F-th entry of each table's tiles) and raises
 :class:`DictValidationError` with the store untouched; phase 2 is the
-atomic version bump.
+atomic version bump. A ``FaultInjector`` given at construction can reject
+between the phases (site ``publish``), proving no partial state lands.
+
+Beyond ``publish``: ``publish_delta`` merges insert/remove key lists into
+the current version (untouched tables keep their device tensors),
+``rollback(v)`` re-installs a kept version's handle as a NEW version,
+``keep_history=False`` drops superseded versions (and their device
+tables), and ``snapshot``/``restore`` persist the version catalog as an
+npz with the reference's keys, metadata JSON and per-table sha16 hashes,
+so either package restores the other's snapshot.
 """
 from __future__ import annotations
 
+import hashlib
+import json
+import os
 import threading
 from dataclasses import dataclass
 
@@ -34,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as devmod
+from repro_torch.core import alphabet as ab
 from repro_torch.core import pyref
 from repro_torch.core import stemmer as core_stemmer
 
@@ -42,6 +54,10 @@ TABLES = ("tri", "quad", "bi")
 
 class DictValidationError(ValueError):
     """A publish failed phase-1 layout validation; nothing was installed."""
+
+
+class DictSnapshotError(RuntimeError):
+    """A catalog snapshot failed its content-hash verification."""
 
 
 def _validate_table(name: str, t: torch.Tensor) -> None:
@@ -113,6 +129,25 @@ def validate_handle(handle: core_stemmer.ResolvedRootDict) -> None:
             f" two >= {sm.FENCE_MIN_STEP})")
 
 
+def _sorted_member(haystack: np.ndarray, needles: np.ndarray) -> np.ndarray:
+    """Membership of sorted ``needles`` in sorted ``haystack`` via one
+    searchsorted pass (no re-sort, unlike np.isin/setdiff1d)."""
+    if not haystack.size:
+        return np.zeros(needles.shape, bool)
+    at = np.minimum(np.searchsorted(haystack, needles), haystack.size - 1)
+    return haystack[at] == needles
+
+
+def _delta_keys(spec) -> np.ndarray:
+    """Delta key list -> sorted unique packed int32 keys. Raw root
+    strings encode through the alphabet; packed ints pass through."""
+    if spec is None:
+        return np.zeros(0, np.int32)
+    keys = [ab.pack_key(ab.encode_word(k)) if isinstance(k, str) else int(k)
+            for k in spec]
+    return np.unique(np.asarray(keys, np.int32)) if keys else np.zeros(0, np.int32)
+
+
 @dataclass(frozen=True)
 class DictVersion:
     """One published dictionary: immutable (version, resolved handle)."""
@@ -129,15 +164,17 @@ class DictStore:
     """Versioned RootDictArrays with publish/acquire semantics.
 
     Versions start at 0 (the constructor publishes the initial
-    dictionary) and only ever grow; every version stays retrievable
-    through :meth:`get`. ``residency`` ("auto" resolves per version),
-    ``infix`` (which tables count toward the resident budget) and
-    ``dict_block_r`` (prebuild the streamed tile stream at publish time)
-    apply to every publish.
+    dictionary) and only ever grow. ``keep_history=False`` drops
+    superseded versions on publish (their device tables with them) for
+    long-lived servers that need no ``get()`` on old versions.
+    ``residency`` ("auto" resolves per version), ``infix`` (which tables
+    count toward the resident budget) and ``dict_block_r`` (prebuild the
+    streamed tile stream at publish time) apply to every publish.
     """
 
-    def __init__(self, arrays, *, residency: str = "auto", infix: bool = True,
-                 dict_block_r: int | None = None,
+    def __init__(self, arrays, *, residency: str = "auto",
+                 keep_history: bool = True, infix: bool = True,
+                 dict_block_r: int | None = None, injector=None,
                  device=devmod.DEFAULT_DEVICE):
         self._lock = threading.Lock()       # guards the version table
         self._pub_lock = threading.Lock()   # serialises publishers
@@ -145,29 +182,48 @@ class DictStore:
         self._residency = residency
         self._infix = infix
         self._dict_block_r = dict_block_r
+        self._keep_history = keep_history
         self._versions: dict[int, DictVersion] = {}
         self._current: DictVersion | None = None
         self._next_version = 0
-        self.publish(arrays)
+        self._injector = None
+        self.publish(arrays)                # the seed is never injected:
+        self._injector = injector           # a store must construct usable
 
     def _install(self, handle: core_stemmer.ResolvedRootDict) -> int:
         with self._lock:
             version = self._next_version
             self._next_version += 1
             dv = DictVersion(version, handle)
+            if not self._keep_history:
+                self._versions.clear()
             self._versions[version] = dv
             self._current = dv
         return version
 
-    def publish(self, arrays) -> int:
+    def _resolve(self, arrays) -> core_stemmer.ResolvedRootDict:
+        return core_stemmer.resolve_dict(
+            arrays.to(self.device), residency=self._residency,
+            infix=self._infix, dict_block_r=self._dict_block_r)
+
+    def _prepare(self, handle) -> core_stemmer.ResolvedRootDict:
+        """Phase 1 of a publish: validate + (optionally) inject. No store
+        state changes here: a raise leaves the current version serving."""
+        validate_handle(handle)
+        if self._injector is not None:
+            self._injector.on_publish()
+        return handle
+
+    def publish(self, arrays, *, validate: bool = True) -> int:
         """Upload a new lexicon; returns its version number.
 
         Accepts packed RootDictArrays (or an already-resolved handle) or
         a raw pyref.RootDict, which is packed here. The tables move to the
-        store's device once, here. Two-phase: DictValidationError leaves
-        the store untouched; otherwise the new version becomes current
-        atomically while in-flight launches keep the snapshot they
-        acquired.
+        store's device once, here. Two-phase: DictValidationError (or an
+        injected rejection) leaves the store untouched; otherwise the new
+        version becomes current atomically while in-flight launches keep
+        the snapshot they acquired. ``validate=False`` skips phase 1 for
+        trusted bulk republishes.
         """
         with self._pub_lock:
             if isinstance(arrays, pyref.RootDict):
@@ -175,10 +231,75 @@ class DictStore:
                     arrays, device=self.device)
             if isinstance(arrays, core_stemmer.ResolvedRootDict):
                 arrays = arrays.arrays
-            handle = core_stemmer.resolve_dict(
-                arrays.to(self.device), residency=self._residency,
-                infix=self._infix, dict_block_r=self._dict_block_r)
-            validate_handle(handle)
+            handle = self._resolve(arrays)
+            if validate:
+                self._prepare(handle)
+            return self._install(handle)
+
+    def rollback(self, version: int) -> int:
+        """Re-install a previously published version's handle as a NEW
+        monotone version; returns the new version number.
+
+        Versions never move backwards (in-flight tiles keep the version
+        they pinned), but the next dispatch acquires the restored lexicon.
+        Needs the version kept (``keep_history=True``); KeyError otherwise.
+        """
+        with self._pub_lock:
+            dv = self.get(version)
+            return self._install(dv.handle)
+
+    def publish_delta(self, insert=None, remove=None) -> int:
+        """Publish the next version as a sorted-merge delta against the
+        current one; returns the new version number.
+
+        ``insert`` / ``remove`` map table names ("tri" / "quad" / "bi")
+        to key lists: packed int32 keys or raw root strings. Only the
+        touched tables are merged on the host and uploaded; untouched
+        tables keep the current version's device tensors. Removing an
+        absent key raises ValueError, as does a key in both lists for one
+        table; inserting a present key is idempotent.
+        """
+        insert = dict(insert or {})
+        remove = dict(remove or {})
+        unknown = (set(insert) | set(remove)) - set(TABLES)
+        if unknown:
+            raise ValueError(f"unknown dictionary tables: {sorted(unknown)}"
+                             f" (want subset of {TABLES})")
+        with self._pub_lock:
+            cur = self.acquire().arrays
+            merged = {}
+            for name in TABLES:
+                ins = _delta_keys(insert.get(name))
+                rem = _delta_keys(remove.get(name))
+                old = getattr(cur, name)
+                if not ins.size and not rem.size:
+                    merged[name] = old      # untouched: same device tensor
+                    continue
+                both = np.intersect1d(ins, rem)
+                if both.size:
+                    raise ValueError(
+                        f"{name}: keys {both.tolist()} appear in both"
+                        " insert and remove")
+                host = old.cpu().numpy()
+                host = host[host >= 0]      # drop the empty-table sentinel
+                if rem.size:
+                    found = _sorted_member(host, rem)
+                    if not found.all():
+                        raise ValueError(
+                            f"{name}: cannot remove absent keys"
+                            f" {rem[~found].tolist()}")
+                    keep = np.ones(host.size, bool)
+                    keep[np.searchsorted(host, rem)] = False
+                    host = host[keep]
+                if ins.size:
+                    ins = ins[~_sorted_member(host, ins)]  # idempotent
+                    host = np.insert(host, np.searchsorted(host, ins), ins)
+                out = host.astype(np.int32)
+                if not out.size:
+                    out = np.asarray([-1], np.int32)  # empty-table sentinel
+                merged[name] = torch.from_numpy(out).to(self.device)
+            handle = self._resolve(core_stemmer.RootDictArrays(**merged))
+            self._prepare(handle)       # two-phase, same as publish()
             return self._install(handle)
 
     def acquire(self) -> DictVersion:
@@ -194,10 +315,89 @@ class DictStore:
             except KeyError:
                 raise KeyError(
                     f"dict version {version} not in store (published so far:"
-                    f" {self._next_version})") from None
+                    f" {self._next_version}, keep_history="
+                    f"{self._keep_history})") from None
 
     @property
     def version(self) -> int:
         """Version number of the current dictionary."""
         with self._lock:
             return self._current.version
+
+    # -- crash safety ------------------------------------------------------
+    def snapshot(self, path) -> str:
+        """Persist the version catalog (every retained version's packed
+        tables plus the current/next counters) as one atomically renamed
+        npz; returns the catalog's content hash.
+
+        ``Engine.recover`` re-pins each replayed request to the version it
+        was admitted under, which exists after a restart only if the
+        catalog was snapshotted. Per-table sha16 hashes ride in the
+        metadata and are verified by :meth:`restore`.
+        """
+        path = str(path)
+        with self._lock:
+            versions = dict(self._versions)
+            current = self._current.version
+            next_version = self._next_version
+        payload, shas = {}, {}
+        for v, dv in versions.items():
+            for name in TABLES:
+                key = f"v{v}_{name}"
+                a = np.ascontiguousarray(
+                    getattr(dv.arrays, name).cpu().numpy().astype(np.int32))
+                payload[key] = a
+                shas[key] = hashlib.sha256(a.tobytes()).hexdigest()[:16]
+        meta = {"versions": sorted(versions), "current": current,
+                "next_version": next_version, "residency": self._residency,
+                "infix": self._infix, "dict_block_r": self._dict_block_r,
+                "keep_history": self._keep_history, "sha": shas}
+        meta_json = json.dumps(meta, sort_keys=True)
+        payload["__meta__"] = np.frombuffer(meta_json.encode(), np.uint8)
+        tmp = f"{path}.tmp"
+        with open(tmp, "wb") as f:
+            np.savez(f, **payload)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+        return hashlib.sha256(meta_json.encode()).hexdigest()[:16]
+
+    @classmethod
+    def restore(cls, path, *, injector=None,
+                device=devmod.DEFAULT_DEVICE) -> "DictStore":
+        """Rebuild a store on ``device`` from :meth:`snapshot` (either
+        package's). Every retained version is re-resolved at its ORIGINAL
+        version number (the constructor would renumber from 0, orphaning
+        journal pins); per-table content hashes are verified first,
+        raising :class:`DictSnapshotError` on any mismatch."""
+        with np.load(str(path)) as z:
+            meta = json.loads(bytes(z["__meta__"].tobytes()).decode())
+            tables = {k: np.asarray(z[k]) for k in z.files if k != "__meta__"}
+        self = cls.__new__(cls)
+        self._lock = threading.Lock()
+        self._pub_lock = threading.Lock()
+        self.device = devmod.resolve(device)
+        self._residency = meta["residency"]
+        self._infix = meta["infix"]
+        self._dict_block_r = meta["dict_block_r"]
+        self._keep_history = meta["keep_history"]
+        self._versions = {}
+        self._current = None
+        self._injector = None
+        for v in meta["versions"]:
+            arrs = {}
+            for name in TABLES:
+                key = f"v{v}_{name}"
+                a = np.ascontiguousarray(tables[key].astype(np.int32))
+                got = hashlib.sha256(a.tobytes()).hexdigest()[:16]
+                if got != meta["sha"][key]:
+                    raise DictSnapshotError(
+                        f"snapshot table {key} fails its content hash"
+                        f" (want {meta['sha'][key]}, got {got})")
+                arrs[name] = torch.from_numpy(a)
+            handle = self._resolve(core_stemmer.RootDictArrays(**arrs))
+            self._versions[int(v)] = DictVersion(int(v), handle)
+        self._current = self._versions[int(meta["current"])]
+        self._next_version = int(meta["next_version"])
+        self._injector = injector
+        return self

@@ -16,9 +16,15 @@ scatter back per document through :meth:`TextRequest.analyses`.
 The front end runs at admission, on the store's device, not inside the
 stemmer launch: word counts depend on the data, and the ring's fixed
 ``[launch_b, 16]`` staging needs them on the host (one sync a request).
-The chained device path is ``ops.extract_roots_text``. Failure states
-(``failure``, checked by the reference's ``analyses()``) come with the
-fault-tolerance port.
+The chained device path is ``ops.extract_roots_text``.
+
+The fault path comes through the same inheritance: retries, bisection,
+quarantine, deadlines and the watchdog serve text requests as word
+requests, and :meth:`TextRequest.analyses` raises on a request that
+failed. The journal stores a text submission as its raw documents, so
+``Engine.recover`` replays the text through ``make_request``: the front
+end is deterministic, so the recovered rows, spans and roots are
+bit-identical.
 """
 from __future__ import annotations
 
@@ -46,7 +52,16 @@ class TextRequest(StemRequest):
     n_bytes: int = 0                           # utf-8 bytes across docs
 
     def analyses(self) -> list[list[tuple[str, int, tuple[int, int]]]]:
-        """Per-document [(root, source, (byte_start, byte_end))]."""
+        """Per-document [(root, source, (byte_start, byte_end))].
+
+        A terminally failed request (quarantined, deadline, shed,
+        cancelled: ``self.failure`` is set) holds zero-filled roots for
+        its unserved words, so it raises instead of returning them.
+        """
+        if self.failure is not None:
+            raise RuntimeError(
+                f"request {self.rid} failed ({self.failure.code}:"
+                f" {self.failure.detail}); no analyses to read")
         out: list[list] = [[] for _ in self.docs]
         for i in range(self.n_words):
             out[int(self.doc_ids[i])].append(

@@ -182,6 +182,8 @@ def test_plain_persistent_walks_the_descriptor_ring(dicts, enc):
     ([6, 6, 0, 6], 2 * 32),         # a hole: the prefix only
     ([0, 6, 6, 6], 0),              # unproven from the start
     ([6, 5, 6, 6], 32),             # a stale version slot is not retired
+    ([6, -3, 6, 6], 32),            # a tile mid-count reads as unretired
+    ([-1, 6, 6, 6], 0),
     ([], 0),
 ])
 def test_salvage_descriptor_rows_matches_reference(flags, want_rows):

@@ -104,9 +104,11 @@ def test_engine_parity_per_dict_version(setup, megabatch_tiles,
 
 
 def test_corrupted_staged_output_raises_on_checksum(setup):
+    """Strict mode (max_retries=0): a torn copy of a launch's output is
+    caught by the checksum and raised."""
     da, _, enc = setup
     wl = tserve.StemmerWorkload(tserve.DictStore(_port(da), device="cpu"),
-                                block_b=64, max_inflight=1)
+                                block_b=64, max_inflight=1, max_retries=0)
     eng = tserve.Engine(wl)
     eng.submit(enc[:100])
     eng.step()                           # dispatch: one launch in flight
@@ -114,6 +116,67 @@ def test_corrupted_staged_output_raises_on_checksum(setup):
     wl.ring[0].roots[3, 1] += 1          # a torn copy of the output
     with pytest.raises(RuntimeError, match="checksum mismatch"):
         eng.run_until_drained()
+
+
+def test_corrupted_staged_output_absorbed_by_retry(setup):
+    """The default retries absorb the same torn copy: the launch is
+    discarded, its words re-dispatched, and the outputs equal the
+    reference stemmer's bit for bit."""
+    da, _, enc = setup
+    wl = tserve.StemmerWorkload(tserve.DictStore(_port(da), device="cpu"),
+                                block_b=64, max_inflight=1)
+    eng = tserve.Engine(wl)
+    rid = eng.submit(enc[:100])
+    eng.step()
+    wl.ring[0].roots[3, 1] += 1
+    assert eng.run_until_drained().drained
+    assert wl.checksum_failures == 1 and wl.retries_total == 1
+    req = eng.result(rid)
+    assert req.failure is None
+    want_r, want_s = rstemmer.extract_roots(jnp.asarray(enc[:100]), da,
+                                            backend="sorted")
+    np.testing.assert_array_equal(req.roots, np.asarray(want_r))
+    np.testing.assert_array_equal(req.sources, np.asarray(want_s))
+    assert [e.kind for e in eng.events()] == ["checksum_failure", "retry"]
+
+
+def test_shape_matched_hot_swap_reallocates_nothing(setup, monkeypatch):
+    """A publish whose tables keep their shapes re-allocates no staging
+    or output buffer, and no served launch pads a table again: the new
+    version's tables are padded once, at its first launch, and the old
+    version's never again (the reference holds its jit cache size)."""
+    from repro_torch.kernels import stem_match as sm
+
+    da, _, enc = setup
+    store = tserve.DictStore(_port(da), device="cpu")
+    wl = tserve.StemmerWorkload(store, block_b=32, megabatch_tiles=2,
+                                max_inflight=2)
+    eng = tserve.Engine(wl)
+    eng.submit(enc[:200])
+    assert eng.run_until_drained().drained
+    buffers = [id(t) for t in wl._staging] + [
+        id(t) for out in wl._outputs for t in out]
+    padded = []
+    real = sm.pad_dict_sorted
+    monkeypatch.setattr(sm, "pad_dict_sorted",
+                        lambda t: padded.append(t.shape) or real(t))
+    # the same key counts, other keys: shift every key by one letter code
+    tri, quad, bi = (np.asarray(t) for t in (da.tri, da.quad, da.bi))
+    swapped = tstemmer.RootDictArrays.from_numpy(tri + 1, quad + 1, bi,
+                                                 device="cpu")
+    assert store.publish(swapped) == 1
+    rids = [eng.submit(enc[i * 50:(i + 1) * 50]) for i in range(6)]
+    assert eng.run_until_drained().drained
+    assert wl.ticks_launched > 3
+    assert [id(t) for t in wl._staging] + [
+        id(t) for out in wl._outputs for t in out] == buffers
+    assert padded == [(tri.shape[0],), (quad.shape[0],), (bi.shape[0],)]
+    for i, rid in enumerate(rids):
+        req = eng.result(rid)
+        assert (req.dict_versions == 1).all()
+        want_r, _ = tstemmer.extract_roots(enc[i * 50:(i + 1) * 50],
+                                           swapped, device="cpu")
+        np.testing.assert_array_equal(req.roots, want_r.numpy())
 
 
 def test_empty_and_raw_string_requests(setup):

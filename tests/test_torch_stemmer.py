@@ -91,6 +91,18 @@ def test_table6_recall_is_exact():
     assert t["without_infix"].root_recall == 0.8062015503875969
 
 
+def test_table7_rows_match_reference():
+    """The per-root rows of the paper's Table 7 (the most frequent roots,
+    their counts and how many were extracted with and without infix
+    processing) equal the reference's."""
+    from repro.core import accuracy as raccuracy
+
+    got = accuracy.table7(n_words=2000, seed=0, device="cpu")
+    want = raccuracy.table7(n_words=2000, seed=0)
+    assert len(got) == 10 and got == want
+    assert all(r["with_infix"] >= r["without_infix"] for r in got)
+
+
 def test_copied_tables_and_corpus_match_reference():
     d = rcorpus.build_dictionary()
     da = rstemmer.RootDictArrays.from_rootdict(d)
