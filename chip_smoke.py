@@ -9,8 +9,9 @@ drives its main paths — root extraction served through
 kernels, text served through ``TextAnalysisWorkload`` onto the text front
 end and the stemmer kernels, a corpus index built through the stemmer
 kernels and the postings kernel, flash attention (K9) on a full-width
-LM's attention, and that LM served through ``LMDecodeWorkload`` — at a
-realistic size. Phases:
+LM's attention, that LM served through ``LMDecodeWorkload``, and gemma-2b
+trained through ``repro_torch.train.loop.fit`` — at a realistic size.
+Phases (10 runs after 8c, whose weights it frees, and before 9):
 
   1. card      name and power limit (nvidia-smi)
   2. build     nvcc build of every kernel library, with its seconds
@@ -156,6 +157,31 @@ realistic size. Phases:
                logit finite, no kernel launched; prefill against
                prefill-by-decode checked in bf16 and fp32 on the same
                weights cut to 2 layers, reported at all 32
+  10. train    gemma-2b at full width and depth (18 layers, d 2048, 8
+               heads x 256, 1 KV head, d_ff 16384, vocab 256,000 tied;
+               2.51 B fp32 parameters from a seeded CUDA generator,
+               rescaled to a trainable fan-in, bf16 compute) trained 8
+               steps through train.loop.fit: remat "full", B 1, T 4096
+               (the query blocks of 512 checkpointed, the chunked loss),
+               synthetic batches over 64 ids, lr 3e-3, warmup 20, AdamW
+               with fp32 moments, launches counted from zero; every loss
+               and gradient norm finite, the last loss below the first, no
+               kernel of the port launched; ms a step, tokens/s, 6 N
+               tokens/s as TFLOP/s and a share of 989, peak memory; one
+               more step split by CUDA events (forward, backward, update),
+               one profiled (kernels, device busy share, kernel time by
+               kind and by op) and the weight casts one step makes
+               (fp32 -> bf16 forward, bf16 -> fp32 backward), timed alone
+  10b. remat   the same width at 2 layers, T 4096: a step under "none",
+               "dots" and "full" from the same weights and batch, loss and
+               gradient norm within 1e-3 of "none"; each policy's memory
+               kept for the backward pass, peak memory and second step
+  10c. example the example's model (examples/torch_train_lm.py, 69 M
+               parameters) on the morph stream, the stemmer on the card: 30
+               steps with a checkpoint every 15, then resumed to 40:
+               resumed_from 30, the checkpoint equal bit for bit to the
+               trained weights, the resumed run's first loss that of those
+               weights, the loss falls
   9. times     the launch floor (a one-element torch op, same timer);
                the registers and spills of every instance of the resident
                kernels, K4 and K7/K8 (the build's -Xptxas -v log); each
@@ -192,6 +218,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import re
 import subprocess
 import sys
@@ -318,6 +345,29 @@ LM_ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # even fp32 rounding grows to O(1) (reported, not checked)
 LM_CHECK_LAYERS = 2
 LM_PREFILL_TOL = {"float32": 5e-4, "bfloat16": 2e-2}
+# phase 10: training at full width and depth. gemma-2b (2.51 B parameters,
+# vocab 256,000 tied) with the reference CLI's learning rate and warmup,
+# B 1 and T 4096, which takes the checkpointed query blocks (chunk 512)
+# and the chunked loss; synthetic batches over 64 live ids
+TRAIN_ARCH = "gemma-2b"
+TRAIN_B = 1
+TRAIN_T = 4096
+TRAIN_STEPS = 8
+TRAIN_LR = 3e-3
+TRAIN_WARMUP = 20
+TRAIN_LIVE_IDS = 64
+# 10b: the remat policies at this many layers of the same width; loss and
+# gradient norm relative to "none" (the backward's sums on the card may
+# run in another order from one run to the next)
+REMAT_LAYERS = 2
+REMAT_TOL = 1e-3
+# 10c: the example's model and data (examples/torch_train_lm.py), trained
+# to the first count with a checkpoint every EXAMPLE_CKPT_EVERY steps,
+# then resumed to the second
+EXAMPLE_STEPS = (30, 40)
+EXAMPLE_CKPT_EVERY = 15
+EXAMPLE_BATCH = 8
+EXAMPLE_SEQ = 128
 BLOCK_B = 256
 DEVICE = "cuda"
 
@@ -1976,6 +2026,420 @@ def lm_serve_phase(ops, serve, tm, pm, cfg, params) -> dict:
     return dict(tokens=tokens, wall=wall, steps=steps, decode_s=decode_s)
 
 
+def synthetic_batches(vocab: int, n: int, b: int, t: int) -> list:
+    """n numpy batches of the synthetic LM stream, made before a timed run
+    (a 4096-token batch takes the host tens of ms)."""
+    from repro_torch.data import pipeline
+
+    it = pipeline.synthetic_lm_batches(vocab, b, t,
+                                       effective_vocab=TRAIN_LIVE_IDS)
+    return [next(it) for _ in range(n)]
+
+
+def trainable_params(tm, pm, cfg, seed: int):
+    """cfg's parameters drawn by init_params from a generator on the card
+    seeded with ``seed``, then rescaled: each attention weight to std
+    (the dims it contracts)^-0.5, and the two residual outputs (attention
+    and FFN ``wo``) by a further (2 L)^-0.5, GPT-2's scaling. The
+    reference's rule takes an attention weight's fan-in from shape[-2],
+    its head count (1 for gemma-2b's keys and values: std 1); from it
+    gemma-2b's gradients at 18 layers overflow fp32 (a gradient norm of
+    inf at every step, on the card) and the reference's grow as fast."""
+    import torch
+
+    dev = torch.device(DEVICE)
+    p = pm.init_params(tm.model_spec(cfg),
+                       torch.Generator(dev).manual_seed(seed), device=dev)
+    attn, depth = p["blocks"]["attn"], (2 * cfg.n_layers) ** -0.5
+    with torch.no_grad():
+        for k in ("wq", "wk", "wv"):   # std shape[-2]^-0.5 -> d^-0.5
+            attn[k].mul_((attn[k].shape[-2] / cfg.d_model) ** 0.5)
+        attn["wo"].mul_(cfg.n_heads ** -0.5 * depth)   # hd^-0.5 -> (n hd)^-0.5
+        p["blocks"]["ffn"]["wo"].mul_(depth)
+    return p
+
+
+def trace_split(prof, params) -> tuple:
+    """From the trace of one profiled train step: its kernel ms by part,
+    {"forward", "backward", "update"}, and its weight casts,
+    {"forward": (count, ms), "backward": (count, ms)}. A kernel belongs to
+    the op that launched it; an op under an autograd evaluate_function is
+    in the backward pass (the recomputation with it), the others before
+    it are the forward pass and those after it the gradient norm and the
+    AdamW update. A weight cast is an aten::_to_copy of a weight's shape
+    (a layer's slice of a stacked weight, or the embedding): under
+    ToCopyBackward0 a gradient's cast back to fp32, else a weight's to
+    bf16 (the forward pass or its recomputation); its ms are its kernels'."""
+    from torch.autograd import DeviceType
+
+    from repro_torch.models import params as pm
+
+    shapes = {tuple(x.shape[1:]) for x in pm.tree_leaves(params["blocks"])
+              if x.dim() >= 3}
+    shapes.add(tuple(params["embed"].shape))
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+
+    def grad_node(e):
+        while e is not None:
+            if e.name.startswith("autograd::engine::evaluate_function"):
+                return e.name
+            e = e.cpu_parent
+        return None
+
+    # a cast nested in another is a dispatch mode's redispatch ("dots")
+    def outermost_cast(e):
+        a = e.cpu_parent
+        while a is not None and a.name != "aten::_to_copy":
+            a = a.cpu_parent
+        return a is None
+
+    node = {id(e): grad_node(e) for e in ops}
+    bwd = [e for e in ops if node[id(e)]]
+    check(bool(bwd), "the profiled step has no backward op")
+    first = min(e.time_range.start for e in bwd)
+    split = {"forward": 0.0, "backward": 0.0, "update": 0.0}
+    casts = {"forward": [0, 0.0], "backward": [0, 0.0]}
+    for e in ops:
+        ms = sum(k.duration for k in e.kernels) / 1e3
+        part = ("backward" if node[id(e)] else
+                "forward" if e.time_range.start < first else "update")
+        split[part] += ms
+        if (e.name == "aten::_to_copy" and e.input_shapes
+                and tuple(e.input_shapes[0]) in shapes
+                and outermost_cast(e)):
+            key = ("backward" if node[id(e)] and node[id(e)].endswith(
+                "ToCopyBackward0") else "forward")
+            casts[key][0] += 1
+            casts[key][1] += e.device_time_total / 1e3
+    return split, {k: tuple(v) for k, v in casts.items()}
+
+
+def profiled_step(step, params, opt, batch) -> dict:
+    """One train step under torch.profiler (shapes recorded): its wall
+    with the profiler on, its kernels (count, ms by name and by kind) and
+    trace_split's parts and weight casts."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t = time.perf_counter()
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    by_name: dict = {}
+    by_kind: dict = {}
+    n_kernels = 0
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            ms = ev.time_range.elapsed_us() / 1e3
+            by_name[ev.name[:60]] = by_name.get(ev.name[:60], 0.0) + ms
+            kind = kernel_kind(ev.name)
+            by_kind[kind] = by_kind.get(kind, 0.0) + ms
+            n_kernels += 1
+    split, casts = trace_split(prof, params)
+    return dict(prof=prof, wall=wall, by_name=by_name, by_kind=by_kind,
+                n_kernels=n_kernels, busy=sum(by_name.values()),
+                split=split, casts=casts)
+
+
+def kernel_kind(name: str) -> str:
+    """A kernel's kind, by its name."""
+    if any(k in name for k in ("nvjet", "gemm", "cutlass", "xmma")):
+        return "matrix products"
+    if "softmax" in name.lower():
+        return "softmax"
+    if "elementwise" in name or "copy" in name:
+        return "elementwise and copies"
+    if "reduce" in name.lower():
+        return "reductions"
+    return "other"
+
+
+def train_phase(ops, tm, pm, cfg) -> dict:
+    """gemma-2b trained at full width and depth: TRAIN_STEPS steps through
+    train.loop.fit (remat "full", the RunConfig default), the launch
+    counters set to 0 just before and read just after (the training path
+    reaches no kernel of the port, as the reference's reaches no
+    pallas_call). Checks every loss and gradient norm finite and the last
+    loss below the first; prints ms a step, tokens/s, 6 N tokens/s, peak
+    memory, then a profile of one more step and its weight casts."""
+    import torch
+
+    from repro_torch.configs import RunConfig, ShapeConfig
+    from repro_torch.train import loop, optimizer, train_step as ts
+
+    dev = torch.device(DEVICE)
+    params = trainable_params(tm, pm, cfg, 0)
+    n_params = pm.count_params(params)
+    run = RunConfig(model=cfg, shape=ShapeConfig(
+        "chip", TRAIN_T, TRAIN_B, "train"), learning_rate=TRAIN_LR,
+        lr_warmup=TRAIN_WARMUP)
+    check(run.remat == "full", f"RunConfig's remat default is {run.remat}")
+    batches = synthetic_batches(cfg.vocab, TRAIN_STEPS + 2, TRAIN_B, TRAIN_T)
+    log: list = []
+
+    def on_metrics(step, m):
+        log.append((time.perf_counter(), float(m["loss"]),
+                    float(m["grad_norm"]), float(m["lr"]),
+                    float(m["clip_scale"])))
+
+    print(f"[train] {cfg.name} at full width and depth: {cfg.n_layers}"
+          f" layers, d {cfg.d_model}, {cfg.n_heads} heads x {cfg.head_dim},"
+          f" {cfg.n_kv_heads} KV head, d_ff {cfg.d_ff}, vocab {cfg.vocab}"
+          f" (tied {cfg.tie_embeddings}); {n_params} parameters,"
+          f" {torch.cuda.memory_allocated() / 1e9:.3f} GB on the card;"
+          f" {cfg.compute_dtype} compute, remat {run.remat!r}, B {TRAIN_B},"
+          f" T {TRAIN_T}, lr {TRAIN_LR}, warmup {TRAIN_WARMUP}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_dispatch_count()
+    t0 = time.perf_counter()
+    res = loop.fit(cfg, run, iter(batches[:TRAIN_STEPS]), params=params,
+                   steps=TRAIN_STEPS, device=dev, on_metrics=on_metrics)
+    torch.cuda.synchronize()
+    launches = launch_counts(ops)
+    peak = torch.cuda.max_memory_allocated()
+    check(not launches, f"the training path launched {launches}; it calls"
+          " no kernel of the port")
+    check(res.steps_run == TRAIN_STEPS == len(log),
+          f"{res.steps_run} steps run, {len(log)} logged")
+    losses = [e[1] for e in log]
+    gnorms = [e[2] for e in log]
+    check(all(map(math.isfinite, losses + gnorms)),
+          f"non-finite losses {losses} or gradient norms {gnorms}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    ends = [t0] + [e[0] for e in log]
+    step_s = [b - a for a, b in zip(ends, ends[1:])]
+    steady = sum(step_s[1:]) / len(step_s[1:])
+    tokens = TRAIN_B * TRAIN_T
+    flops = 6 * n_params * tokens
+    peak_flops = PEAK_FLOPS["bfloat16"]
+    print(f"[train] losses {[round(x, 4) for x in losses]}; gradient norms"
+          f" {[round(x, 3) for x in gnorms]}; lr {[f'{e[3]:.2e}' for e in log]};"
+          f" clip scale {[round(e[4], 4) for e in log]}")
+    print(f"[train] step s {[round(x, 6) for x in step_s]} (the first with"
+          f" the warm-up); steady {steady * 1e3:.6f} ms a step,"
+          f" {tokens / steady:.6f} tokens/s, 6 N tokens / s ="
+          f" {flops / steady / 1e12:.6f} TFLOP/s,"
+          f" {flops / steady / peak_flops:.6f} of the card's"
+          f" {peak_flops / 1e12:.0f} TFLOP/s bf16 peak; peak memory"
+          f" {peak / 1e9:.6f} GB (torch.cuda.max_memory_allocated); kernel"
+          " launches of the port 0")
+
+    # one more step, unprofiled, then one profiled
+    opt = optimizer.init(params)
+    step = ts.make_train_step(cfg, run)
+    step(params, opt, batches[TRAIN_STEPS])
+    pr = profiled_step(step, params, opt, batches[TRAIN_STEPS + 1])
+    del opt
+    prof, prof_wall, by_name, by_kind = (pr["prof"], pr["wall"],
+                                         pr["by_name"], pr["by_kind"])
+    n_kernels, busy, split, casts = (pr["n_kernels"], pr["busy"],
+                                     pr["split"], pr["casts"])
+    out = dict(steady_ms=steady * 1e3, tokens_s=tokens / steady,
+               tflops=flops / steady / 1e12, peak_gb=peak / 1e9,
+               n_kernels=n_kernels, busy_ms=busy, casts=casts, split=split)
+    print(f"[train] the profiled step's kernel ms by part (its trace):"
+          f" forward {split['forward']:.3f}, backward with the"
+          f" recomputation {split['backward']:.3f}, gradient norm and AdamW"
+          f" update {split['update']:.3f}; {sum(split.values()):.3f} ms of"
+          f" the {busy:.3f} ms of kernels traced linked to an op")
+    if not busy:
+        print("[train] profiler: no device time in the trace (not"
+              " measured)")
+    else:
+        print(f"[train] profile of one step: {n_kernels} kernels,"
+              f" {busy:.3f} ms of kernels in {prof_wall * 1e3:.3f} ms of"
+              f" wall with the profiler on ({busy / prof_wall / 1e3:.6f}"
+              f" busy); against the steady step without the profiler"
+              f" {busy / (steady * 1e3):.6f}")
+        print("[train] kernel time by kind: " + ", ".join(
+            f"{k} {v:.3f} ms ({v / busy:.4f})" for k, v in sorted(
+                by_kind.items(), key=lambda kv: -kv[1])))
+        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+            print(f"[train]   {ms:10.3f} ms ({ms / busy:.4f} of kernel"
+                  f" time)  {name}")
+        rows = sorted(prof.key_averages(), key=lambda e: -getattr(
+            e, "self_device_time_total", 0))[:12]
+        for e in rows:
+            ms = getattr(e, "self_device_time_total", 0) / 1e3
+            print(f"[train]   op {e.key}: {e.count} calls, {ms:.3f} ms of"
+                  " kernels")
+    for key, (count, ms) in casts.items():
+        print(f"[train] weight casts in the profiled step, {key}"
+              f" ({'fp32 -> bf16' if key == 'forward' else 'bf16 -> fp32'}):"
+              f" {count}, {ms:.6f} ms of kernels"
+              f" ({ms / (steady * 1e3):.6f} of the steady step"
+              + (f", {ms / busy:.6f} of its kernel time)" if busy else ")"))
+    return out
+
+
+def remat_phase(tm, pm, cfg) -> dict:
+    """The three remat policies at REMAT_LAYERS layers of cfg's width and
+    T = TRAIN_T: a step under each from the same weights and batch (loss
+    and gradient norm within REMAT_TOL of "none"), then a second step,
+    timed, and a third profiled; the peak memory of the first two."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import RunConfig, ShapeConfig
+    from repro_torch.train import optimizer, train_step as ts
+
+    dev = torch.device(DEVICE)
+    cfg = dataclasses.replace(cfg, n_layers=REMAT_LAYERS)
+    base = trainable_params(tm, pm, cfg, 1)
+    b0, b1 = synthetic_batches(cfg.vocab, 2, TRAIN_B, TRAIN_T)
+    out = {}
+    for name in ("none", "dots", "full"):
+        run = RunConfig(model=cfg, shape=ShapeConfig(
+            "chip", TRAIN_T, TRAIN_B, "train"), learning_rate=TRAIN_LR,
+            lr_warmup=TRAIN_WARMUP, remat=name)
+        p = pm.tree_map(torch.clone, base)
+        opt = optimizer.init(p)
+        step = ts.make_train_step(cfg, run)
+        # what the forward keeps for the backward pass: memory held after
+        # the loss, before the gradients
+        live = pm.tree_map(lambda x: x.detach().requires_grad_(), p)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        loss = tm.loss_fn(live, cfg, ts.to_device(b0, dev),
+                          remat_policy=ts.remat_policy(name))
+        torch.cuda.synchronize()
+        kept = torch.cuda.memory_allocated() - held
+        del loss, live
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = torch.cuda.memory_allocated()
+        p, opt, m = step(p, opt, b0)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        p, opt, m = step(p, opt, b1)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated()
+        pr = profiled_step(step, p, opt, b0)
+        busy, casts = pr["busy"], pr["casts"]
+        cast_ms = casts["forward"][1] + casts["backward"][1]
+        out[name] = dict(loss=loss, grad_norm=gnorm, peak_gb=peak / 1e9,
+                         above_state_gb=(peak - state) / 1e9,
+                         kept_gb=kept / 1e9, step_ms=sec * 1e3,
+                         n_kernels=pr["n_kernels"], busy_ms=busy,
+                         casts=casts, split=pr["split"])
+        print(f"[remat] {name}: loss {loss!r}, gradient norm {gnorm!r};"
+              f" kept for the backward pass {kept / 1e9:.6f} GB; peak"
+              f" memory {peak / 1e9:.6f} GB ({(peak - state) / 1e9:.6f}"
+              f" above the weights and AdamW state); second step"
+              f" {sec * 1e3:.6f} ms")
+        print(f"[remat] {name}, a third step profiled: {pr['n_kernels']}"
+              f" kernels, {busy:.3f} ms of them ({busy / (sec * 1e3):.6f}"
+              f" of the second step's wall); forward"
+              f" {pr['split']['forward']:.3f}, backward"
+              f" {pr['split']['backward']:.3f}, update"
+              f" {pr['split']['update']:.3f} ms; weight casts"
+              f" {casts['forward'][0]} + {casts['backward'][0]},"
+              f" {cast_ms:.6f} ms ({cast_ms / (sec * 1e3):.6f} of the second"
+              f" step, {cast_ms / busy if busy else 0.0:.6f} of its kernel"
+              " time)")
+        del pr
+        del p, opt, m
+    for name in ("dots", "full"):
+        for key in ("loss", "grad_norm"):
+            a, b = out[name][key], out["none"][key]
+            check(math.isfinite(a) and abs(a - b) <= REMAT_TOL * abs(b),
+                  f"remat {name!r} {key} {a} against 'none' {b}")
+    print(f"[remat] {cfg.name} at {REMAT_LAYERS} layers of full width, T"
+          f" {TRAIN_T}: loss and gradient norm of 'dots' and 'full' within"
+          f" {REMAT_TOL} of 'none'")
+    return out
+
+
+def example_phase(tm, pm) -> dict:
+    """The example's path (examples/torch_train_lm.py): its 100M model on
+    the morph stream, the stemmer on the card, trained through fit with
+    checkpoints, then resumed. Checks resumed_from, the checkpoint equal
+    bit for bit to the trained weights, the resumed run's first loss that
+    of those weights on its first batch, and a falling loss."""
+    import importlib.util
+
+    import torch
+
+    from repro_torch.configs import RunConfig, ShapeConfig
+    from repro_torch.data import pipeline
+    from repro_torch.launch.train import batched
+    from repro_torch.train import checkpoint, loop, optimizer
+    from repro_torch.train import train_step as ts
+
+    dev = torch.device(DEVICE)
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_lm", Path(__file__).resolve().parent / "examples"
+        / "torch_train_lm.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    cfg = example.lm_100m()
+    run = RunConfig(model=cfg, shape=ShapeConfig(
+        "ex", EXAMPLE_SEQ, EXAMPLE_BATCH, "train"), learning_rate=3e-3,
+        lr_warmup=30, remat="none")
+    first, last = EXAMPLE_STEPS
+    t = time.perf_counter()
+    pre = pipeline.MorphPreprocessor(device=dev)
+    stream = batched(pipeline.morph_lm_batches(
+        batch_words=4096, seq=EXAMPLE_SEQ, preproc=pre), EXAMPLE_BATCH)
+    batches = [next(stream) for _ in range(last)]
+    data_s = time.perf_counter() - t
+    params = pm.init_params(tm.model_spec(cfg),
+                            torch.Generator(dev).manual_seed(0), device=dev)
+    with tempfile.TemporaryDirectory() as ckpt:
+        t = time.perf_counter()
+        r1 = loop.fit(cfg, run, iter(batches[:first]), params=params,
+                      steps=first, ckpt_dir=ckpt,
+                      ckpt_every=EXAMPLE_CKPT_EVERY, device=dev)
+        fit_s = time.perf_counter() - t
+        check(checkpoint.latest_step(ckpt) == first,
+              f"latest step {checkpoint.latest_step(ckpt)}, want {first}")
+        saved = checkpoint.restore(
+            ckpt, first, {"params": params, "opt": optimizer.init(params)})
+        same = all(torch.equal(a, b) for a, b in zip(
+            pm.tree_leaves(saved["params"]), pm.tree_leaves(params)))
+        check(same and int(saved["opt"].step) == first,
+              "the checkpoint differs from the trained weights")
+        with torch.no_grad():
+            want0 = float(tm.loss_fn(params, cfg,
+                                     ts.to_device(batches[first], dev)))
+        other = pm.init_params(tm.model_spec(cfg),
+                               torch.Generator(dev).manual_seed(1),
+                               device=dev)
+        r2 = loop.fit(cfg, run, iter(batches[first:]), params=other,
+                      steps=last, ckpt_dir=ckpt,
+                      ckpt_every=EXAMPLE_CKPT_EVERY, device=dev)
+    check((r2.resumed_from, r2.steps_run, r2.final_step)
+          == (first, last - first, last),
+          f"resumed_from {r2.resumed_from}, {r2.steps_run} steps to"
+          f" {r2.final_step}")
+    check(abs(r2.losses[0] - want0) <= 1e-5 * abs(want0),
+          f"the resumed run's first loss {r2.losses[0]}, the checkpointed"
+          f" weights' {want0}")
+    losses = r1.losses + r2.losses
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"the example's loss did not fall: {losses[0]} -> {losses[-1]}")
+    print(f"[example] {cfg.name}: {pm.count_params(params)} parameters,"
+          f" batch {EXAMPLE_BATCH} x {EXAMPLE_SEQ} of the morph stream"
+          f" (stemmer on the card, {data_s:.3f} s for {last} batches);"
+          f" {first} steps with checkpoints every {EXAMPLE_CKPT_EVERY} in"
+          f" {fit_s:.3f} s, resumed from {r2.resumed_from} to"
+          f" {r2.final_step}; the checkpoint equals the trained weights"
+          f" bit for bit; the resumed first loss {r2.losses[0]!r} against"
+          f" {want0!r} from the checkpointed weights; loss {losses[0]:.4f}"
+          f" -> {losses[-1]:.4f}")
+    return dict(fit_s=fit_s, first=losses[0], last=losses[-1])
+
+
 def instance_registers(libs: dict) -> list:
     """Registers and spills of every kernel instance of the resident
     kernels (K1, K3 resident), K4 and K7/K8, from the build's -Xptxas -v
@@ -2485,6 +2949,17 @@ def main() -> int:
 
     lap("LM serving")
 
+    # ---- 10. training: gemma-2b at full width and depth -----------------
+    train_cfg = configs.get_config(TRAIN_ARCH)
+    train_run = train_phase(ops, tm, pm, train_cfg)
+    torch.cuda.empty_cache()
+    lap("training at full width")
+    remat_runs = remat_phase(tm, pm, train_cfg)
+    torch.cuda.empty_cache()
+    lap("remat policies")
+    example_run = example_phase(tm, pm)
+    lap("the example's path with checkpoints")
+
     # ---- 9. times --------------------------------------------------------
     real_tables = sf.padded_tables(realistic, match="bsearch", infix=True)
     table_bytes = 4 * sum(int(t.shape[0]) for t in real_tables)
@@ -2950,6 +3425,19 @@ def main() -> int:
     print(f"[times] LM serve: {lm_run['steps']} decode steps,"
           f" {lm_run['decode_s'] / lm_run['steps'] * 1e3:.6f} ms a step,"
           f" {lm_run['tokens'] / lm_run['wall']:.6f} tokens/s")
+    casts = train_run["casts"]
+    print(f"[times] LM train, {TRAIN_ARCH} full width and depth, remat full,"
+          f" B {TRAIN_B}, T {TRAIN_T}: {train_run['steady_ms']:.6f} ms a"
+          f" step, {train_run['tokens_s']:.6f} tokens/s,"
+          f" {train_run['tflops']:.6f} TFLOP/s (6 N tokens), peak"
+          f" {train_run['peak_gb']:.6f} GB, {train_run['n_kernels']} kernels"
+          f" a step, {train_run['busy_ms']:.3f} ms of them; weight casts"
+          f" {casts['forward'][1]:.6f} ms forward, {casts['backward'][1]:.6f}"
+          " ms backward; remat at " + ", ".join(
+              f"{k} {v['step_ms']:.3f} ms / {v['peak_gb']:.3f} GB"
+              for k, v in remat_runs.items())
+          + f" ({REMAT_LAYERS} layers); the example {example_run['fit_s']:.3f}"
+          f" s for {EXAMPLE_STEPS[0]} steps")
     lap("times")
     print(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(card_line())

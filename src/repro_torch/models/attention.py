@@ -5,17 +5,22 @@ The counterpart of ``repro.models.attention``, in plain tensor operations
 in the reference's order: the score product in the compute dtype, then
 fp32 for the scale, the additive mask and the softmax, whose weights go
 back to the compute dtype for the second product. Masks are additive
-fp32 biases (0 or -1e30). Query head h reads KV head h // n_rep.
+fp32 biases (0 or -1e30). Query head h reads KV head h // n_rep. The
+weight products are matrix products of the flattened heads (``aten.mm``),
+the score and value products batched ones (``aten.bmm``): the "dots"
+remat policy saves the first kind only (``models.model``).
 
-K9 (``kernels/flash_attention.py``) is not called here: the reference's
-model does not call its flash kernel either. ``cross_attention`` (VLM)
-waits for that family (ROADMAP §1 item 9).
+K9 (``kernels/flash_attention.py``) is not called here, in serving or in
+training: the reference's model does not call its flash kernel either,
+and that kernel has no backward. ``cross_attention`` (VLM) waits for that
+family (ROADMAP §1 item 9.5).
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers
 from repro_torch.models.params import ParamSpec
@@ -74,10 +79,22 @@ def dequantise_kv(q: torch.Tensor, scale: torch.Tensor, dt) -> torch.Tensor:
     return (q.float() * scale).to(dt)
 
 
+def _heads_in(x, w, dt):
+    """The reference's einsum "btd,dnh->btnh" as one matrix product."""
+    d, n, hd = w.shape
+    return (x @ w.to(dt).reshape(d, n * hd)).reshape(*x.shape[:-1], n, hd)
+
+
+def _heads_out(y, w, dt):
+    """The reference's einsum "btnh,nhd->btd" as one matrix product."""
+    n, hd, d = w.shape
+    return y.reshape(*y.shape[:-2], n * hd) @ w.to(dt).reshape(n * hd, d)
+
+
 def _qkv(p, x, cfg, dt):
-    q = torch.einsum("btd,dnh->btnh", x, p["wq"].to(dt))
-    k = torch.einsum("btd,dnh->btnh", x, p["wk"].to(dt))
-    v = torch.einsum("btd,dnh->btnh", x, p["wv"].to(dt))
+    q = _heads_in(x, p["wq"], dt)
+    k = _heads_in(x, p["wk"], dt)
+    v = _heads_in(x, p["wv"], dt)
     if "bq" in p:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
@@ -117,14 +134,26 @@ def _causal_bias(tq: int, s: int, offset: int, window: int, device=None):
 
 def _attend_chunked(q, k, v, cfg, n_rep, chunk_q):
     """Causal attention in query blocks of chunk_q rows (when chunk_q
-    divides T and is smaller), so the fp32 scores stay O(chunk x T)."""
+    divides T and is smaller), so the fp32 scores stay O(chunk x T).
+
+    While autograd records, each block is checkpointed, as the reference's
+    ``body_inner`` is: its scores are recomputed in the backward pass
+    instead of being kept for every block, which would cost the whole
+    T x T score matrix that chunking avoids. The values are the same."""
     t = q.shape[1]
     if chunk_q and t % chunk_q == 0 and t > chunk_q:
-        return torch.cat([
-            _sdpa(q[:, i:i + chunk_q], k, v,
-                  _causal_bias(chunk_q, t, i, cfg.sliding_window, q.device),
-                  n_rep)
-            for i in range(0, t, chunk_q)], dim=1)
+        def block(qb, k, v, i):
+            bias = _causal_bias(chunk_q, t, i, cfg.sliding_window, q.device)
+            return _sdpa(qb, k, v, bias, n_rep)
+
+        recording = torch.is_grad_enabled() and any(
+            x.requires_grad for x in (q, k, v))
+        outs = []
+        for i in range(0, t, chunk_q):
+            qb = q[:, i:i + chunk_q]
+            outs.append(checkpoint(block, qb, k, v, i, use_reentrant=False)
+                        if recording else block(qb, k, v, i))
+        return torch.cat(outs, dim=1)
     bias = _causal_bias(t, t, 0, cfg.sliding_window, q.device)
     return _sdpa(q, k, v, bias, n_rep)
 
@@ -141,7 +170,7 @@ def self_attention(p, x, cfg, *, positions, chunk_q: int = 0,
     q, k, v = _qkv(p, x, cfg, dt)
     q, k = _rope_qk(q, k, positions, cfg)
     out = _attend_chunked(q, k, v, cfg, n_rep, chunk_q)
-    return torch.einsum("btnh,nhd->btd", out, p["wo"].to(dt))
+    return _heads_out(out, p["wo"], dt)
 
 
 def prefill_attention(p, x, cfg, *, positions, cache_len: int,
@@ -153,7 +182,7 @@ def prefill_attention(p, x, cfg, *, positions, cache_len: int,
     q, k = _rope_qk(q, k, positions, cfg)
     chunk = 1024 if (t > 4096 and t % 1024 == 0) else 0
     out = _attend_chunked(q, k, v, cfg, n_rep, chunk)
-    y = torch.einsum("btnh,nhd->btd", out, p["wo"].to(dt))
+    y = _heads_out(out, p["wo"], dt)
     if cache_len < t:  # ring buffer keeps the last cache_len positions
         k, v = k[:, -cache_len:], v[:, -cache_len:]
     if getattr(cfg, "kv_quant", False):
@@ -215,5 +244,5 @@ def decode_attention(p, x, cfg, cache, *, pos, dt=torch.bfloat16):
     bias = _bias(ok)[None, None, None, None]
 
     out = _sdpa(q, new_k, new_v, bias, n_rep)
-    y = torch.einsum("btnh,nhd->btd", out, p["wo"].to(dt))
+    y = _heads_out(out, p["wo"], dt)
     return y, (cache if quant else KVCache(k=new_k, v=new_v))

@@ -4,9 +4,10 @@ decode modes.
 The counterpart of ``repro.models.blocks``. Every family's parameters are
 declared here (so that ``models.model.model_spec`` and ``count_params``
 cover all ten architectures), but only ``block="attn"`` with
-``attn_impl="gqa"`` and a dense FFN is applied; the Mamba, Hymba, MLA and
-MoE branches raise NotImplementedError until they are ported (ROADMAP §1
-item 9).
+``attn_impl="gqa"`` and a dense FFN is applied, in every mode (the full
+forward, which trains, prefill and decode); the MoE, MLA, Mamba, Hymba,
+VLM and audio branches raise NotImplementedError until they are ported
+(ROADMAP §1 items 9.2-9.6).
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import layers
 from repro_torch.models.params import ParamSpec
 
-NOT_PORTED = "is not ported yet (ROADMAP §1 item 9)"
+# {item}: the ROADMAP §1 sub-item that ports the family
+NOT_PORTED = "is not ported yet (ROADMAP §1 item {item})"
 
 
 class BlockCache(NamedTuple):
@@ -125,19 +127,20 @@ def strip_markers(tree):
 
 def check_ported(cfg) -> None:
     """Raise NotImplementedError for a family whose apply is not ported."""
-    what = None
+    what = item = None
     if cfg.block != "attn":
-        what = f"the {cfg.block!r} block"
+        what, item = f"the {cfg.block!r} block", "9.4"
     elif cfg.attn_impl != "gqa":
-        what = f"attn_impl={cfg.attn_impl!r}"
+        what, item = f"attn_impl={cfg.attn_impl!r}", "9.3"
     elif cfg.is_moe:
-        what = "the MoE FFN"
+        what, item = "the MoE FFN", "9.2"
     elif cfg.n_cross_layers:
-        what = "cross-attention (the VLM family)"
+        what, item = "cross-attention (the VLM family)", "9.5"
     elif cfg.n_codebooks:
-        what = "the audio embedding and heads"
+        what, item = "the audio embedding and heads", "9.6"
     if what is not None:
-        raise NotImplementedError(f"{cfg.name}: {what} {NOT_PORTED}")
+        raise NotImplementedError(
+            f"{cfg.name}: {what} {NOT_PORTED.format(item=item)}")
 
 
 # ---------------------------------------------------------------------------
@@ -176,7 +179,8 @@ def block(p, h, cfg, *, mode="full", cache=BlockCache(), positions=None,
     if moe_layer is None:
         moe_layer = cfg.is_moe and cfg.block == "attn"
     if moe_layer:
-        raise NotImplementedError(f"{cfg.name}: the MoE FFN {NOT_PORTED}")
+        raise NotImplementedError(
+            f"{cfg.name}: the MoE FFN {NOT_PORTED.format(item='9.2')}")
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
 
     hn = layers.rmsnorm(p["norm1"], h, cfg.rms_eps)
