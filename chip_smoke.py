@@ -9,9 +9,11 @@ drives its main paths — root extraction served through
 kernels, text served through ``TextAnalysisWorkload`` onto the text front
 end and the stemmer kernels, a corpus index built through the stemmer
 kernels and the postings kernel, flash attention (K9) on a full-width
-LM's attention, that LM served through ``LMDecodeWorkload``, and gemma-2b
-trained through ``repro_torch.train.loop.fit`` — at a realistic size.
-Phases (10 runs after 8c, whose weights it frees, and before 9):
+LM's attention, that LM and the MoE and MLA models served through
+``LMDecodeWorkload``, and gemma-2b and deepseek-v2-lite-16b trained
+through ``repro_torch.train.loop.fit`` — at a realistic size. Phases (8d,
+8d', 10, 10b, 10c and 10d run in that order after 8c, each model freed
+before the next, and before 9):
 
   1. card      name and power limit (nvidia-smi)
   2. build     nvcc build of every kernel library, with its seconds
@@ -157,6 +159,22 @@ Phases (10 runs after 8c, whose weights it frees, and before 9):
                logit finite, no kernel launched; prefill against
                prefill-by-decode checked in bf16 and fp32 on the same
                weights cut to 2 layers, reported at all 32
+  8d. moe     deepseek-v2-lite-16b at full width and depth (27 layers:
+               MLA with kv_lora 512, one dense layer, then 64 experts
+               top-6 and 2 shared; 15.7 B fp32 parameters, 62.8 GB, drawn
+               from a seeded CUDA generator, bf16 compute): its first MoE
+               block at fp32 over 64 tokens on the card and on the CPU
+               (every token past a 1e-5 routing margin to the same
+               experts, the output within 1e-4 of its scale); then 8c's
+               traffic and checks (8 requests of 32 + 16 tokens on 4
+               slots), the capacity of a prompt's and a decode step's
+               tokens keeping every assignment, prefill against
+               prefill-by-decode at 2 layers (the dense one and an MoE
+               one); the kernels a step, the device's busy share, peak
+               memory
+  8d'. moe    qwen3-moe-235b-a22b at full width cut to 2 layers (128
+               experts top-8, GQA with 4 KV heads; 6.2 B parameters): the
+               same, 4 requests
   10. train    gemma-2b at full width and depth (18 layers, d 2048, 8
                heads x 256, 1 KV head, d_ff 16384, vocab 256,000 tied;
                2.51 B fp32 parameters from a seeded CUDA generator,
@@ -182,6 +200,14 @@ Phases (10 runs after 8c, whose weights it frees, and before 9):
                resumed_from 30, the checkpoint equal bit for bit to the
                trained weights, the resumed run's first loss that of those
                weights, the loss falls
+  10d. moe    deepseek-v2-lite-16b at full width cut to 5 layers (the
+               dense one and 4 MoE ones; 2.84 B parameters, 45.4 GB of
+               weights, gradients and moments) trained as 10: 8 steps
+               through fit, B 1, T 4096 (MLA's 512-query blocks), remat
+               "full", 6 N tokens/s with N the active parameters (routed
+               experts at 6/64, the head counted, the embedding not);
+               the aux loss before and after two steps; those two steps
+               run again from the same seed give bit-identical losses
   9. times     the launch floor (a one-element torch op, same timer);
                the registers and spills of every instance of the resident
                kernels, K4 and K7/K8 (the build's -Xptxas -v log); each
@@ -368,6 +394,29 @@ EXAMPLE_STEPS = (30, 40)
 EXAMPLE_CKPT_EVERY = 15
 EXAMPLE_BATCH = 8
 EXAMPLE_SEQ = 128
+# phase 8d: the MoE families at full width. deepseek-v2-lite-16b (MLA
+# with kv_lora 512, one dense layer, then 26 MoE layers of 64 experts
+# top-6 and 2 shared; 15.7 B parameters, 62.8 GB in fp32) served at full
+# depth with phase 8c's traffic, after one of its MoE blocks is run at
+# fp32 over MOE_BLOCK_T tokens on the card and on the CPU (routing alike
+# past MOE_MARGIN, the output within MOE_BLOCK_TOL of its scale); 8d':
+# qwen3-moe-235b-a22b (128 experts top-8, no shared or dense layer, GQA
+# with 4 KV heads) at full width cut to MOE_QWEN_LAYERS layers (6.1 B
+# parameters, 24 GB), MOE_QWEN_REQUESTS requests
+MOE_ARCH = "deepseek-v2-lite-16b"
+MOE_BLOCK_T = 64
+MOE_MARGIN = 1e-5
+MOE_BLOCK_TOL = 1e-4
+MOE_QWEN_ARCH = "qwen3-moe-235b-a22b"
+MOE_QWEN_LAYERS = 2
+MOE_QWEN_REQUESTS = 4
+# phase 10d: deepseek-v2-lite-16b trained at full width with its depth cut
+# to MOE_TRAIN_LAYERS (the dense layer and 4 MoE layers: 2.84 B
+# parameters, 45.4 GB of fp32 weights, gradients and AdamW moments at 16
+# B a parameter; the whole model's 251 GB fits no card), phase 10's
+# settings otherwise; then MOE_REPEAT_STEPS steps again from the same seed
+MOE_TRAIN_LAYERS = 5
+MOE_REPEAT_STEPS = 2
 BLOCK_B = 256
 DEVICE = "cuda"
 
@@ -1856,9 +1905,10 @@ def lm_attention_phase(ops, fa, ta, tl, tm, cfg, params):
     return instances, (qh, kh, vh)
 
 
-def profile_kernels(tag: str, label: str, fn, calls: int) -> None:
+def profile_kernels(tag: str, label: str, fn, calls: int) -> dict:
     """Device time of `calls` calls of fn by kernel (torch.profiler),
-    beside the wall time of the same calls."""
+    beside the wall time of the same calls -> {"busy_ms", "kernels",
+    "wall_ms"} a call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1880,27 +1930,62 @@ def profile_kernels(tag: str, label: str, fn, calls: int) -> None:
                             + ev.time_range.elapsed_us() / 1e3)
             n_kernels += 1
     busy = sum(by_name.values()) / calls
+    out = dict(busy_ms=busy, kernels=n_kernels // calls, wall_ms=wall)
     if not busy:
         print(f"[{tag}] profiler: no device time in the trace (not"
               " measured)")
-        return
+        return out
     print(f"[{tag}] profile of {calls} {label}: {busy:.3f} ms of kernels a"
           f" call ({n_kernels // calls} kernels a call) in {wall:.3f} ms of"
-          " wall (with the profiler on)")
+          f" wall (with the profiler on; device busy {busy / wall:.4f})")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"[{tag}]   {ms / calls:9.3f} ms a call"
               f" ({ms / calls / busy:.4f} of kernel time)  {name}")
+    return out
 
 
-def lm_serve_phase(ops, serve, tm, pm, cfg, params) -> dict:
-    """Serving at full width: Engine + LMDecodeWorkload serve LM_REQUESTS
-    requests through prefill-by-decode on LM_SLOTS slots, the launch
-    counters set to 0 just before and read just after (the model reaches
-    no kernel, as the reference's reaches no pallas_call). Checks every
-    request's token count and every step's logits finite; then holds the
-    prefill forward's last logits against prefill-by-decode for request
-    0 on the same weights cut to LM_CHECK_LAYERS layers, in bf16 and fp32
-    (fp32 caches), and reports the same at all layers."""
+def cut_layers(pm, cfg, params, n: int):
+    """cfg and its parameters cut to the first n layers: the leading dense
+    layers first (``first_dense``), then the first of ``blocks`` -> (cfg,
+    params), the weights views of the full ones."""
+    import dataclasses
+
+    dense = min(n, cfg.first_dense)
+    cut = dict(params, blocks=pm.tree_map(lambda x: x[:n - dense],
+                                          params["blocks"]))
+    if cfg.first_dense:
+        cut["dense_blocks"] = pm.tree_map(lambda x: x[:dense],
+                                          params["dense_blocks"])
+    return dataclasses.replace(cfg, n_layers=n, first_dense=dense), cut
+
+
+def no_drops(cfg, n_tokens: int, label: str) -> str:
+    """For an MoE config: check that a batch of n_tokens tokens can drop
+    no assignment (an expert takes at most one assignment a token, so a
+    capacity >= n_tokens keeps them all) -> the line that says so."""
+    from repro_torch.models import moe
+
+    if not cfg.is_moe:
+        return ""
+    cap = moe._capacity(n_tokens, cfg)
+    check(cap >= n_tokens, f"{label}: capacity {cap} < {n_tokens} tokens,"
+          " so prefill may drop assignments that decode keeps")
+    return (f"{label}: {n_tokens} tokens, capacity {cap}: 0 assignments"
+            " can be dropped")
+
+
+def lm_serve_phase(ops, serve, tm, pm, cfg, params, *, tag="lm-serve",
+                   requests=LM_REQUESTS) -> dict:
+    """Serving at full width: Engine + LMDecodeWorkload serve ``requests``
+    requests of LM_PROMPT + LM_NEW tokens through prefill-by-decode on
+    LM_SLOTS slots, the launch counters set to 0 just before and read just
+    after (the model reaches no kernel, as the reference's reaches no
+    pallas_call). Checks every request's token count and every step's
+    logits finite; then holds the prefill forward's last logits against
+    prefill-by-decode for request 0 on the same weights cut to
+    LM_CHECK_LAYERS layers, in bf16 and fp32 (fp32 caches), and reports
+    the same at all layers. For an MoE model both paths must be free of
+    capacity drops (no_drops), so that they route alike."""
     import dataclasses
 
     import numpy as np
@@ -1922,15 +2007,15 @@ def lm_serve_phase(ops, serve, tm, pm, cfg, params) -> dict:
                                 cache_len=LM_CACHE, device=DEVICE)
     # device time of two decode steps by kernel (also the warm-up)
     tok = torch.zeros((LM_SLOTS, 1), dtype=torch.int32, device=DEVICE)
-    profile_kernels("lm-serve", f"decode steps (B={LM_SLOTS})",
-                    lambda i: tm.decode_step(wl.params, cfg, tok, wl.caches,
-                                             i), 2)
+    prof = profile_kernels(tag, f"decode steps (B={LM_SLOTS})",
+                           lambda i: tm.decode_step(wl.params, cfg, tok,
+                                                    wl.caches, i), 2)
     log: list = []
     recording(wl, log)
     eng = serve.Engine(wl)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, LM_PROMPT)
-               for _ in range(LM_REQUESTS)]
+               for _ in range(requests)]
     torch.cuda.synchronize()
     ops.reset_dispatch_count()
     t = time.perf_counter()
@@ -1942,31 +2027,44 @@ def lm_serve_phase(ops, serve, tm, pm, cfg, params) -> dict:
     check(not launches, f"the LM path launched {launches}; its model calls"
           " no kernel")
     outs = [eng.result(r).tokens_out for r in rids]
-    check([len(o) for o in outs] == [LM_NEW] * LM_REQUESTS,
+    check([len(o) for o in outs] == [LM_NEW] * requests,
           f"token counts {[len(o) for o in outs]}, want {LM_NEW} each")
-    steps = LM_REQUESTS * (LM_PROMPT + LM_NEW - 1)
+    steps = requests * (LM_PROMPT + LM_NEW - 1)
     check(len(log) == steps, f"{len(log)} decode steps, want {steps}")
     check(bool(torch.stack([f for _, f, _ in log]).all()),
           "non-finite logits in a decode step")
     decode_s = sum(s for s, _, _ in log)
     tokens = sum(len(o) for o in outs)
-    print(f"[lm-serve] {cfg.name} at full width ({cfg.n_layers} layers, d"
-          f" {cfg.d_model}, vocab {cfg.vocab}, bf16 compute on fp32"
-          f" weights): {LM_REQUESTS} requests of {LM_PROMPT} prompt tokens"
+    peak = torch.cuda.max_memory_allocated()
+    moe = (f", {cfg.n_experts} experts top-{cfg.top_k}"
+           f" ({cfg.n_shared_experts} shared), first_dense {cfg.first_dense},"
+           f" attn {cfg.attn_impl}" if cfg.is_moe else "")
+    print(f"[{tag}] {cfg.name} at full width ({cfg.n_layers} layers, d"
+          f" {cfg.d_model}, vocab {cfg.vocab}{moe}, bf16 compute on fp32"
+          f" weights): {requests} requests of {LM_PROMPT} prompt tokens"
           f" and {LM_NEW} new on {LM_SLOTS} slots (cache_len {LM_CACHE}),"
           f" {tokens} tokens in {wall:.6f} s ({tokens / wall:.6f} tokens/s,"
           f" {steps} decode steps, {decode_s / steps * 1e3:.6f} ms a step,"
           f" decode_step {decode_s / wall:.6f} of the wall, {rep.ticks}"
-          " ticks, kernel launches 0); every request returned"
-          f" {LM_NEW} tokens, every logit finite")
-    print(f"[lm-serve] request 0: {outs[0]}")
+          f" ticks, kernel launches 0); every request returned"
+          f" {LM_NEW} tokens, every logit finite; {prof['kernels']} PyTorch"
+          f" kernels a step, {prof['busy_ms']:.3f} ms of them: the device"
+          f" busy {prof['busy_ms'] / (decode_s / steps * 1e3):.4f} of a"
+          f" served step; peak memory {peak / 1e9:.6f} GB"
+          " (max_memory_allocated)")
+    print(f"[{tag}] request 0: {outs[0]}")
+    for line in (no_drops(cfg, LM_PROMPT, "prefill of one prompt"),
+                 no_drops(cfg, LM_SLOTS, "a decode step of every slot")):
+        if line:
+            print(f"[{tag}] {line}")
 
     # request 0's prefill-by-decode emitted at step LM_PROMPT (slot 0)
     prompt = torch.from_numpy(prompts[0][None]).to(DEVICE)
 
     def prefill_vs_decode(cfg_, params_, by_decode=None):
         """-> (max error / scale, norm, argmax equal where the top-2 gap
-        is clear of tol, the prefill caches' and the decode caches' k)."""
+        is clear of tol, the prefill caches' and the decode caches' first
+        leaf of "blocks": attention's k, MLA's latent)."""
         fp32 = cfg_.compute_dtype == "float32"
         pre = tm.forward(params_, cfg_, prompt, mode="prefill")
         k_dec = None
@@ -1980,7 +2078,7 @@ def lm_serve_phase(ops, serve, tm, pm, cfg, params) -> dict:
             recording(wl_, log_)
             wl_.admit(wl_.make_request(0, prompts[0], max_new=1))
             by_decode = log_[-1][2]
-            k_dec = wl_.caches["blocks"].kv.k[:, 0, :LM_PROMPT].float()
+            k_dec = wl_.caches["blocks"].kv[0][:, 0, :LM_PROMPT].float()
         a, b = pre.logits[0, -1].float(), by_decode
         scale = float(a.abs().max())
         err = float((a - b).abs().max()) / scale
@@ -1989,41 +2087,209 @@ def lm_serve_phase(ops, serve, tm, pm, cfg, params) -> dict:
         tol = LM_PREFILL_TOL[cfg_.compute_dtype]
         clear = float(top2[0] - top2[1]) > tol * scale
         same_top = not clear or int(a.argmax()) == int(b.argmax())
-        return err, norm, same_top, pre.caches["blocks"].kv.k[:, 0].float(), \
+        return err, norm, same_top, pre.caches["blocks"].kv[0][:, 0].float(), \
             k_dec
 
-    cut = dict(params, blocks=pm.tree_map(lambda x: x[:LM_CHECK_LAYERS],
-                                          params["blocks"]))
+    cfg_cut, cut = cut_layers(pm, cfg, params, LM_CHECK_LAYERS)
     for dtype in ("bfloat16", "float32"):
-        cfg_cut = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS,
-                                      compute_dtype=dtype)
-        err, norm, same_top, _, _ = prefill_vs_decode(cfg_cut, cut)
+        cfg_d = dataclasses.replace(cfg_cut, compute_dtype=dtype)
+        err, norm, same_top, _, _ = prefill_vs_decode(cfg_d, cut)
         tol = LM_PREFILL_TOL[dtype]
-        print(f"[lm-serve] {dtype}, full width cut to {LM_CHECK_LAYERS}"
+        print(f"[{tag}] {dtype}, full width cut to {LM_CHECK_LAYERS}"
               f" layers: prefill vs prefill-by-decode, max error {err:.3e}"
               f" of the largest |logit| (tolerance {tol}), norm {norm:.3e},"
               f" same argmax where the top-2 gap is clear: {same_top}")
         check(err <= tol and same_top, f"{dtype} prefill and prefill-by-"
               f"decode differ by {err} of the logits' scale at"
               f" {LM_CHECK_LAYERS} layers")
-    err, norm, same_top, _, _ = prefill_vs_decode(cfg, params,
-                                                  log[LM_PROMPT - 1][2])
-    print(f"[lm-serve] bfloat16, all {cfg.n_layers} layers (the served"
-          f" run): prefill vs prefill-by-decode, max error {err:.3e} of the"
-          f" scale, norm {norm:.3e}, same clear argmax {same_top}"
-          " (reported, not checked)")
+    if cfg.n_layers > LM_CHECK_LAYERS:
+        err, norm, same_top, _, _ = prefill_vs_decode(cfg, params,
+                                                      log[LM_PROMPT - 1][2])
+        print(f"[{tag}] bfloat16, all {cfg.n_layers} layers (the served"
+              f" run): prefill vs prefill-by-decode, max error {err:.3e} of"
+              f" the scale, norm {norm:.3e}, same clear argmax {same_top}"
+              " (reported, not checked)")
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        err, norm, same_top, k_pre, k_dec = prefill_vs_decode(cfg32, params)
+        growth = [float((k_pre[i] - k_dec[i]).abs().max()
+                        / k_pre[i].abs().max())
+                  for i in range(k_pre.shape[0])]
+        print(f"[{tag}] float32, all {cfg.n_layers} layers: prefill vs"
+              f" prefill-by-decode, max error {err:.3e} of the scale, norm"
+              f" {norm:.3e}, same clear argmax {same_top} (reported, not"
+              " checked); the two caches' first leaf of \"blocks\" differs,"
+              " relative to the layer's largest |value|, by " + ", ".join(
+                  f"{g:.1e}" for g in growth[:8]) + f" ... {growth[-1]:.1e}"
+              " from its layer 0 on")
+    return dict(tokens=tokens, wall=wall, steps=steps, decode_s=decode_s,
+                kernels=prof["kernels"], busy_ms=prof["busy_ms"],
+                peak_gb=peak / 1e9)
+
+
+def moe_block_phase(tm, cfg, params) -> dict:
+    """One MLA + MoE block of the full-width weights (``blocks`` layer 0)
+    at fp32 over MOE_BLOCK_T tokens (the embedding of random ids), run by
+    the same port code on the card and on the CPU, as its pieces once
+    (norm1, mla_attention, the residual, norm2, then moe's routing,
+    slots, dispatch, experts, combine and shared experts), their sum
+    checked equal to blocks.block's output: every token whose k-th and
+    (k+1)-th router probabilities (the CPU's) differ by more than
+    MOE_MARGIN routes to the same experts on both, and the block's output
+    agrees within MOE_BLOCK_TOL of its largest |value|. The CUDA index
+    ops (topk, cumsum, the buffer's writes and reads) keep the CPU's
+    semantics."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import blocks, layers, mla, moe
+    from repro_torch.models import params as pm
+
+    f32 = torch.float32
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-    err, norm, same_top, k_pre, k_dec = prefill_vs_decode(cfg32, params)
-    growth = [float((k_pre[i] - k_dec[i]).abs().max() / k_pre[i].abs().max())
-              for i in range(cfg.n_layers)]
-    print(f"[lm-serve] float32, all {cfg.n_layers} layers: prefill vs"
-          f" prefill-by-decode, max error {err:.3e} of the scale, norm"
-          f" {norm:.3e}, same clear argmax {same_top} (reported, not"
-          " checked); the two caches' k differ, relative to the layer's"
-          " largest |k|, by " + ", ".join(
-              f"{g:.1e}" for g in growth[:8]) + f" ... {growth[-1]:.1e}"
-          " from layer 0 on")
-    return dict(tokens=tokens, wall=wall, steps=steps, decode_s=decode_s)
+    g = torch.Generator(DEVICE).manual_seed(2)
+    toks = torch.randint(0, cfg.vocab, (1, MOE_BLOCK_T), generator=g,
+                         device=DEVICE)
+    lp = tm._layer(params["blocks"], 0)
+    h = tm.embed_tokens(params, cfg32, toks, f32)
+
+    def run(lp, h):
+        pos = torch.arange(MOE_BLOCK_T, dtype=torch.int32, device=h.device)
+        h2 = h + mla.mla_attention(
+            lp["attn"], layers.rmsnorm(lp["norm1"], h, cfg.rms_eps), cfg32,
+            positions=pos, dt=f32)
+        xf = layers.rmsnorm(lp["norm2"], h2, cfg.rms_eps).reshape(
+            -1, cfg.d_model)
+        cap = moe._capacity(xf.shape[0], cfg32)
+        r = moe.routing(lp["ffn"], xf, cfg32)
+        s = moe.slots(r.top_e, cap, cfg.n_experts)
+        ye = moe.experts(lp["ffn"], moe.dispatch(xf, s, cap, cfg32, f32), f32)
+        y = moe.combine(ye, s, r.top_p, f32)
+        if "shared" in lp["ffn"]:
+            y = y + moe.shared_experts(lp["ffn"], xf, f32)
+        out = h2 + y.reshape(h2.shape)
+        ref, _, aux = blocks.block(lp, h, cfg32, mode="full", positions=pos,
+                                   moe_layer=True, dt=f32)
+        check(torch.equal(out, ref) and torch.equal(r.aux, aux),
+              f"the MoE block's pieces on {h.device.type} do not sum to"
+              " blocks.block's output")
+        return out.cpu(), r.probs.cpu(), r.top_e.cpu(), float(r.aux)
+
+    t = time.perf_counter()
+    with torch.no_grad():
+        card = run(lp, h)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t
+        t = time.perf_counter()
+        host = run(pm.tree_map(lambda x: x.cpu(), lp), h.cpu())
+        host_s = time.perf_counter() - t
+    out_d, _, e_d, aux_d = card
+    out_h, probs_h, e_h, aux_h = host
+    srt = probs_h.sort(dim=-1, descending=True).values
+    clear = (srt[:, cfg.top_k - 1] - srt[:, cfg.top_k]) > MOE_MARGIN
+    same = (e_d.sort(-1).values == e_h.sort(-1).values).all(-1)
+    scale = float(out_h.abs().max())
+    err = float((out_d - out_h).abs().max()) / scale
+    print(f"[moe-block] {cfg.name} blocks[0] (MLA + {cfg.n_experts} experts"
+          f" top-{cfg.top_k}) at fp32, {MOE_BLOCK_T} tokens, card"
+          f" {card_s:.3f} s, CPU {host_s:.3f} s: {int(clear.sum())} of"
+          f" {MOE_BLOCK_T} tokens past the {MOE_MARGIN} margin route alike"
+          f" ({int(same[clear].sum())}; {int((~clear).sum())} excused, of"
+          f" which {int(same[~clear].sum())} route alike too); output max"
+          f" error {err:.3e} of its scale {scale:.3f} (tolerance"
+          f" {MOE_BLOCK_TOL}); aux loss {aux_d!r} on the card, {aux_h!r} on"
+          " the CPU")
+    check(bool(same[clear].all()), "the card routes a token past the margin"
+          " to other experts than the CPU")
+    check(err <= MOE_BLOCK_TOL, f"the MoE block on the card differs from"
+          f" the CPU's by {err} of its scale")
+    return dict(err=err, excused=int((~clear).sum()))
+
+
+def moe_serve_phase(ops, serve, tm, pm, configs) -> dict:
+    """8d: deepseek-v2-lite-16b at full width and depth, drawn on the card
+    from a seeded CUDA generator: the CPU check of one MoE block
+    (moe_block_phase), then lm_serve_phase at phase 8c's traffic. 8d':
+    qwen3-moe-235b-a22b at full width cut to MOE_QWEN_LAYERS layers, with
+    MOE_QWEN_REQUESTS requests. Each model is freed before the next."""
+    import dataclasses
+
+    import torch
+
+    out = {}
+    dev = torch.device(DEVICE)
+    for tag, cfg, requests in (
+            ("moe-serve", configs.get_config(MOE_ARCH), LM_REQUESTS),
+            ("moe-serve-qwen", dataclasses.replace(
+                configs.get_config(MOE_QWEN_ARCH),
+                n_layers=MOE_QWEN_LAYERS), MOE_QWEN_REQUESTS)):
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        params = pm.init_params(tm.model_spec(cfg),
+                                torch.Generator(dev).manual_seed(0),
+                                device=dev)
+        torch.cuda.synchronize()
+        n, active = pm.count_params(params), active_params(pm, cfg, params)
+        print(f"[{tag}] {cfg.name} at full width, {cfg.n_layers} layers:"
+              f" {n} parameters, {torch.cuda.memory_allocated() / 1e9:.3f}"
+              f" GB on the card (fp32, drawn on the card in"
+              f" {time.perf_counter() - t:.3f} s); {active} active a token")
+        block = moe_block_phase(tm, cfg, params) if tag == "moe-serve" else {}
+        torch.cuda.reset_peak_memory_stats()
+        run = lm_serve_phase(ops, serve, tm, pm, cfg, params, tag=tag,
+                             requests=requests)
+        out[cfg.name] = dict(run, params=n, block=block)
+        del params
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_train_phase(ops, tm, pm, configs) -> dict:
+    """10d: deepseek-v2-lite-16b at full width, depth cut to
+    MOE_TRAIN_LAYERS (the dense layer and MoE layers), trained by
+    train_phase (TRAIN_STEPS steps through fit, B 1, T 4096: MLA's
+    512-query blocks and the chunked loss, remat "full"); the aux loss of
+    the first batch before and after; then the parameters drawn again
+    from the same seed and MOE_REPEAT_STEPS steps run on the same
+    batches: their losses equal the first run's bit for bit (the MoE
+    dispatch adds no two values into one element by index, so its
+    gradients do not depend on the order of atomic adds)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.train import loop
+
+    dev = torch.device(DEVICE)
+    cfg = dataclasses.replace(configs.get_config(MOE_ARCH),
+                              n_layers=MOE_TRAIN_LAYERS)
+    torch.cuda.empty_cache()
+    res = train_phase(ops, tm, pm, cfg, tag="moe-train")
+    batches, run = res.pop("batches"), res.pop("run")
+    torch.cuda.empty_cache()
+    params = trainable_params(tm, pm, cfg, 0)
+    tokens = torch.as_tensor(batches[0]["tokens"]).to(dev)
+    with torch.no_grad():
+        aux0 = float(tm.forward(params, cfg, tokens,
+                                return_hidden=True).aux_loss)
+    again = loop.fit(cfg, run, iter(batches[:MOE_REPEAT_STEPS]),
+                     params=params, steps=MOE_REPEAT_STEPS, device=dev)
+    first = res["losses"][:MOE_REPEAT_STEPS]
+    with torch.no_grad():
+        aux2 = float(tm.forward(params, cfg, tokens,
+                                return_hidden=True).aux_loss)
+    print(f"[moe-train] aux loss of the first batch (the sum over"
+          f" {cfg.n_layers - cfg.first_dense} MoE layers of"
+          f" {cfg.router_aux_weight} x E sum_e f_e P_e, in the loss): {aux0!r}"
+          f" at the init, {aux2!r} after {MOE_REPEAT_STEPS} steps; the first"
+          f" {MOE_REPEAT_STEPS} steps run twice from seed 0: losses"
+          f" {first!r} and {again.losses!r}")
+    check(again.losses == first, f"two runs of {MOE_REPEAT_STEPS} steps from"
+          f" one seed differ: {first} and {again.losses}")
+    del params
+    torch.cuda.empty_cache()
+    return dict(res, aux0=aux0, aux2=aux2)
 
 
 def synthetic_batches(vocab: int, n: int, b: int, t: int) -> list:
@@ -2038,25 +2304,54 @@ def synthetic_batches(vocab: int, n: int, b: int, t: int) -> list:
 
 def trainable_params(tm, pm, cfg, seed: int):
     """cfg's parameters drawn by init_params from a generator on the card
-    seeded with ``seed``, then rescaled: each attention weight to std
-    (the dims it contracts)^-0.5, and the two residual outputs (attention
-    and FFN ``wo``) by a further (2 L)^-0.5, GPT-2's scaling. The
-    reference's rule takes an attention weight's fan-in from shape[-2],
-    its head count (1 for gemma-2b's keys and values: std 1); from it
-    gemma-2b's gradients at 18 layers overflow fp32 (a gradient norm of
-    inf at every step, on the card) and the reference's grow as fast."""
+    seeded with ``seed``, then rescaled, in every layer stack (``blocks``
+    and DeepSeek's ``dense_blocks``): each weight to std (the product of
+    the dims it contracts)^-0.5, and the residual outputs (attention's
+    ``wo``, the FFN's, the routed and the shared experts') by a further
+    (2 L)^-0.5, GPT-2's scaling. The reference's rule takes the fan-in
+    from shape[-2]: right for a matrix [d_in, d_out] and an expert's [E,
+    d_in, d_out], but for attention's 3-d weights a head count or a head
+    dim: the in-projections [d_in, n, h] (GQA's wq, wk, wv; MLA's wq and
+    its up-projections wuk, wuv from the latent) contract their first
+    dim, the out-projection wo [n, h, d] its first two. From that rule
+    gemma-2b's gradients at 18 layers overflow fp32 (its single KV head
+    gets std 1: a gradient norm of inf at every step, on the card), and
+    the reference's grow as fast."""
     import torch
 
     dev = torch.device(DEVICE)
     p = pm.init_params(tm.model_spec(cfg),
                        torch.Generator(dev).manual_seed(seed), device=dev)
-    attn, depth = p["blocks"]["attn"], (2 * cfg.n_layers) ** -0.5
+    depth = (2 * cfg.n_layers) ** -0.5
     with torch.no_grad():
-        for k in ("wq", "wk", "wv"):   # std shape[-2]^-0.5 -> d^-0.5
-            attn[k].mul_((attn[k].shape[-2] / cfg.d_model) ** 0.5)
-        attn["wo"].mul_(cfg.n_heads ** -0.5 * depth)   # hd^-0.5 -> (n hd)^-0.5
-        p["blocks"]["ffn"]["wo"].mul_(depth)
+        for key in ("dense_blocks", "blocks"):
+            if key not in p:
+                continue
+            attn, ffn = p[key]["attn"], p[key]["ffn"]
+            for name, w in attn.items():
+                if w.dim() == 4:   # [L, ., ., .]: std shape[-2]^-0.5 now
+                    fan = w.shape[1] * (w.shape[2] if name == "wo" else 1)
+                    w.mul_((w.shape[-2] / fan) ** 0.5)
+            for w in (attn["wo"], ffn["wo"], ffn.get("shared", {}).get("wo")):
+                if w is not None:
+                    w.mul_(depth)
     return p
+
+
+def active_params(pm, cfg, params) -> int:
+    """The parameters a token's forward pass multiplies, for 6 N tokens:
+    every leaf but the input embedding (a lookup; counted when the head
+    is tied to it, as then it is the output head) and the routed experts,
+    counted at top_k / n_experts, a token's share of them."""
+    n = pm.count_params(params)
+    if not cfg.tie_embeddings:
+        n -= params["embed"].numel()
+    for key in ("dense_blocks", "blocks"):
+        ffn = params.get(key, {}).get("ffn", {})
+        if "router" in ffn:
+            routed = sum(ffn[k].numel() for k in ("wi", "wg", "wo"))
+            n -= routed - routed * cfg.top_k // cfg.n_experts
+    return n
 
 
 def trace_split(prof, params) -> tuple:
@@ -2074,8 +2369,8 @@ def trace_split(prof, params) -> tuple:
 
     from repro_torch.models import params as pm
 
-    shapes = {tuple(x.shape[1:]) for x in pm.tree_leaves(params["blocks"])
-              if x.dim() >= 3}
+    shapes = {tuple(x.shape[1:]) for key in ("dense_blocks", "blocks")
+              for x in pm.tree_leaves(params.get(key, {})) if x.dim() >= 3}
     shapes.add(tuple(params["embed"].shape))
     ops = [e for e in prof.events() if e.device_type == DeviceType.CPU]
 
@@ -2158,14 +2453,15 @@ def kernel_kind(name: str) -> str:
     return "other"
 
 
-def train_phase(ops, tm, pm, cfg) -> dict:
-    """gemma-2b trained at full width and depth: TRAIN_STEPS steps through
-    train.loop.fit (remat "full", the RunConfig default), the launch
-    counters set to 0 just before and read just after (the training path
-    reaches no kernel of the port, as the reference's reaches no
-    pallas_call). Checks every loss and gradient norm finite and the last
-    loss below the first; prints ms a step, tokens/s, 6 N tokens/s, peak
-    memory, then a profile of one more step and its weight casts."""
+def train_phase(ops, tm, pm, cfg, *, tag="train") -> dict:
+    """cfg trained at full width: TRAIN_STEPS steps through train.loop.fit
+    from trainable_params(seed 0) (remat "full", the RunConfig default),
+    the launch counters set to 0 just before and read just after (the
+    training path reaches no kernel of the port, as the reference's
+    reaches no pallas_call). Checks every loss and gradient norm finite
+    and the last loss below the first; prints ms a step, tokens/s, 6 N
+    tokens/s (N = active_params), peak memory, then a profile of one more
+    step and its weight casts. -> its numbers and the losses."""
     import torch
 
     from repro_torch.configs import RunConfig, ShapeConfig
@@ -2174,6 +2470,7 @@ def train_phase(ops, tm, pm, cfg) -> dict:
     dev = torch.device(DEVICE)
     params = trainable_params(tm, pm, cfg, 0)
     n_params = pm.count_params(params)
+    n_active = active_params(pm, cfg, params)
     run = RunConfig(model=cfg, shape=ShapeConfig(
         "chip", TRAIN_T, TRAIN_B, "train"), learning_rate=TRAIN_LR,
         lr_warmup=TRAIN_WARMUP)
@@ -2186,10 +2483,19 @@ def train_phase(ops, tm, pm, cfg) -> dict:
                     float(m["grad_norm"]), float(m["lr"]),
                     float(m["clip_scale"])))
 
-    print(f"[train] {cfg.name} at full width and depth: {cfg.n_layers}"
+    moe = (f", {cfg.attn_impl} attention, {cfg.first_dense} dense layer(s)"
+           f" then {cfg.n_experts} experts top-{cfg.top_k}"
+           f" ({cfg.n_shared_experts} shared) of d_ff {cfg.d_ff_expert}"
+           if cfg.is_moe else "")
+    active = ("routed experts at top_k / n_experts, the embedding table"
+              " not counted (a lookup), the head counted"
+              if cfg.is_moe else "all (the tied embedding is the head)"
+              if cfg.tie_embeddings else "all but the embedding table")
+    print(f"[{tag}] {cfg.name} at full width: {cfg.n_layers}"
           f" layers, d {cfg.d_model}, {cfg.n_heads} heads x {cfg.head_dim},"
           f" {cfg.n_kv_heads} KV head, d_ff {cfg.d_ff}, vocab {cfg.vocab}"
-          f" (tied {cfg.tie_embeddings}); {n_params} parameters,"
+          f" (tied {cfg.tie_embeddings}){moe}; {n_params} parameters"
+          f" ({n_active} active a token: {active}),"
           f" {torch.cuda.memory_allocated() / 1e9:.3f} GB on the card;"
           f" {cfg.compute_dtype} compute, remat {run.remat!r}, B {TRAIN_B},"
           f" T {TRAIN_T}, lr {TRAIN_LR}, warmup {TRAIN_WARMUP}")
@@ -2215,12 +2521,12 @@ def train_phase(ops, tm, pm, cfg) -> dict:
     step_s = [b - a for a, b in zip(ends, ends[1:])]
     steady = sum(step_s[1:]) / len(step_s[1:])
     tokens = TRAIN_B * TRAIN_T
-    flops = 6 * n_params * tokens
+    flops = 6 * n_active * tokens
     peak_flops = PEAK_FLOPS["bfloat16"]
-    print(f"[train] losses {[round(x, 4) for x in losses]}; gradient norms"
+    print(f"[{tag}] losses {[round(x, 4) for x in losses]}; gradient norms"
           f" {[round(x, 3) for x in gnorms]}; lr {[f'{e[3]:.2e}' for e in log]};"
           f" clip scale {[round(e[4], 4) for e in log]}")
-    print(f"[train] step s {[round(x, 6) for x in step_s]} (the first with"
+    print(f"[{tag}] step s {[round(x, 6) for x in step_s]} (the first with"
           f" the warm-up); steady {steady * 1e3:.6f} ms a step,"
           f" {tokens / steady:.6f} tokens/s, 6 N tokens / s ="
           f" {flops / steady / 1e12:.6f} TFLOP/s,"
@@ -2241,35 +2547,37 @@ def train_phase(ops, tm, pm, cfg) -> dict:
                                      pr["split"], pr["casts"])
     out = dict(steady_ms=steady * 1e3, tokens_s=tokens / steady,
                tflops=flops / steady / 1e12, peak_gb=peak / 1e9,
-               n_kernels=n_kernels, busy_ms=busy, casts=casts, split=split)
-    print(f"[train] the profiled step's kernel ms by part (its trace):"
+               n_kernels=n_kernels, busy_ms=busy, casts=casts, split=split,
+               losses=losses, n_active=n_active, n_params=n_params,
+               batches=batches, run=run)
+    print(f"[{tag}] the profiled step's kernel ms by part (its trace):"
           f" forward {split['forward']:.3f}, backward with the"
           f" recomputation {split['backward']:.3f}, gradient norm and AdamW"
           f" update {split['update']:.3f}; {sum(split.values()):.3f} ms of"
           f" the {busy:.3f} ms of kernels traced linked to an op")
     if not busy:
-        print("[train] profiler: no device time in the trace (not"
+        print(f"[{tag}] profiler: no device time in the trace (not"
               " measured)")
     else:
-        print(f"[train] profile of one step: {n_kernels} kernels,"
+        print(f"[{tag}] profile of one step: {n_kernels} kernels,"
               f" {busy:.3f} ms of kernels in {prof_wall * 1e3:.3f} ms of"
               f" wall with the profiler on ({busy / prof_wall / 1e3:.6f}"
               f" busy); against the steady step without the profiler"
               f" {busy / (steady * 1e3):.6f}")
-        print("[train] kernel time by kind: " + ", ".join(
+        print(f"[{tag}] kernel time by kind: " + ", ".join(
             f"{k} {v:.3f} ms ({v / busy:.4f})" for k, v in sorted(
                 by_kind.items(), key=lambda kv: -kv[1])))
         for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-            print(f"[train]   {ms:10.3f} ms ({ms / busy:.4f} of kernel"
+            print(f"[{tag}]   {ms:10.3f} ms ({ms / busy:.4f} of kernel"
                   f" time)  {name}")
         rows = sorted(prof.key_averages(), key=lambda e: -getattr(
             e, "self_device_time_total", 0))[:12]
         for e in rows:
             ms = getattr(e, "self_device_time_total", 0) / 1e3
-            print(f"[train]   op {e.key}: {e.count} calls, {ms:.3f} ms of"
+            print(f"[{tag}]   op {e.key}: {e.count} calls, {ms:.3f} ms of"
                   " kernels")
     for key, (count, ms) in casts.items():
-        print(f"[train] weight casts in the profiled step, {key}"
+        print(f"[{tag}] weight casts in the profiled step, {key}"
               f" ({'fp32 -> bf16' if key == 'forward' else 'bf16 -> fp32'}):"
               f" {count}, {ms:.6f} ms of kernels"
               f" ({ms / (steady * 1e3):.6f} of the steady step"
@@ -2949,6 +3257,10 @@ def main() -> int:
 
     lap("LM serving")
 
+    # ---- 8d. the MoE families: deepseek-v2-lite-16b, qwen3-moe ----------
+    moe_runs = moe_serve_phase(ops, serve, tm, pm, configs)
+    lap("MoE and MLA serving")
+
     # ---- 10. training: gemma-2b at full width and depth -----------------
     train_cfg = configs.get_config(TRAIN_ARCH)
     train_run = train_phase(ops, tm, pm, train_cfg)
@@ -2959,6 +3271,8 @@ def main() -> int:
     lap("remat policies")
     example_run = example_phase(tm, pm)
     lap("the example's path with checkpoints")
+    moe_train = moe_train_phase(ops, tm, pm, configs)
+    lap("MoE and MLA training at full width")
 
     # ---- 9. times --------------------------------------------------------
     real_tables = sf.padded_tables(realistic, match="bsearch", infix=True)
@@ -3438,6 +3752,27 @@ def main() -> int:
               for k, v in remat_runs.items())
           + f" ({REMAT_LAYERS} layers); the example {example_run['fit_s']:.3f}"
           f" s for {EXAMPLE_STEPS[0]} steps")
+    for name, r in moe_runs.items():
+        step_ms = r["decode_s"] / r["steps"] * 1e3
+        print(f"[times] MoE serve, {name} ({r['params']} parameters):"
+              f" {r['steps']} decode steps, {step_ms:.6f}"
+              f" ms a step, {r['tokens'] / r['wall']:.6f} tokens/s,"
+              f" {r['kernels']} kernels a step, {r['busy_ms']:.3f} ms of them"
+              f" (busy {r['busy_ms'] * r['steps'] / r['decode_s'] / 1e3:.4f}"
+              f" of a served step), peak {r['peak_gb']:.6f} GB")
+    casts = moe_train["casts"]
+    print(f"[times] MoE train, {MOE_ARCH} full width, {MOE_TRAIN_LAYERS}"
+          f" layers, remat full, B {TRAIN_B}, T {TRAIN_T}:"
+          f" {moe_train['steady_ms']:.6f} ms a step,"
+          f" {moe_train['tokens_s']:.6f} tokens/s, {moe_train['tflops']:.6f}"
+          f" TFLOP/s (6 N tokens, N = {moe_train['n_active']} active of"
+          f" {moe_train['n_params']}),"
+          f" {moe_train['tflops'] * 1e12 / PEAK_FLOPS['bfloat16']:.6f} of"
+          f" the bf16 peak, peak {moe_train['peak_gb']:.6f} GB,"
+          f" {moe_train['n_kernels']} kernels a step,"
+          f" {moe_train['busy_ms']:.3f} ms of them; weight casts"
+          f" {casts['forward'][1]:.6f} ms forward, {casts['backward'][1]:.6f}"
+          " ms backward")
     lap("times")
     print(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(card_line())

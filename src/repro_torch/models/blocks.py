@@ -1,13 +1,13 @@
-"""Decoder blocks: the dense-attention block in the full, prefill and
-decode modes.
+"""Decoder blocks: attention (dense GQA or MLA) with a dense or MoE FFN,
+in the full, prefill and decode modes.
 
 The counterpart of ``repro.models.blocks``. Every family's parameters are
 declared here (so that ``models.model.model_spec`` and ``count_params``
-cover all ten architectures), but only ``block="attn"`` with
-``attn_impl="gqa"`` and a dense FFN is applied, in every mode (the full
-forward, which trains, prefill and decode); the MoE, MLA, Mamba, Hymba,
-VLM and audio branches raise NotImplementedError until they are ported
-(ROADMAP §1 items 9.2-9.6).
+cover all ten architectures). ``block="attn"`` is applied in every mode
+(the full forward, which trains, prefill and decode), with
+``attn_impl="gqa"`` or ``"mla"`` and a dense or MoE FFN; the Mamba,
+Hymba, VLM and audio branches raise NotImplementedError until they are
+ported (ROADMAP §1 items 9.4-9.6).
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models import layers
+from repro_torch.models import layers, mla, moe
 from repro_torch.models.params import ParamSpec
 
 # {item}: the ROADMAP §1 sub-item that ports the family
@@ -26,13 +26,13 @@ NOT_PORTED = "is not ported yet (ROADMAP §1 item {item})"
 class BlockCache(NamedTuple):
     """Uniform per-layer cache; unused fields are () placeholders."""
 
-    kv: Any = ()      # attention.KVCache | QuantKVCache
+    kv: Any = ()      # attention.KVCache | QuantKVCache | mla.MLACache
     ssm: Any = ()     # the Mamba state, once ported
 
 
 # ---------------------------------------------------------------------------
 # parameter declarations of the families that are not applied yet (the
-# reference's mamba.mamba_spec, mla.mla_spec and moe.moe_spec)
+# reference's mamba.mamba_spec)
 # ---------------------------------------------------------------------------
 def mamba_spec(cfg):
     d, di, n, r = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank_
@@ -47,40 +47,6 @@ def mamba_spec(cfg):
         "d_skip": ParamSpec((di,), ("model",), init="ones"),
         "out_proj": ParamSpec((di, d), ("model", "fsdp")),
     }
-
-
-def mla_spec(cfg):
-    qk = cfg.qk_nope_dim + cfg.qk_rope_dim
-    return {
-        "wq": ParamSpec((cfg.d_model, cfg.n_heads, qk), ("fsdp", "model", None)),
-        "wdkv": ParamSpec((cfg.d_model, cfg.kv_lora_rank), ("fsdp", None)),
-        "wkr": ParamSpec((cfg.d_model, cfg.qk_rope_dim), ("fsdp", None)),
-        "kv_norm": ParamSpec((cfg.kv_lora_rank,), (None,), init="ones"),
-        "wuk": ParamSpec((cfg.kv_lora_rank, cfg.n_heads, cfg.qk_nope_dim),
-                         (None, "model", None)),
-        "wuv": ParamSpec((cfg.kv_lora_rank, cfg.n_heads, cfg.v_head_dim),
-                         (None, "model", None)),
-        "wo": ParamSpec((cfg.n_heads, cfg.v_head_dim, cfg.d_model),
-                        ("model", None, "fsdp")),
-    }
-
-
-def moe_spec(cfg):
-    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
-    s = {
-        "router": ParamSpec((d, e), (None, None), scale=0.02),
-        "wi": ParamSpec((e, d, f), ("experts", "fsdp", None)),
-        "wg": ParamSpec((e, d, f), ("experts", "fsdp", None)),
-        "wo": ParamSpec((e, f, d), ("experts", None, "fsdp")),
-    }
-    if cfg.n_shared_experts:
-        fs = cfg.d_ff_expert * cfg.n_shared_experts
-        s["shared"] = {
-            "wi": ParamSpec((d, fs), ("fsdp", "model")),
-            "wg": ParamSpec((d, fs), ("fsdp", "model")),
-            "wo": ParamSpec((fs, d), ("model", "fsdp")),
-        }
-    return s
 
 
 # ---------------------------------------------------------------------------
@@ -99,11 +65,11 @@ def block_spec(cfg, *, moe_layer: bool | None = None):
         s["norm_a"] = layers.rmsnorm_spec(cfg.d_model)
         s["norm_m"] = layers.rmsnorm_spec(cfg.d_model)
     elif cfg.attn_impl == "mla":
-        s["attn"] = mla_spec(cfg)
+        s["attn"] = mla.mla_spec(cfg)
     else:
         s["attn"] = attn.attn_spec(cfg)
     s["norm2"] = layers.rmsnorm_spec(cfg.d_model)
-    s["ffn"] = (moe_spec(cfg) if moe_layer
+    s["ffn"] = (moe.moe_spec(cfg) if moe_layer
                 else layers.ffn_spec(cfg.d_model, cfg.d_ff, cfg.ffn))
     s["_moe"] = moe_layer  # static marker, stripped before init
     return s
@@ -130,10 +96,6 @@ def check_ported(cfg) -> None:
     what = item = None
     if cfg.block != "attn":
         what, item = f"the {cfg.block!r} block", "9.4"
-    elif cfg.attn_impl != "gqa":
-        what, item = f"attn_impl={cfg.attn_impl!r}", "9.3"
-    elif cfg.is_moe:
-        what, item = "the MoE FFN", "9.2"
     elif cfg.n_cross_layers:
         what, item = "cross-attention (the VLM family)", "9.5"
     elif cfg.n_codebooks:
@@ -147,8 +109,16 @@ def check_ported(cfg) -> None:
 # apply
 # ---------------------------------------------------------------------------
 def _mixer_full(p, h, cfg, mode, cache, positions, pos, dt):
-    """Token mixer (dense attention) in any mode."""
+    """Token mixer (dense attention or MLA) in any mode."""
     check_ported(cfg)
+    if cfg.attn_impl == "mla":
+        if mode == "decode":
+            return mla.mla_decode(p["attn"], h, cfg, cache.kv, pos=pos, dt=dt)
+        if mode == "prefill":
+            return mla.mla_attention(p["attn"], h, cfg, positions=positions,
+                                     dt=dt, return_cache=True)
+        return mla.mla_attention(p["attn"], h, cfg, positions=positions,
+                                 dt=dt), ()
     if mode == "decode":
         return attn.decode_attention(p["attn"], h, cfg, cache.kv, pos=pos,
                                      dt=dt)
@@ -178,9 +148,6 @@ def block(p, h, cfg, *, mode="full", cache=BlockCache(), positions=None,
     """One decoder block. Returns (h, new_cache, aux_loss)."""
     if moe_layer is None:
         moe_layer = cfg.is_moe and cfg.block == "attn"
-    if moe_layer:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE FFN {NOT_PORTED.format(item='9.2')}")
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
 
     hn = layers.rmsnorm(p["norm1"], h, cfg.rms_eps)
@@ -191,5 +158,9 @@ def block(p, h, cfg, *, mode="full", cache=BlockCache(), positions=None,
     new_cache = BlockCache(kv=kv, ssm=())
 
     hn = layers.rmsnorm(p["norm2"], h, cfg.rms_eps)
-    h = h + layers.ffn(p["ffn"], hn, cfg.ffn, compute_dtype=dt)
+    if moe_layer:
+        y, aux = moe.moe_ffn(p["ffn"], hn, cfg, dt=dt)
+    else:
+        y = layers.ffn(p["ffn"], hn, cfg.ffn, compute_dtype=dt)
+    h = h + y
     return h, new_cache, aux

@@ -3,14 +3,16 @@ losses, and the execution modes (full, prefill, decode).
 
 The counterpart of ``repro.models.model``. Parameters are the reference's
 tree: ``blocks`` holds every layer's leaves stacked on a leading [L]
-axis, and a Python loop over the layers takes the place of the
-reference's scan. ``model_spec`` declares all ten architectures;
-``forward``, ``loss_fn``, ``init_caches`` and ``decode_step`` run the
-dense-attention ones and raise NotImplementedError for the rest (ROADMAP
-§1 items 9.2-9.6). Training is ``forward(mode="full")`` under autograd,
-through ``loss_fn``: the full mode keeps no caches, can rematerialise
-each layer (``remat_policy``) and, for the chunked loss, stops before the
-head (``return_hidden``). Prefill and decode serve.
+axis (DeepSeek's leading dense layers a stack of their own,
+``dense_blocks``, run first), and a Python loop over the layers takes the
+place of the reference's scans. ``model_spec`` declares all ten
+architectures; ``forward``, ``loss_fn``, ``init_caches`` and
+``decode_step`` run the attention families (dense GQA, MoE, MLA) and
+raise NotImplementedError for the rest (ROADMAP §1 items 9.4-9.6).
+Training is ``forward(mode="full")`` under autograd, through
+``loss_fn``: the full mode keeps no caches, can rematerialise each layer
+(``remat_policy``) and, for the chunked loss, stops before the head
+(``return_hidden``). Prefill and decode serve.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch import device as devmod
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import blocks, layers
+from repro_torch.models import blocks, layers, mla
 from repro_torch.models import params as pm
 from repro_torch.models.params import ParamSpec
 
@@ -155,40 +157,53 @@ def remat(fn, policy, *args):
     return checkpoint(fn, *args, use_reentrant=False, context_fn=contexts)
 
 
+def _stacks(cfg) -> list:
+    """(parameter key, cache key, moe_layer) of the layer stacks in the
+    order they run: the leading dense layers (``first_dense``), then
+    ``blocks``."""
+    dense = [("dense_blocks", "dense", False)] if cfg.first_dense else []
+    return dense + [("blocks", "blocks", cfg.is_moe)]
+
+
 def forward(p, cfg, tokens, *, mode="full", remat_policy=None,
             return_hidden=False):
     """tokens [B,T] -> ModelOutputs. mode: full (the training forward: no
-    caches) | prefill (which also returns the caches,
-    ``{"blocks": BlockCache(kv=KVCache([L,B,S,KV,hd] ...))}``).
+    caches) | prefill (which also returns the caches, a stack's layers
+    stacked: ``{"blocks": BlockCache(kv=KVCache([L,B,S,KV,hd] ...))}``,
+    MLACache leaves [L,B,S,kv_lora] and [L,B,S,rope] for MLA, and
+    ``"dense"`` for the leading dense layers).
 
     remat_policy (None, :func:`nothing_saveable` or
     :func:`dots_with_no_batch_dims_saveable`) wraps each layer's block, as
-    the reference's ``jax.checkpoint``. return_hidden=True skips the
-    output head and returns the final normed hidden states in ``.logits``
-    (the chunked loss applies the head itself)."""
+    the reference's ``jax.checkpoint``. The MoE layers' auxiliary losses
+    are summed into ``aux_loss``. return_hidden=True skips the output head
+    and returns the final normed hidden states in ``.logits`` (the chunked
+    loss applies the head itself)."""
     blocks.check_ported(cfg)
     dt = compute_dtype(cfg)
     h = embed_tokens(p, cfg, tokens, dt)
     t = tokens.shape[1]
     positions = torch.arange(t, dtype=torch.int32, device=h.device)
 
-    def layer_fn(lp, h):
-        return blocks.block(lp, h, cfg, mode=mode, positions=positions,
-                            dt=dt)
-
-    layer_caches = []
+    caches = {}
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
-    for lp in _unstack(p["blocks"]):
-        h, cache, aux = remat(layer_fn, remat_policy, lp, h)
-        layer_caches.append(cache)
-        aux_total = aux_total + aux
+    for key, ckey, moe_layer in _stacks(cfg):
+        def layer_fn(lp, h, moe_layer=moe_layer):
+            return blocks.block(lp, h, cfg, mode=mode, positions=positions,
+                                moe_layer=moe_layer, dt=dt)
+
+        caches[ckey] = []
+        for lp in _unstack(p[key]):
+            h, cache, aux = remat(layer_fn, remat_policy, lp, h)
+            caches[ckey].append(cache)
+            aux_total = aux_total + aux
 
     h = layers.rmsnorm(p["final_norm"], h, cfg.rms_eps)
     if return_hidden:
         return ModelOutputs(logits=h, aux_loss=aux_total)
     logits = logits_fn(p, cfg, h, dt)
-    caches = ({"blocks": _stack_layers(layer_caches)} if mode == "prefill"
-              else ())
+    caches = ({k: _stack_layers(v) for k, v in caches.items()}
+              if mode == "prefill" else ())
     return ModelOutputs(logits=logits, aux_loss=aux_total, caches=caches)
 
 
@@ -252,26 +267,48 @@ def loss_fn(p, cfg, batch, *, remat_policy=None):
 # ---------------------------------------------------------------------------
 def init_caches(cfg, batch: int, cache_len: int, dt=torch.bfloat16,
                 device=devmod.DEFAULT_DEVICE):
-    """Zero caches for every layer: ``{"blocks": BlockCache(kv=...)}``,
-    each leaf [L, B, S, KV, hd] (S capped at the sliding window), int8
-    with fp32 scales of one when ``cfg.kv_quant``. Like the reference's,
-    they are bf16 whatever the compute dtype unless ``dt`` says otherwise."""
+    """Zero caches for every layer stack: ``{"blocks": BlockCache(kv=...)}``
+    (and ``"dense"`` for the leading dense layers). Attention caches have
+    leaves [L, B, S, KV, hd] (S capped at the sliding window), int8 with
+    fp32 scales of one when ``cfg.kv_quant``; MLA caches MLACache(c_kv
+    [L, B, S, kv_lora], k_rope [L, B, S, rope]), S never capped. Like the
+    reference's, they are bf16 whatever the compute dtype unless ``dt``
+    says otherwise."""
     blocks.check_ported(cfg)
     dev = devmod.resolve(device)
-    n = cfg.n_layers
-    cl = min(cache_len, cfg.sliding_window) if cfg.sliding_window else cache_len
-    shape = (n, batch, cl, cfg.n_kv_heads, cfg.head_dim)
-    scale_shape = (n, batch, cl, cfg.n_kv_heads, 1)
-    if cfg.kv_quant:
-        kv = attn_mod.QuantKVCache(
-            k=torch.zeros(shape, dtype=torch.int8, device=dev),
-            v=torch.zeros(shape, dtype=torch.int8, device=dev),
-            k_scale=torch.ones(scale_shape, dtype=torch.float32, device=dev),
-            v_scale=torch.ones(scale_shape, dtype=torch.float32, device=dev))
-    else:
-        kv = attn_mod.KVCache(k=torch.zeros(shape, dtype=dt, device=dev),
-                              v=torch.zeros(shape, dtype=dt, device=dev))
-    return {"blocks": blocks.BlockCache(kv=kv, ssm=())}
+
+    def attn_cache(n):
+        cl = (min(cache_len, cfg.sliding_window) if cfg.sliding_window
+              else cache_len)
+        shape = (n, batch, cl, cfg.n_kv_heads, cfg.head_dim)
+        scale_shape = (n, batch, cl, cfg.n_kv_heads, 1)
+        if cfg.kv_quant:
+            return attn_mod.QuantKVCache(
+                k=torch.zeros(shape, dtype=torch.int8, device=dev),
+                v=torch.zeros(shape, dtype=torch.int8, device=dev),
+                k_scale=torch.ones(scale_shape, dtype=torch.float32,
+                                   device=dev),
+                v_scale=torch.ones(scale_shape, dtype=torch.float32,
+                                   device=dev))
+        return attn_mod.KVCache(k=torch.zeros(shape, dtype=dt, device=dev),
+                                v=torch.zeros(shape, dtype=dt, device=dev))
+
+    def mla_cache(n):
+        return mla.MLACache(
+            c_kv=torch.zeros((n, batch, cache_len, cfg.kv_lora_rank),
+                             dtype=dt, device=dev),
+            k_rope=torch.zeros((n, batch, cache_len, cfg.qk_rope_dim),
+                               dtype=dt, device=dev))
+
+    def block_cache(n):
+        kv = mla_cache(n) if cfg.attn_impl == "mla" else attn_cache(n)
+        return blocks.BlockCache(kv=kv, ssm=())
+
+    caches = {}
+    if cfg.first_dense:
+        caches["dense"] = block_cache(cfg.first_dense)
+    caches["blocks"] = block_cache(cfg.n_layers - cfg.first_dense)
+    return caches
 
 
 def decode_step(p, cfg, tokens, caches, pos):
@@ -281,12 +318,15 @@ def decode_step(p, cfg, tokens, caches, pos):
     blocks.check_ported(cfg)
     dt = compute_dtype(cfg)
     h = embed_tokens(p, cfg, tokens, dt)
-    new = []
-    for i in range(_n_layers(p["blocks"])):
-        h, cache, _ = blocks.block(_layer(p["blocks"], i), h, cfg,
-                                   mode="decode",
-                                   cache=_layer(caches["blocks"], i),
-                                   pos=pos, dt=dt)
-        new.append(cache)
+    new_caches = {}
+    for key, ckey, moe_layer in _stacks(cfg):
+        new = []
+        for i in range(_n_layers(p[key])):
+            h, cache, _ = blocks.block(_layer(p[key], i), h, cfg,
+                                       mode="decode",
+                                       cache=_layer(caches[ckey], i),
+                                       pos=pos, moe_layer=moe_layer, dt=dt)
+            new.append(cache)
+        new_caches[ckey] = _stack_layers(new)
     h = layers.rmsnorm(p["final_norm"], h, cfg.rms_eps)
-    return logits_fn(p, cfg, h, dt), {"blocks": _stack_layers(new)}
+    return logits_fn(p, cfg, h, dt), new_caches

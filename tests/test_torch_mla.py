@@ -1,0 +1,253 @@
+"""The port's Multi-head Latent Attention (repro_torch.models.mla) against
+the reference's (repro.models.mla), on the CPU, at deepseek-v2-lite-16b's
+smoke config (d 64, 4 heads, kv_lora 32, no-rope 16 + rope 8 query dims,
+v 16).
+
+The reference's parameters are carried across with params_from_numpy;
+inputs are made with numpy from a seed. Tolerances, the files' own:
+  * fp32: |port - ref| <= 1e-4 x the largest |ref| (the same fp32
+    arithmetic summed in other orders);
+  * bf16: ||port - ref|| <= 6e-2 ||ref||, and the cache's latents (one
+    product and a norm each) within one bf16 step, 2^-7 relative;
+  * gradients (fp32, T 4096): each leaf within 1e-4 of its largest |g|.
+"""
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro import configs as rc  # noqa: E402
+from repro.models import mla as rmla  # noqa: E402
+from repro.models import params as rp  # noqa: E402
+
+from repro_torch import configs as tc  # noqa: E402
+from repro_torch.models import mla as tmla  # noqa: E402
+from repro_torch.models import params as tp  # noqa: E402
+
+ARCH = "deepseek-v2-lite-16b"
+FP32_TOL = 1e-4
+BF16_NORM_TOL = 6e-2
+BF16_STEP = 2.0 ** -7
+GRAD_TOL = 1e-4
+
+
+def _cfgs(dtype="float32"):
+    return (dataclasses.replace(rc.smoke_config(rc.get_config(ARCH)),
+                                compute_dtype=dtype),
+            dataclasses.replace(tc.smoke_config(tc.get_config(ARCH)),
+                                compute_dtype=dtype))
+
+
+@functools.lru_cache(maxsize=None)
+def _params(seed=0):
+    rcfg, _ = _cfgs()
+    p = rp.init_params(rmla.mla_spec(rcfg), jax.random.key(seed))
+    return p, tp.params_from_numpy(jax.tree.map(np.asarray, p), device="cpu")
+
+
+def _x(dtype, shape, seed=0):
+    a = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+    xj = jnp.asarray(a).astype(getattr(jnp, dtype))
+    return xj, torch.from_numpy(np.array(xj.astype(jnp.float32))).to(
+        getattr(torch, dtype))
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+def _close(got, want, dtype, step=False):
+    got, want = _np(got), _np(want)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    assert np.isfinite(got).all()
+    if dtype == "float32":
+        assert np.abs(got - want).max() <= FP32_TOL * np.abs(want).max()
+    elif step:
+        np.testing.assert_allclose(got, want, rtol=BF16_STEP, atol=1e-6)
+    else:
+        err = np.linalg.norm(got - want) / np.linalg.norm(want)
+        assert err <= BF16_NORM_TOL, err
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_fns(rcfg):
+    dt = jnp.dtype(rcfg.compute_dtype)
+    full = jax.jit(lambda p, x, pos: rmla.mla_attention(
+        p, x, rcfg, positions=pos, dt=dt))
+    prefill = jax.jit(lambda p, x, pos: rmla.mla_attention(
+        p, x, rcfg, positions=pos, dt=dt, return_cache=True))
+    decode = jax.jit(lambda p, x, c, pos: rmla.mla_decode(
+        p, x, rcfg, c, pos=pos, dt=dt))
+    return full, prefill, decode
+
+
+# ---------------------------------------------------------------------------
+# pieces
+# ---------------------------------------------------------------------------
+def test_spec_and_causal_bias_are_the_references():
+    rcfg, tcfg = _cfgs()
+    for cr, ct in ((rcfg, tcfg), (rc.get_config(ARCH), tc.get_config(ARCH))):
+        assert {k: tuple(v) for k, v in tmla.mla_spec(ct).items()} == {
+            k: tuple(v) for k, v in rmla.mla_spec(cr).items()}
+    for tq, s, off in ((5, 5, 0), (3, 9, 4), (512, 4096, 1024)):
+        np.testing.assert_array_equal(
+            tmla._causal_bias(tq, s, off).numpy(),
+            np.asarray(rmla._causal_bias(tq, s, off)))
+    assert tmla.NEG_INF == rmla.NEG_INF
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_latents_and_queries(dtype):
+    rcfg, tcfg = _cfgs(dtype)
+    p, pt = _params()
+    xj, xt = _x(dtype, (2, 12, rcfg.d_model), seed=1)
+    pos = np.arange(3, 15, dtype=np.int32)
+    dj, dtt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = (rmla._latents(p, xj, rcfg, jnp.asarray(pos), dj)
+            + rmla._queries(p, xj, rcfg, jnp.asarray(pos), dj))
+    got = (tmla._latents(pt, xt, tcfg, torch.from_numpy(pos), dtt)
+           + tmla._queries(pt, xt, tcfg, torch.from_numpy(pos), dtt))
+    for g, w in zip(got, want):
+        assert g.dtype == dtt
+        _close(g, w, dtype, step=True)
+
+
+# ---------------------------------------------------------------------------
+# full and prefill
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["full", "prefill"])
+def test_mla_attention_matches_reference(mode, dtype):
+    rcfg, tcfg = _cfgs(dtype)
+    p, pt = _params()
+    xj, xt = _x(dtype, (2, 32, rcfg.d_model), seed=2)
+    pos = np.arange(32, dtype=np.int32)
+    full, prefill, _ = _ref_fns(rcfg)
+    dt = getattr(torch, dtype)
+    if mode == "full":
+        _close(tmla.mla_attention(pt, xt, tcfg, positions=torch.from_numpy(
+            pos), dt=dt), full(p, xj, jnp.asarray(pos)), dtype)
+        return
+    yr, cr = prefill(p, xj, jnp.asarray(pos))
+    yt, ct = tmla.mla_attention(pt, xt, tcfg, positions=torch.from_numpy(
+        pos), dt=dt, return_cache=True)
+    _close(yt, yr, dtype)
+    assert isinstance(ct, tmla.MLACache)
+    assert tuple(ct.c_kv.shape) == (2, 32, rcfg.kv_lora_rank)
+    assert tuple(ct.k_rope.shape) == (2, 32, rcfg.qk_rope_dim)
+    for a, b in zip(ct, cr):
+        assert a.dtype == dt
+        _close(a, b, dtype, step=True)
+    # cache_len keeps the last positions
+    _, c8 = tmla.mla_attention(pt, xt, tcfg, positions=torch.from_numpy(pos),
+                               dt=dt, return_cache=True, cache_len=8)
+    assert torch.equal(c8.c_kv, ct.c_kv[:, -8:])
+
+
+def test_query_blocks_at_4096_match_reference_and_autograd():
+    """T 4096 takes MLA's 512-query blocks in both packages; under autograd
+    the blocks are checkpointed and the values are the same; the
+    gradients (through the checkpointed blocks) match jax.grad."""
+    rcfg, tcfg = _cfgs()
+    p, pt = _params()
+    t = 4096
+    xj, xt = _x("float32", (1, t, rcfg.d_model), seed=3)
+    pos = np.arange(t, dtype=np.int32)
+    w = np.random.default_rng(4).normal(size=(1, t, rcfg.d_model)).astype(
+        np.float32)
+
+    def ref_loss(p, x):
+        y = rmla.mla_attention(p, x, rcfg, positions=jnp.asarray(pos),
+                               dt=jnp.float32)
+        return jnp.sum(y * w), y
+
+    (_, yr), (gp, gx) = jax.jit(jax.value_and_grad(
+        ref_loss, argnums=(0, 1), has_aux=True))(p, xj)
+    with torch.no_grad():
+        y0 = tmla.mla_attention(pt, xt, tcfg, positions=torch.from_numpy(pos),
+                                dt=torch.float32)
+    _close(y0, yr, "float32")
+    live = tp.tree_map(lambda x: x.clone().requires_grad_(), pt)
+    x = xt.clone().requires_grad_()
+    y = tmla.mla_attention(live, x, tcfg, positions=torch.from_numpy(pos),
+                           dt=torch.float32)
+    assert torch.equal(y.detach(), y0)
+    got = torch.autograd.grad((y * torch.from_numpy(w)).sum(),
+                              tp.tree_leaves(live) + [x])
+    want = jax.tree.leaves(gp) + [gx]
+    assert len(got) == len(want)
+    for g, r in zip(got, want):
+        r = np.asarray(r)
+        assert tuple(g.shape) == r.shape
+        assert np.abs(g.numpy() - r).max() <= GRAD_TOL * np.abs(r).max()
+
+
+# ---------------------------------------------------------------------------
+# decode (absorbed)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mla_decode_matches_reference_past_the_ring(dtype):
+    """Twelve steps into an 8-slot cache: from step 8 on, pos % 8 wraps
+    and every slot is attended, as in the reference. Outputs and caches at
+    every step; the caches passed in are left as they were."""
+    rcfg, tcfg = _cfgs(dtype)
+    p, pt = _params()
+    _, _, decode = _ref_fns(rcfg)
+    xj, xt = _x(dtype, (2, 12, rcfg.d_model), seed=5)
+    dj, dtt = getattr(jnp, dtype), getattr(torch, dtype)
+    s = 8
+    cr = rmla.MLACache(jnp.zeros((2, s, rcfg.kv_lora_rank), dj),
+                       jnp.zeros((2, s, rcfg.qk_rope_dim), dj))
+    ct = tmla.MLACache(torch.zeros((2, s, tcfg.kv_lora_rank), dtype=dtt),
+                       torch.zeros((2, s, tcfg.qk_rope_dim), dtype=dtt))
+    for i in range(12):
+        yr, cr = decode(p, xj[:, i:i + 1], cr, jnp.int32(i))
+        before = ct.c_kv.clone()
+        yt, new = tmla.mla_decode(pt, xt[:, i:i + 1], tcfg, ct, pos=i, dt=dtt)
+        assert torch.equal(ct.c_kv, before)
+        ct = new
+        _close(yt, yr, dtype)
+        for a, b in zip(ct, cr):
+            assert a.dtype == dtt
+            _close(a, b, dtype, step=True)
+
+
+def test_absorbed_decode_equals_mla_attention():
+    """Decoding a sequence token by token (absorbed, fp32) gives the full
+    attention's outputs at every position."""
+    _, tcfg = _cfgs()
+    _, pt = _params()
+    _, xt = _x("float32", (2, 10, tcfg.d_model), seed=6)
+    full = tmla.mla_attention(pt, xt, tcfg, positions=torch.arange(10),
+                              dt=torch.float32)
+    c = tmla.MLACache(torch.zeros((2, 10, tcfg.kv_lora_rank)),
+                      torch.zeros((2, 10, tcfg.qk_rope_dim)))
+    for i in range(10):
+        y, c = tmla.mla_decode(pt, xt[:, i:i + 1], tcfg, c, pos=i,
+                               dt=torch.float32)
+        _close(y, full[:, i:i + 1], "float32")
+
+
+def test_cache_dtype_mismatch_raises_in_both():
+    """fp32 rows into a bf16 cache: the reference's dynamic_update_slice
+    refuses, and so does the port."""
+    rcfg, tcfg = _cfgs()
+    p, pt = _params()
+    xj, xt = _x("float32", (1, 1, rcfg.d_model))
+    cr = rmla.MLACache(jnp.zeros((1, 4, rcfg.kv_lora_rank), jnp.bfloat16),
+                       jnp.zeros((1, 4, rcfg.qk_rope_dim), jnp.bfloat16))
+    ct = tmla.MLACache(torch.zeros((1, 4, tcfg.kv_lora_rank),
+                                   dtype=torch.bfloat16),
+                       torch.zeros((1, 4, tcfg.qk_rope_dim),
+                                   dtype=torch.bfloat16))
+    with pytest.raises(TypeError):
+        rmla.mla_decode(p, xj, rcfg, cr, pos=jnp.int32(0), dt=jnp.float32)
+    with pytest.raises(TypeError):
+        tmla.mla_decode(pt, xt, tcfg, ct, pos=0, dt=torch.float32)

@@ -1,6 +1,10 @@
 """The port's LM substrate (repro_torch.models, repro_torch.configs)
-against the reference's, for the four dense-attention architectures at
-smoke size (the tests/test_arch_smoke.py shapes: batch 2, seq 32).
+against the reference's, for the four dense-attention architectures and
+the two MoE ones (qwen3-moe-235b-a22b; deepseek-v2-lite-16b, MLA after a
+leading dense layer) at smoke size (the tests/test_arch_smoke.py shapes:
+batch 2, seq 32). At these widths and seeds no token of the MoE models
+lies within 1e-5 of a routing tie (tests/test_torch_moe.py's margin), so
+both packages route every token alike.
 
 Weights come from the reference's init_params and are carried across
 with params_from_numpy; tokens are made with numpy. Tolerances:
@@ -15,11 +19,14 @@ with params_from_numpy; tokens are made with numpy. Tolerances:
     ||port - ref|| <= 6e-2 ||ref|| over all logits (0.06 is the
     reference's own bf16 rtol in tests/test_arch_smoke.py), and
     the layers are held one by one to one bf16 step (rtol 2^-7).
+  * the MoE router's aux loss: 1e-5 relative at fp32, one bf16 step
+    (2^-7) relative at bf16.
   * int8 KV caches: fp32 keys a few ulp apart can round to int8 values
     one step apart, which moves a key by its scale (about 1% of its
     largest element); logits within 1e-2 x the largest |ref| logit.
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -42,8 +49,11 @@ from repro_torch.models import model as tm  # noqa: E402
 from repro_torch.models import params as tp  # noqa: E402
 
 DENSE = ["llama3-8b", "qwen2.5-14b", "deepseek-coder-33b", "gemma-2b"]
-OTHERS = sorted(set(rc.ARCHS) - set(DENSE))
+MOE = ["deepseek-v2-lite-16b", "qwen3-moe-235b-a22b"]
+PORTED = DENSE + MOE
+OTHERS = sorted(set(rc.ARCHS) - set(PORTED))
 FP32_TOL = 1e-4
+AUX_RTOL = 1e-5
 BF16_NORM_TOL = 6e-2
 BF16_STEP = 2.0 ** -7
 QUANT_TOL = 1e-2
@@ -94,6 +104,7 @@ def _close(got, want, dtype, tol=None):
         assert err <= (tol or FP32_TOL) * scale, (err, scale)
 
 
+@functools.lru_cache(maxsize=None)
 def _jit_decode(rcfg):
     return jax.jit(lambda p, t, c, pos: rm.decode_step(p, rcfg, t, c, pos))
 
@@ -127,8 +138,9 @@ def test_count_params_full_width(arch):
     assert t == r
 
 
-def test_abstract_params_match_reference_shapes():
-    cfg_r, cfg_t = rc.get_config("llama3-8b"), tc.get_config("llama3-8b")
+@pytest.mark.parametrize("arch", ["llama3-8b"] + MOE)
+def test_abstract_params_match_reference_shapes(arch):
+    cfg_r, cfg_t = rc.get_config(arch), tc.get_config(arch)
     ref = rp.abstract_params(rm.model_spec(cfg_r))
     meta = tp.abstract_params(tm.model_spec(cfg_t))
     got = {jax.tree_util.keystr(path): tuple(leaf.shape) for path, leaf in
@@ -139,7 +151,7 @@ def test_abstract_params_match_reference_shapes():
     assert all(x.device.type == "meta" for x in tp.tree_leaves(meta))
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_init_params_follows_the_reference_rule(arch):
     """Per leaf: zeros, ones, or a normal whose std is the reference's
     rule (``scale``, else shape[-2] ** -0.5 of the stacked shape); checked
@@ -186,6 +198,31 @@ def test_params_from_numpy_keeps_values_and_bf16_bits():
     assert torch.equal(got["b"]["c"].float(),
                        torch.from_numpy(np.asarray(x.astype(jnp.bfloat16),
                                                    np.float32)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", MOE)
+def test_params_from_numpy_carries_the_moe_trees(arch, dtype):
+    """The reference's whole tree (``dense_blocks`` included) arrives with
+    the same keys, shapes, dtypes and bits."""
+    rcfg, _ = _cfgs(arch)
+    p = rp.init_params(rm.model_spec(rcfg), jax.random.key(1),
+                       dtype=getattr(jnp, dtype))
+    got = tp.params_from_numpy(jax.tree.map(np.asarray, p), device="cpu")
+    want = dict(jax.tree_util.tree_flatten_with_path(p)[0])
+    have = dict(jax.tree_util.tree_flatten_with_path(got)[0])
+    assert have.keys() == want.keys()
+    assert any("dense_blocks" in jax.tree_util.keystr(k) for k in have) == (
+        arch == "deepseek-v2-lite-16b")
+    for k, x in have.items():
+        w = np.asarray(want[k])
+        assert tuple(x.shape) == w.shape
+        assert str(x.dtype).removeprefix("torch.") == str(w.dtype)
+        if dtype == "bfloat16":
+            assert np.array_equal(x.view(torch.int16).numpy(),
+                                  w.view(np.int16))
+        else:
+            assert np.array_equal(x.numpy(), w)
 
 
 # ---------------------------------------------------------------------------
@@ -296,8 +333,28 @@ def test_attend_chunked_and_prefill_ring():
 # ---------------------------------------------------------------------------
 # the model: forward (full, prefill) and decode
 # ---------------------------------------------------------------------------
+def _cache_pairs(ct, cr):
+    """(port leaf, reference leaf) over every stack's cache, in order."""
+    assert sorted(ct) == sorted(cr)
+    for key in sorted(ct):
+        assert ct[key].ssm == ()
+        assert type(ct[key].kv).__name__ == type(cr[key].kv).__name__
+        yield from zip(ct[key].kv, cr[key].kv)
+
+
+def _aux_close(got, want, dtype):
+    """The MoE layers' summed router loss: 1e-5 relative at fp32; at bf16
+    the routed hidden states are a bf16 step apart, so one bf16 step."""
+    want = float(want)
+    if want == 0.0:
+        assert float(got) == 0.0
+    else:
+        tol = AUX_RTOL if dtype == "float32" else BF16_STEP
+        assert abs(float(got) - want) <= tol * abs(want)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_forward_full_and_prefill(arch, dtype):
     rcfg, tcfg = _cfgs(arch, dtype)
     p, pt = _params(rcfg)
@@ -306,13 +363,12 @@ def test_forward_full_and_prefill(arch, dtype):
         want = rm.forward(p, rcfg, jnp.asarray(toks), mode=mode)
         got = tm.forward(pt, tcfg, torch.from_numpy(toks), mode=mode)
         _close(got.logits, want.logits, dtype)
-        assert float(got.aux_loss) == 0.0
+        _aux_close(got.aux_loss, want.aux_loss, dtype)
+        assert (float(got.aux_loss) > 0) == (arch in MOE)
         if mode == "full":
             assert got.caches == ()
             continue
-        kv_t, kv_r = got.caches["blocks"].kv, want.caches["blocks"].kv
-        assert got.caches["blocks"].ssm == ()
-        for a, b in zip(kv_t, kv_r):
+        for a, b in _cache_pairs(got.caches, want.caches):
             assert a.dtype == getattr(torch, dtype)
             _close(a, b, dtype)
 
@@ -335,7 +391,7 @@ def _decode_both(rcfg, tcfg, p, pt, toks, cache_len, cache_dt):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_decode_matches_reference(arch, dtype):
     """Twelve decode steps into a 16-position cache, logits at every step
     (fp32 compute runs on fp32 caches in both packages)."""
@@ -346,7 +402,7 @@ def test_decode_matches_reference(arch, dtype):
     for lt, lr in steps:
         assert lt.shape == (2, 1, rcfg.vocab)
         _close(lt, lr, dtype)
-    for a, b in zip(ct["blocks"].kv, cr["blocks"].kv):
+    for a, b in _cache_pairs(ct, cr):
         _close(a, b, dtype)
 
 
@@ -369,10 +425,11 @@ def test_decode_ring_and_int8_caches(variant):
         _close(lt, lr, "float32", tol=tol)
 
 
-def test_prefill_then_decode_matches_reference():
+@pytest.mark.parametrize("arch", ["gemma-2b"] + MOE)
+def test_prefill_then_decode_matches_reference(arch):
     """Prefill caches spliced into longer decode caches, then decode, as
     tests/test_arch_smoke.py does (fp32)."""
-    rcfg, tcfg = _cfgs("gemma-2b", "float32")
+    rcfg, tcfg = _cfgs(arch, "float32")
     p, pt = _params(rcfg)
     toks = _tokens(rcfg, t=17, seed=3)
     t = 16
@@ -390,15 +447,18 @@ def test_prefill_then_decode_matches_reference():
     _close(lt, lr, "float32")
 
 
-def test_decode_leaves_its_input_caches_alone():
-    _, tcfg = _cfgs("llama3-8b", "float32")
+@pytest.mark.parametrize("arch", ["llama3-8b", "deepseek-v2-lite-16b"])
+def test_decode_leaves_its_input_caches_alone(arch):
+    _, tcfg = _cfgs(arch, "float32")
     pt = tp.init_params(tm.model_spec(tcfg), torch.Generator().manual_seed(0),
                         device="cpu")
     ct = tm.init_caches(tcfg, 2, 8, dt=torch.float32, device="cpu")
     _, new = tm.decode_step(pt, tcfg, torch.ones((2, 1), dtype=torch.int32),
                             ct, 0)
-    assert torch.count_nonzero(ct["blocks"].kv.k) == 0
-    assert torch.count_nonzero(new["blocks"].kv.k[:, :, 0]) > 0
+    for key in ct:
+        for old, leaf in zip(ct[key].kv, new[key].kv):
+            assert torch.count_nonzero(old) == 0
+            assert torch.count_nonzero(leaf[:, :, 0]) > 0
 
 
 def test_cache_dtype_mismatch_raises_in_both():
@@ -428,12 +488,13 @@ def test_unported_families_raise(arch):
         tb.check_ported(cfg)
 
 
-def test_the_lm_path_launches_no_kernel():
+@pytest.mark.parametrize("arch", ["llama3-8b"] + MOE)
+def test_the_lm_path_launches_no_kernel(arch):
     """The reference's model reaches no pallas_call, so the port's forward
     and decode_step launch none of K1-K9."""
     from repro_torch.kernels import ops
 
-    _, tcfg = _cfgs("llama3-8b")
+    _, tcfg = _cfgs(arch)
     pt = tp.init_params(tm.model_spec(tcfg), torch.Generator().manual_seed(0),
                         device="cpu")
     ops.reset_dispatch_count()

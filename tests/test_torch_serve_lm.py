@@ -1,6 +1,9 @@
 """LM serving in the port (serve.LMDecodeWorkload, ServeEngine and
 ``launch/serve.py --workload lm``) against the reference's, at smoke size,
-with 6 requests on 4 slots so that slots are reused.
+with 6 requests on 4 slots so that slots are reused, for the dense and
+the MoE families (deepseek-v2-lite-16b's caches are two stacks, "dense"
+and "blocks", of 4-d MLA leaves [L, B, S, .]; the slot merge copies axis
+1 of every leaf).
 
 Weights come from the reference's init_params (params_from_numpy);
 prompts are made with numpy. At fp32 compute both workloads run on fp32
@@ -40,6 +43,7 @@ from repro_torch.models import params as tp  # noqa: E402
 from repro_torch.serve import Engine, LMDecodeWorkload, ServeEngine  # noqa: E402
 
 DENSE = ["llama3-8b", "qwen2.5-14b", "deepseek-coder-33b", "gemma-2b"]
+MOE = ["deepseek-v2-lite-16b", "qwen3-moe-235b-a22b"]
 BF16_TOL = 6e-2
 PROMPT_LENS = (5, 3, 8, 4, 6, 2)
 MAX_NEWS = (4, 1, 3, 5, 2, 4)
@@ -69,7 +73,7 @@ def _serve(engine, prompts):
     return [engine.result(r).tokens_out for r in rids]
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_greedy_tokens_identical_at_fp32(arch):
     """Both engines on fp32 caches, and a plain greedy decode_step loop
     per request in each package: one token stream."""
@@ -115,7 +119,7 @@ def _recording(decode, log, forced=None):
     return step
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_teacher_forced_logits_at_bf16(arch):
     rcfg, tcfg, p, pt, prompts = _setup(arch, "bfloat16")
     cl = _cache_len()
@@ -210,6 +214,36 @@ def test_cli_lm_is_the_default_and_prints_the_summary(capsys):
                  "--requests", "1", "--prompt-len", "2", "--max-new", "1",
                  "--cache-len", "9"])
     assert "served 1 requests / 1 tokens" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", MOE[:1])
+def test_cli_serves_the_moe_families(arch, capsys):
+    tserve.main(["--workload", "lm", "--device", "cpu", "--arch", arch,
+                 "--requests", "3", "--prompt-len", "4", "--max-new", "3",
+                 "--max-batch", "2"])
+    out = capsys.readouterr().out
+    assert "served 3 requests / 9 tokens" in out, out
+    assert len(re.findall(r"^  req \d: \[\d+, \d+, \d+\]$", out, re.M)) == 3
+
+
+def test_merge_slot_copies_one_slot_of_every_stack():
+    """deepseek-v2-lite-16b's caches: two stacks ("dense", "blocks") of
+    4-d MLA leaves [L, B, S, .]; merging slot 2 copies axis 1's row 2 of
+    every leaf and nothing else."""
+    from repro_torch.serve.engine import _merge_slot
+
+    _, tcfg, _, _, _ = _setup("deepseek-v2-lite-16b", "float32")
+    old = tm.init_caches(tcfg, SLOTS, 8, dt=torch.float32, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    new = tp.tree_map(lambda x: torch.randn(x.shape, generator=gen), old)
+    _merge_slot(old, new, 2)
+    assert sorted(old) == ["blocks", "dense"]
+    leaves = [x for key in sorted(old) for x in old[key].kv]
+    fresh = [x for key in sorted(new) for x in new[key].kv]
+    assert [x.dim() for x in leaves] == [4] * 4
+    for got, src in zip(leaves, fresh):
+        assert torch.equal(got[:, 2], src[:, 2])
+        assert torch.count_nonzero(got[:, [0, 1, 3]]) == 0
 
 
 def test_required_cache_len_and_too_small_cache_as_reference():

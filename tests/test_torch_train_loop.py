@@ -85,7 +85,8 @@ def _fit(tmp=None, steps=6, seed=1, data_seed=1, **kw):
 # ---------------------------------------------------------------------------
 # fit against the reference
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", ["llama3-8b", "gemma-2b"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "gemma-2b",
+                                  "deepseek-v2-lite-16b"])
 def test_fit_matches_reference(arch):
     """Six steps at RunConfig's default learning rate (see
     test_torch_train.py::test_five_train_steps_match_reference)."""
@@ -203,8 +204,8 @@ def test_mesh_and_unported_families_raise():
     _, tcfg = _cfgs()
     with pytest.raises(NotImplementedError, match="item 7"):
         tloop.fit(tcfg, _run(tcfg), iter(()), mesh=object(), device="cpu")
-    cfg = tc.smoke_config(tc.get_config("qwen3-moe-235b-a22b"))
-    with pytest.raises(NotImplementedError, match="item 9.2"):
+    cfg = tc.smoke_config(tc.get_config("falcon-mamba-7b"))
+    with pytest.raises(NotImplementedError, match="item 9.4"):
         tloop.fit(cfg, _run(cfg), iter(()), device="cpu")
 
 
@@ -212,11 +213,11 @@ def test_mesh_and_unported_families_raise():
 # checkpoints
 # ---------------------------------------------------------------------------
 @functools.lru_cache(maxsize=None)
-def _state(moments="float32"):
+def _state(moments="float32", arch="llama3-8b"):
     """The reference's {"params", "opt"} after one update (nonzero
     moments and step) and the port's copy of it (the tests only read
     them)."""
-    rcfg, _ = _cfgs()
+    rcfg, _ = _cfgs(arch)
     p = _ref_params(rcfg)
     g = jax.tree.map(lambda x: jnp.full_like(x, 0.01), p)
     p, o, _ = jax.jit(functools.partial(ropt.update, lr=1e-2))(
@@ -279,6 +280,34 @@ def test_port_checkpoint_is_the_references(tmp_path, moments):
     assert (tmp_path / "port" / step / "COMMITTED").read_text() == "ok"
     if moments == "float32":
         _same(port, rckpt.restore(tmp_path / "port", 7, ref))
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
+                                  "qwen3-moe-235b-a22b"])
+def test_moe_checkpoints_interchange_both_ways(tmp_path, arch):
+    """The MoE families' trees (deepseek's ``dense_blocks``, the experts,
+    the router, MLA's latent projections) under the reference's keys: a
+    reference checkpoint restores in the port, and the port's is the
+    reference's, file for file, and restores in the reference."""
+    ref, port = _state("float32", arch)
+    keys = tckpt._flatten(port)[0]
+    assert keys == rckpt._flatten(ref)[0]
+    assert "['params']/['blocks']/['ffn']/['router']" in keys
+    assert (("['params']/['dense_blocks']/['attn']/['wdkv']" in keys)
+            == (arch == "deepseek-v2-lite-16b"))
+    rckpt.save(tmp_path / "ref", 4, ref)
+    _same(tckpt.restore(tmp_path / "ref", 4, port, device="cpu"), ref)
+    tckpt.save(tmp_path / "port", 4, port)
+    step = "step_00000004"
+    assert (json.loads((tmp_path / "port" / step / "manifest.json")
+                       .read_text())
+            == json.loads((tmp_path / "ref" / step / "manifest.json")
+                          .read_text()))
+    with np.load(tmp_path / "ref" / step / "proc_0.npz") as a, \
+            np.load(tmp_path / "port" / step / "proc_0.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        assert all(a[k].tobytes() == b[k].tobytes() for k in a.files)
+    _same(port, rckpt.restore(tmp_path / "port", 4, ref))
 
 
 def test_restore_onto_meta_target_and_errors(tmp_path):
@@ -355,6 +384,20 @@ def test_launch_train_cli():
     assert "step     0 loss" in p.stdout
     assert "done: 3 steps, final loss" in p.stdout
     assert "resumed_from None" in p.stdout
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b"])
+def test_launch_train_takes_the_moe_families(arch, tmp_path, capsys):
+    """The launcher's fit, checkpoints and resume on qwen3-moe (deepseek
+    runs fit in test_fit_matches_reference)."""
+    args = ["--smoke", "--device", "cpu", "--arch", arch, "--batch", "2",
+            "--seq", "32", "--remat", "dots", "--ckpt-dir", str(tmp_path),
+            "--ckpt-every", "2"]
+    r = launch_train.main(args + ["--steps", "2"])
+    assert r.steps_run == 2 and np.isfinite(r.losses).all()
+    r = launch_train.main(args + ["--steps", "3"])
+    assert r.resumed_from == 2 and r.steps_run == 1
+    assert "done: 1 steps, final loss" in capsys.readouterr().out
 
 
 def test_launch_train_resumes_and_takes_morph_data(tmp_path, capsys):
