@@ -9,11 +9,12 @@ drives its main paths — root extraction served through
 kernels, text served through ``TextAnalysisWorkload`` onto the text front
 end and the stemmer kernels, a corpus index built through the stemmer
 kernels and the postings kernel, flash attention (K9) on a full-width
-LM's attention, that LM and the MoE and MLA models served through
-``LMDecodeWorkload``, and gemma-2b and deepseek-v2-lite-16b trained
-through ``repro_torch.train.loop.fit`` — at a realistic size. Phases (8d,
-8d', 10, 10b, 10c and 10d run in that order after 8c, each model freed
-before the next, and before 9):
+LM's attention, that LM, the MoE and MLA models, Mamba, Hymba and the
+VLM served through ``LMDecodeWorkload``, and gemma-2b, deepseek-v2-lite-16b,
+hymba-1.5b, falcon-mamba-7b and the VLM trained through
+``repro_torch.train.loop.fit`` — at a realistic size. Phases (8d, 8d',
+8e, 8e', 8f, 10, 10b, 10c, 10d and 10e run in that order after 8c, each
+model freed before the next, and before 9):
 
   1. card      name and power limit (nvidia-smi)
   2. build     nvcc build of every kernel library, with its seconds
@@ -175,6 +176,32 @@ before the next, and before 9):
   8d'. moe    qwen3-moe-235b-a22b at full width cut to 2 layers (128
                experts top-8, GQA with 4 KV heads; 6.2 B parameters): the
                same, 4 requests
+  8e. mamba   falcon-mamba-7b at full width and depth (64 Mamba-1 layers,
+               d_inner 8192, N 16, dt_rank 256; 7.0 B fp32 parameters,
+               28.0 GB, from a seeded CUDA generator): one of its blocks
+               at fp32 over 64 tokens on the card and on the CPU (output
+               and final state within 1e-4 of their scale); a decode
+               step at long_500k's last position, 524,287 (its caches'
+               bytes, the same at position 0, and its logits equal to
+               position 0's); then 8c's traffic and checks, prefill
+               against prefill-by-decode at 2 layers, a profile of two
+               decode steps by kernel and by kind
+  8e'. hymba  hymba-1.5b at full width and depth (1.66 B; sliding-window
+               attention over 1024 positions beside Mamba heads): 8c's
+               traffic and checks; then at 2 layers in fp32 a prefill of
+               1,280 tokens into the ring (rolled so that position p sits
+               at slot p % 1024) and 8 decode steps past the window, each
+               step's logits within 5e-4 of the full forward's
+  8f. vlm     llama-3.2-vision-11b at full width and depth (32 self + 8
+               cross layers; 9.78 B, 39.1 GB): make_prefill_step on 4
+               prompts with vision embeddings [4, 1601, 4096] bf16 from a
+               seeded generator, 16 greedy decode steps over the
+               prefilled cross keys and values, launches counted from
+               zero, every logit finite; prefill against prefill-by-decode
+               at 2 layers (a cross and a self layer) in bf16 and fp32,
+               reported at 2 whole groups; then 8c's traffic, text-only
+               with zero cross caches (the grouped self-caches merged on
+               axis 2)
   10. train    gemma-2b at full width and depth (18 layers, d 2048, 8
                heads x 256, 1 KV head, d_ff 16384, vocab 256,000 tied;
                2.51 B fp32 parameters from a seeded CUDA generator,
@@ -208,6 +235,15 @@ before the next, and before 9):
                experts at 6/64, the head counted, the embedding not);
                the aux loss before and after two steps; those two steps
                run again from the same seed give bit-identical losses
+  10e. ssm    trained as 10 (8 steps through fit, B 1, T 4096, remat
+               "full", rescaled weights): hymba-1.5b at full width and
+               depth (26.6 GB of weights, gradients and moments),
+               falcon-mamba-7b at full width cut to 16 layers (1.95 B,
+               31 GB of state; the scan's [1, 4096, 8192, 16] fp32
+               tensors), llama-3.2-vision-11b cut to one group (1 cross +
+               4 self layers, 2.1 B; the training launcher's vision
+               embeddings); before each, the first batch's gradient norm
+               at the reference's own init
   9. times     the launch floor (a one-element torch op, same timer);
                the registers and spills of every instance of the resident
                kernels, K4 and K7/K8 (the build's -Xptxas -v log); each
@@ -243,6 +279,7 @@ exits non-zero without a CUDA device. The last line is the JSON result.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import math
 import re
@@ -417,6 +454,42 @@ MOE_QWEN_REQUESTS = 4
 # settings otherwise; then MOE_REPEAT_STEPS steps again from the same seed
 MOE_TRAIN_LAYERS = 5
 MOE_REPEAT_STEPS = 2
+# phases 8e, 8e' and 8f: the Mamba, Hymba and VLM families at full width
+# and depth, each served with phase 8c's traffic. 8e: falcon-mamba-7b (64
+# Mamba-1 layers, d_inner 8192, N 16, dt_rank 256; 7.0 B parameters,
+# 28.0 GB in fp32); one of its blocks at fp32 over SSM_BLOCK_T tokens on
+# the card and on the CPU (output and state within SSM_BLOCK_TOL of their
+# scale); a decode step at long_500k's last position, LONG_POS. 8e':
+# hymba-1.5b (sliding-window attention over 1024 positions beside Mamba
+# heads; 1.66 B); RING_PREFILL tokens prefilled past the window, then
+# RING_STEPS decode steps on the ring cache at RING_LAYERS layers in fp32,
+# each step's logits within RING_TOL of the full forward's at that
+# position. 8f: llama-3.2-vision-11b (32 self + 8 cross layers; 9.78 B,
+# 39.1 GB): make_prefill_step on VLM_BATCH prompts with vision embeddings
+# [VLM_BATCH, 1601, 4096] bf16, then VLM_DECODE_STEPS decode steps
+SSM_ARCH = "falcon-mamba-7b"
+HYBRID_ARCH = "hymba-1.5b"
+VLM_ARCH = "llama-3.2-vision-11b"
+SSM_BLOCK_T = 64
+SSM_BLOCK_TOL = 1e-4
+LONG_POS = 524_287
+RING_PREFILL = 1280
+RING_STEPS = 8
+RING_LAYERS = 2
+RING_TOL = 5e-4
+VLM_BATCH = 4
+VLM_DECODE_STEPS = 16
+# phase 10e: phase 10's training (B 1, remat "full", TRAIN_STEPS steps
+# through fit) of hymba-1.5b at full width and depth (26.6 GB of weights,
+# gradients and AdamW moments), falcon-mamba-7b at full width cut to
+# SSM_TRAIN_LAYERS layers at T SSM_TRAIN_T (the whole model's 112 GB at 16
+# B a parameter fits no card; each layer's scan keeps [1, T, 8192, 16]
+# fp32 tensors of 2.15 GB at T 4096 for the backward pass) and the VLM at
+# full width cut to VLM_TRAIN_GROUPS group (one cross and four self
+# layers)
+SSM_TRAIN_LAYERS = 16
+SSM_TRAIN_T = 4096
+VLM_TRAIN_GROUPS = 1
 BLOCK_B = 256
 DEVICE = "cuda"
 
@@ -1941,6 +2014,13 @@ def profile_kernels(tag: str, label: str, fn, calls: int) -> dict:
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"[{tag}]   {ms / calls:9.3f} ms a call"
               f" ({ms / calls / busy:.4f} of kernel time)  {name}")
+    by_kind: dict = {}
+    for name, ms in by_name.items():
+        by_kind[kernel_kind(name)] = by_kind.get(kernel_kind(name), 0.0) + ms
+    out["by_kind"] = {k: v / calls for k, v in by_kind.items()}
+    print(f"[{tag}] kernel time by kind, a call: " + ", ".join(
+        f"{k} {v / calls:.3f} ms ({v / calls / busy:.4f})" for k, v in
+        sorted(by_kind.items(), key=lambda kv: -kv[1])))
     return out
 
 
@@ -1974,8 +2054,39 @@ def no_drops(cfg, n_tokens: int, label: str) -> str:
             " can be dropped")
 
 
+def arch_note(cfg) -> str:
+    """What a config adds to a layer count, width and vocabulary."""
+    if cfg.is_moe:
+        return (f", {cfg.n_experts} experts top-{cfg.top_k}"
+                f" ({cfg.n_shared_experts} shared), first_dense"
+                f" {cfg.first_dense}, attn {cfg.attn_impl}")
+    note = ""
+    if cfg.block in ("mamba", "hymba"):
+        note += (f", Mamba d_inner {cfg.d_inner}, N {cfg.ssm_state}, dt_rank"
+                 f" {cfg.dt_rank_}, d_conv {cfg.d_conv}, ssm_chunk"
+                 f" {cfg.ssm_chunk}")
+    if cfg.block == "hymba":
+        note += (f", attention in parallel ({cfg.n_heads} heads x"
+                 f" {cfg.head_dim}, {cfg.n_kv_heads} KV, window"
+                 f" {cfg.sliding_window})")
+    if cfg.n_cross_layers:
+        note += (f", {cfg.n_cross_layers} cross layers, one before each"
+                 f" {cfg.group_self} self layers, vision_seq {cfg.vision_seq}")
+    return note
+
+
+def first_state(caches, n: int):
+    """The first layer stack's first cache leaf per layer, row 0: an
+    attention cache's keys over the first n positions [L, n, KV, hd],
+    MLA's latents, or (Mamba) the recurrent state [L, d_inner, N]."""
+    c = caches["blocks"]
+    if c.kv == ():
+        return c.ssm.ssm[:, 0].float()
+    return c.kv[0][:, 0, :n].float()
+
+
 def lm_serve_phase(ops, serve, tm, pm, cfg, params, *, tag="lm-serve",
-                   requests=LM_REQUESTS) -> dict:
+                   requests=LM_REQUESTS, check_prefill=True) -> dict:
     """Serving at full width: Engine + LMDecodeWorkload serve ``requests``
     requests of LM_PROMPT + LM_NEW tokens through prefill-by-decode on
     LM_SLOTS slots, the launch counters set to 0 just before and read just
@@ -1985,7 +2096,9 @@ def lm_serve_phase(ops, serve, tm, pm, cfg, params, *, tag="lm-serve",
     prefill-by-decode for request 0 on the same weights cut to
     LM_CHECK_LAYERS layers, in bf16 and fp32 (fp32 caches), and reports
     the same at all layers. For an MoE model both paths must be free of
-    capacity drops (no_drops), so that they route alike."""
+    capacity drops (no_drops), so that they route alike. Without
+    ``check_prefill`` (the VLM served text-only, whose prefill needs the
+    vision embeddings: vlm_phase checks it) only the serve runs."""
     import dataclasses
 
     import numpy as np
@@ -2036,11 +2149,9 @@ def lm_serve_phase(ops, serve, tm, pm, cfg, params, *, tag="lm-serve",
     decode_s = sum(s for s, _, _ in log)
     tokens = sum(len(o) for o in outs)
     peak = torch.cuda.max_memory_allocated()
-    moe = (f", {cfg.n_experts} experts top-{cfg.top_k}"
-           f" ({cfg.n_shared_experts} shared), first_dense {cfg.first_dense},"
-           f" attn {cfg.attn_impl}" if cfg.is_moe else "")
     print(f"[{tag}] {cfg.name} at full width ({cfg.n_layers} layers, d"
-          f" {cfg.d_model}, vocab {cfg.vocab}{moe}, bf16 compute on fp32"
+          f" {cfg.d_model}, vocab {cfg.vocab}{arch_note(cfg)}, bf16 compute"
+          " on fp32"
           f" weights): {requests} requests of {LM_PROMPT} prompt tokens"
           f" and {LM_NEW} new on {LM_SLOTS} slots (cache_len {LM_CACHE}),"
           f" {tokens} tokens in {wall:.6f} s ({tokens / wall:.6f} tokens/s,"
@@ -2078,7 +2189,7 @@ def lm_serve_phase(ops, serve, tm, pm, cfg, params, *, tag="lm-serve",
             recording(wl_, log_)
             wl_.admit(wl_.make_request(0, prompts[0], max_new=1))
             by_decode = log_[-1][2]
-            k_dec = wl_.caches["blocks"].kv[0][:, 0, :LM_PROMPT].float()
+            k_dec = first_state(wl_.caches, LM_PROMPT)
         a, b = pre.logits[0, -1].float(), by_decode
         scale = float(a.abs().max())
         err = float((a - b).abs().max()) / scale
@@ -2087,9 +2198,13 @@ def lm_serve_phase(ops, serve, tm, pm, cfg, params, *, tag="lm-serve",
         tol = LM_PREFILL_TOL[cfg_.compute_dtype]
         clear = float(top2[0] - top2[1]) > tol * scale
         same_top = not clear or int(a.argmax()) == int(b.argmax())
-        return err, norm, same_top, pre.caches["blocks"].kv[0][:, 0].float(), \
-            k_dec
+        return err, norm, same_top, first_state(pre.caches, LM_PROMPT), k_dec
 
+    out = dict(tokens=tokens, wall=wall, steps=steps, decode_s=decode_s,
+               kernels=prof["kernels"], busy_ms=prof["busy_ms"],
+               by_kind=prof.get("by_kind", {}), peak_gb=peak / 1e9)
+    if not check_prefill:
+        return out
     cfg_cut, cut = cut_layers(pm, cfg, params, LM_CHECK_LAYERS)
     for dtype in ("bfloat16", "float32"):
         cfg_d = dataclasses.replace(cfg_cut, compute_dtype=dtype)
@@ -2117,13 +2232,12 @@ def lm_serve_phase(ops, serve, tm, pm, cfg, params, *, tag="lm-serve",
         print(f"[{tag}] float32, all {cfg.n_layers} layers: prefill vs"
               f" prefill-by-decode, max error {err:.3e} of the scale, norm"
               f" {norm:.3e}, same clear argmax {same_top} (reported, not"
-              " checked); the two caches' first leaf of \"blocks\" differs,"
-              " relative to the layer's largest |value|, by " + ", ".join(
+              " checked); the two caches' first leaf of \"blocks\" (the"
+              " SSM state for Mamba) differs, relative to the layer's"
+              " largest |value|, by " + ", ".join(
                   f"{g:.1e}" for g in growth[:8]) + f" ... {growth[-1]:.1e}"
               " from its layer 0 on")
-    return dict(tokens=tokens, wall=wall, steps=steps, decode_s=decode_s,
-                kernels=prof["kernels"], busy_ms=prof["busy_ms"],
-                peak_gb=peak / 1e9)
+    return out
 
 
 def moe_block_phase(tm, cfg, params) -> dict:
@@ -2292,14 +2406,369 @@ def moe_train_phase(ops, tm, pm, configs) -> dict:
     return dict(res, aux0=aux0, aux2=aux2)
 
 
-def synthetic_batches(vocab: int, n: int, b: int, t: int) -> list:
-    """n numpy batches of the synthetic LM stream, made before a timed run
-    (a 4096-token batch takes the host tens of ms)."""
-    from repro_torch.data import pipeline
+def leaves(tree) -> list:
+    """The tensors of a tree of dicts, tuples and NamedTuples (caches)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    if isinstance(tree, tuple):
+        return [x for part in tree for x in leaves(part)]
+    return [tree]
 
-    it = pipeline.synthetic_lm_batches(vocab, b, t,
+
+def tree_bytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for x in leaves(tree))
+
+
+def cut_groups(pm, cfg, params, n: int, g: int):
+    """The VLM's cfg and parameters cut to its first n groups of its
+    cross block and g self blocks: n whole groups (g = group_self) or the
+    first group's cross block and its first g self blocks (n = 1) ->
+    (cfg, params), the weights views of the full ones."""
+    import dataclasses
+
+    check(n == 1 or g == cfg.group_self, f"cut_groups({n}, {g})")
+    cut = dict(params,
+               cross_blocks=pm.tree_map(lambda x: x[:n],
+                                        params["cross_blocks"]),
+               self_blocks=pm.tree_map(lambda x: x[:n * g],
+                                       params["self_blocks"]))
+    return dataclasses.replace(cfg, n_cross_layers=n, group_self=g,
+                               n_layers=n * g), cut
+
+
+def ssm_block_phase(tm, pm, cfg, params) -> dict:
+    """8e: one Mamba block of the full-width weights (``blocks`` layer 0)
+    at fp32 over SSM_BLOCK_T tokens (the embedding of random ids), in
+    prefill mode, by the same port code on the card and on the CPU: the
+    output and the final state within SSM_BLOCK_TOL of their largest
+    |value|."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import blocks
+
+    f32 = torch.float32
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    g = torch.Generator(DEVICE).manual_seed(3)
+    toks = torch.randint(0, cfg.vocab, (1, SSM_BLOCK_T), generator=g,
+                         device=DEVICE)
+    lp = tm._layer(params["blocks"], 0)
+    h = tm.embed_tokens(params, cfg32, toks, f32)
+
+    def run(lp, h):
+        pos = torch.arange(SSM_BLOCK_T, dtype=torch.int32, device=h.device)
+        out, cache, _ = blocks.block(lp, h, cfg32, mode="prefill",
+                                     positions=pos, dt=f32)
+        return out.cpu(), cache.ssm.ssm.cpu()
+
+    with torch.no_grad():
+        t = time.perf_counter()
+        card = run(lp, h)
+        card_s = time.perf_counter() - t
+        t = time.perf_counter()
+        host = run(pm.tree_map(lambda x: x.cpu(), lp), h.cpu())
+        host_s = time.perf_counter() - t
+    errs = [float((a - b).abs().max() / b.abs().max())
+            for a, b in zip(card, host)]
+    print(f"[mamba-block] {cfg.name} blocks[0] at fp32, {SSM_BLOCK_T} tokens"
+          f" (one chunk of {min(cfg.ssm_chunk, SSM_BLOCK_T)}), card"
+          f" {card_s:.3f} s, CPU {host_s:.3f} s: output max error"
+          f" {errs[0]:.3e} of its scale, final state [1, {cfg.d_inner},"
+          f" {cfg.ssm_state}] {errs[1]:.3e} (tolerance {SSM_BLOCK_TOL})")
+    check(max(errs) <= SSM_BLOCK_TOL, f"the Mamba block on the card differs"
+          f" from the CPU's by {errs} of the scale")
+    return dict(out_err=errs[0], state_err=errs[1])
+
+
+def long_decode_phase(tm, cfg, params) -> dict:
+    """8e: one decode step of batch 1 at long_500k's last position
+    (LONG_POS) from zero caches, against the same step at position 0:
+    Mamba's state does not grow with the position, so its caches' bytes
+    and (with no position in the arithmetic) its logits are the same."""
+    import torch
+
+    tok = torch.zeros((1, 1), dtype=torch.int32, device=DEVICE)
+    caches = tm.init_caches(cfg, 1, LM_CACHE, device=DEVICE)
+    with torch.no_grad():
+        first, new0 = tm.decode_step(params, cfg, tok, caches, 0)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        last, new = tm.decode_step(params, cfg, tok, caches, LONG_POS)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+    c = new["blocks"].ssm
+    diff = float((last.float() - first.float()).abs().max())
+    print(f"[mamba-long] decode_step at position {LONG_POS} (long_500k's"
+          f" last; batch 1): {ms:.3f} ms, logits finite"
+          f" {bool(torch.isfinite(last).all())}; caches"
+          f" {tree_bytes(new)} B: state {list(c.ssm.shape)} {c.ssm.dtype}"
+          f" {tree_bytes(c.ssm)} B, conv history {list(c.conv.shape)}"
+          f" {c.conv.dtype} {tree_bytes(c.conv)} B; at position 0 the caches"
+          f" {tree_bytes(new0)} B, the logits {diff!r} apart")
+    check(bool(torch.isfinite(last).all()), "non-finite logits at"
+          f" position {LONG_POS}")
+    check(tree_bytes(new) == tree_bytes(new0) == tree_bytes(caches),
+          "Mamba's caches changed size with the position")
+    return dict(ms=ms, cache_bytes=tree_bytes(new), diff=diff)
+
+
+def ring_phase(tm, pm, cfg, params) -> dict:
+    """8e': Hymba's sliding-window ring past its window, at RING_LAYERS
+    layers of the full-width weights in fp32: a prefill of RING_PREFILL
+    tokens keeps the last `window` positions, which go into the decode
+    ring rolled so that position p sits at slot p % window (the layout
+    decode_attention reads), the SSM state whole; then RING_STEPS decode
+    steps, each step's logits within RING_TOL of the largest |logit| of
+    the full forward's at that position."""
+    import dataclasses
+
+    import torch
+
+    cfg_c, cut = cut_layers(pm, cfg, params, RING_LAYERS)
+    cfg32 = dataclasses.replace(cfg_c, compute_dtype="float32")
+    g = torch.Generator(DEVICE).manual_seed(4)
+    n = RING_PREFILL + RING_STEPS
+    toks = torch.randint(0, cfg.vocab, (1, n), generator=g, device=DEVICE)
+    errs = []
+    with torch.no_grad():
+        full = tm.forward(cut, cfg32, toks).logits[0, RING_PREFILL:].float()
+        pre = tm.forward(cut, cfg32, toks[:, :RING_PREFILL], mode="prefill")
+        caches = tm.init_caches(cfg32, 1, n, dt=torch.float32, device=DEVICE)
+        ring = caches["blocks"].kv.k.shape[2]
+        check(ring == cfg.sliding_window < RING_PREFILL,
+              f"ring of {ring} for a window of {cfg.sliding_window}")
+        for dst, src in zip(caches["blocks"].kv, pre.caches["blocks"].kv):
+            dst.copy_(torch.roll(src, RING_PREFILL % ring, dims=2))
+        for dst, src in zip(caches["blocks"].ssm, pre.caches["blocks"].ssm):
+            dst.copy_(src)
+        for i in range(RING_STEPS):
+            pos = RING_PREFILL + i
+            logits, caches = tm.decode_step(cut, cfg32, toks[:, pos:pos + 1],
+                                            caches, pos)
+            a, b = logits[0, 0].float(), full[i]
+            errs.append(float((a - b).abs().max() / b.abs().max()))
+    print(f"[hymba-ring] {RING_LAYERS} layers of {cfg.name} at fp32: prefill"
+          f" of {RING_PREFILL} tokens into a ring of {ring} (rolled by"
+          f" {RING_PREFILL % ring}), then {RING_STEPS} decode steps at"
+          f" positions {RING_PREFILL}-{n - 1}: max error of each step's"
+          f" logits against the full forward's, of the largest |logit|: "
+          + ", ".join(f"{e:.2e}" for e in errs) + f" (tolerance {RING_TOL})")
+    check(max(errs) <= RING_TOL, f"decode on the ring past the window"
+          f" differs from the full forward by {max(errs)}")
+    return dict(errs=errs)
+
+
+def vlm_phase(ops, tm, pm, cfg, params) -> dict:
+    """8f: make_prefill_step on VLM_BATCH random prompts of LM_PROMPT
+    tokens with vision embeddings [VLM_BATCH, vision_seq, d_model] bf16
+    drawn on the card from a seeded generator, its caches into decode
+    caches (the self-caches' leading positions, the cross keys and values
+    whole), then VLM_DECODE_STEPS greedy decode steps through
+    make_decode_step, the launch counters set to 0 just before and read
+    just after: every step's logits finite. Then prefill against
+    prefill-by-decode (the prompt decoded token by token over the
+    prefill's cross caches), in bf16 and fp32, on the weights cut to
+    LM_CHECK_LAYERS layers (the first group's cross block and its first
+    LM_CHECK_LAYERS - 1 self blocks), within LM_PREFILL_TOL, and reported
+    at LM_CHECK_LAYERS whole groups (2 cross + 8 self layers, deep enough
+    for the init's growth of rounding: ROADMAP §3)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.train import train_step as ts
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(dev).manual_seed(5)
+    ve = torch.randn((VLM_BATCH, cfg.vision_seq, cfg.d_model), generator=g,
+                     device=dev).to(torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab, (VLM_BATCH, LM_PROMPT), generator=g,
+                         device=dev, dtype=torch.int32)
+    prefill, decode = ts.make_prefill_step(cfg), ts.make_decode_step(cfg)
+    torch.cuda.synchronize()
+    ops.reset_dispatch_count()
+    t = time.perf_counter()
+    last, pre = prefill(params, toks, vision_embeds=ve)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    caches = tm.init_caches(cfg, VLM_BATCH, LM_PROMPT + VLM_DECODE_STEPS,
+                            device=dev)
+    for dst, src in zip(leaves(caches["self"]), leaves(pre["self"])):
+        dst[:, :, :, :LM_PROMPT].copy_(src)
+    caches["cross"] = pre["cross"]
+    finite = [torch.isfinite(last).all()]
+    tok = last[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    t = time.perf_counter()
+    for i in range(VLM_DECODE_STEPS):
+        logits, caches = decode(params, tok, caches, LM_PROMPT + i)
+        finite.append(torch.isfinite(logits).all())
+        tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t
+    launches = launch_counts(ops)
+    check(not launches, f"the VLM path launched {launches}; its model calls"
+          " no kernel")
+    check(bool(torch.stack(finite).all()), "non-finite VLM logits")
+    print(f"[vlm] make_prefill_step on {VLM_BATCH} prompts of {LM_PROMPT}"
+          f" tokens with vision embeddings {list(ve.shape)} bf16:"
+          f" {prefill_s * 1e3:.3f} ms (the first call); cross caches"
+          f" {list(pre['cross'].k.shape)} x 2, {tree_bytes(pre['cross'])} B,"
+          f" self caches {list(caches['self'].kv.k.shape)} x 2,"
+          f" {tree_bytes(caches['self'])} B; {VLM_DECODE_STEPS} greedy decode"
+          f" steps over the prefilled cross keys and values,"
+          f" {decode_s / VLM_DECODE_STEPS * 1e3:.3f} ms a step; every logit"
+          " finite; kernel launches 0")
+    errs = {}
+    for (n, g_), dtype in itertools.product(
+            ((1, LM_CHECK_LAYERS - 1), (LM_CHECK_LAYERS, cfg.group_self)),
+            ("bfloat16", "float32")):
+        cfg_c, cut = cut_groups(pm, cfg, params, n, g_)
+        checked = n == 1
+        cfg_d = dataclasses.replace(cfg_c, compute_dtype=dtype)
+        with torch.no_grad():
+            ref = tm.forward(cut, cfg_d, toks[:1], vision_embeds=ve[:1],
+                             mode="prefill")
+            c = tm.init_caches(cfg_d, 1, LM_PROMPT, dt=getattr(torch, dtype),
+                               device=dev)
+            c["cross"] = ref.caches["cross"]
+            for i in range(LM_PROMPT):
+                logits, c = tm.decode_step(cut, cfg_d, toks[:1, i:i + 1], c,
+                                           i)
+        a, b = ref.logits[0, -1].float(), logits[0, -1].float()
+        err = float((a - b).abs().max() / a.abs().max())
+        errs[(n, g_, dtype)] = err
+        tol = LM_PREFILL_TOL[dtype]
+        print(f"[vlm] {dtype}, full width cut to {n} group(s) of one cross"
+              f" and {g_} self layer(s): prefill vs prefill-by-decode over"
+              f" the prefill's cross caches, max error {err:.3e} of the"
+              f" largest |logit| ("
+              + (f"tolerance {tol}" if checked else "reported, not checked")
+              + f"), norm {float((a - b).norm() / a.norm()):.3e}")
+        check(not checked or err <= tol, f"{dtype} VLM prefill and"
+              f" prefill-by-decode differ by {err} of the logits' scale")
+    return dict(prefill_ms=prefill_s * 1e3,
+                decode_ms=decode_s / VLM_DECODE_STEPS * 1e3, errs=errs)
+
+
+def ssm_serve_phase(ops, serve, tm, pm, configs) -> dict:
+    """8e, 8e', 8f: falcon-mamba-7b, hymba-1.5b and llama-3.2-vision-11b
+    at full width and depth, each drawn on the card from a seeded CUDA
+    generator and freed before the next: their own checks
+    (ssm_block_phase and long_decode_phase; ring_phase; vlm_phase), and
+    lm_serve_phase at phase 8c's traffic (the VLM text-only, zero cross
+    caches, as the reference's ServeEngine serves it)."""
+    import torch
+
+    out = {}
+    dev = torch.device(DEVICE)
+    for tag, arch in (("mamba-serve", SSM_ARCH), ("hymba-serve", HYBRID_ARCH),
+                      ("vlm-serve", VLM_ARCH)):
+        cfg = configs.get_config(arch)
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        params = pm.init_params(tm.model_spec(cfg),
+                                torch.Generator(dev).manual_seed(0),
+                                device=dev)
+        torch.cuda.synchronize()
+        n = pm.count_params(params)
+        print(f"[{tag}] {cfg.name} at full width and depth,"
+              f" {cfg.n_layers + cfg.n_cross_layers} layers{arch_note(cfg)}:"
+              f" {n} parameters, {torch.cuda.memory_allocated() / 1e9:.3f} GB"
+              f" on the card (fp32, drawn on the card in"
+              f" {time.perf_counter() - t:.3f} s)")
+        extra = {}
+        if arch == SSM_ARCH:
+            extra["block"] = ssm_block_phase(tm, pm, cfg, params)
+            extra["long"] = long_decode_phase(tm, cfg, params)
+        if arch == VLM_ARCH:
+            extra["vlm"] = vlm_phase(ops, tm, pm, cfg, params)
+        torch.cuda.reset_peak_memory_stats()
+        run = lm_serve_phase(ops, serve, tm, pm, cfg, params, tag=tag,
+                             check_prefill=arch != VLM_ARCH)
+        if arch == HYBRID_ARCH:
+            extra["ring"] = ring_phase(tm, pm, cfg, params)
+        out[arch] = dict(run, params=n, **extra)
+        del params
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return out
+
+
+def raw_init_gnorm(tm, pm, cfg, t: int, tag: str) -> float:
+    """The gradient norm of the first training batch at the reference's
+    init (init_params, not rescaled), remat "full": whether the
+    rescaling of trainable_params is needed for cfg."""
+    import torch
+
+    from repro_torch.train import train_step as ts
+
+    dev = torch.device(DEVICE)
+    params = pm.init_params(tm.model_spec(cfg),
+                            torch.Generator(dev).manual_seed(0), device=dev)
+    live = [x.requires_grad_() for x in pm.tree_leaves(params)]
+    batch = ts.to_device(synthetic_batches(cfg, 1, TRAIN_B, t)[0], dev)
+    loss = tm.loss_fn(params, cfg, batch, remat_policy=tm.nothing_saveable)
+    grads = torch.autograd.grad(loss, live)
+    norm = float(torch.stack([g.float().pow(2).sum() for g in grads])
+                 .sum().sqrt())
+    print(f"[{tag}] at the reference's init (init_params, not rescaled):"
+          f" loss {float(loss.detach())!r}, gradient norm {norm!r} on the"
+          " first batch")
+    del params, live, grads, loss
+    torch.cuda.empty_cache()
+    return norm
+
+
+def ssm_train_phase(ops, tm, pm, configs) -> dict:
+    """10e: train_phase (TRAIN_STEPS steps through fit, B 1, remat "full",
+    from trainable_params) on hymba-1.5b at full width and depth,
+    falcon-mamba-7b cut to SSM_TRAIN_LAYERS layers at T SSM_TRAIN_T, and
+    llama-3.2-vision-11b cut to VLM_TRAIN_GROUPS group with the training
+    launcher's vision embeddings; before each, the first batch's gradient
+    norm at the reference's own init (raw_init_gnorm)."""
+    import dataclasses
+
+    import torch
+
+    vlm = configs.get_config(VLM_ARCH)
+    runs = (("hymba-train", configs.get_config(HYBRID_ARCH), TRAIN_T),
+            ("mamba-train", dataclasses.replace(
+                configs.get_config(SSM_ARCH), n_layers=SSM_TRAIN_LAYERS),
+             SSM_TRAIN_T),
+            ("vlm-train", dataclasses.replace(
+                vlm, n_cross_layers=VLM_TRAIN_GROUPS,
+                n_layers=VLM_TRAIN_GROUPS * vlm.group_self), TRAIN_T))
+    out = {}
+    for tag, cfg, t in runs:
+        torch.cuda.empty_cache()
+        raw = raw_init_gnorm(tm, pm, cfg, t, tag)
+        res = train_phase(ops, tm, pm, cfg, tag=tag, t=t)
+        res.pop("batches")
+        res.pop("run")
+        out[cfg.name] = dict(res, raw_gnorm=raw, t=t,
+                             layers=cfg.n_layers + cfg.n_cross_layers)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return out
+
+
+def synthetic_batches(cfg, n: int, b: int, t: int) -> list:
+    """n numpy batches of the synthetic LM stream, made before a timed run
+    (a 4096-token batch takes the host tens of ms); the VLM's with the
+    training launcher's stand-in vision embeddings, bf16 [b, vision_seq,
+    d_model] drawn from seed 0."""
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train as launch_train
+
+    it = pipeline.synthetic_lm_batches(cfg.vocab, b, t,
                                        effective_vocab=TRAIN_LIVE_IDS)
+    if cfg.n_cross_layers:
+        it = launch_train.with_vision_embeds(it, cfg)
     return [next(it) for _ in range(n)]
+
+
+STACKS = ("dense_blocks", "blocks", "self_blocks", "cross_blocks")
 
 
 def trainable_params(tm, pm, cfg, seed: int):
@@ -2316,23 +2785,27 @@ def trainable_params(tm, pm, cfg, seed: int):
     dim, the out-projection wo [n, h, d] its first two. From that rule
     gemma-2b's gradients at 18 layers overflow fp32 (its single KV head
     gets std 1: a gradient norm of inf at every step, on the card), and
-    the reference's grow as fast."""
+    the reference's grow as fast. Every stack (the VLM's self and cross
+    blocks too) is rescaled; Mamba's weights are matrices whose fan-in
+    the rule gets right, and its out_proj takes the residual scaling."""
     import torch
 
     dev = torch.device(DEVICE)
     p = pm.init_params(tm.model_spec(cfg),
                        torch.Generator(dev).manual_seed(seed), device=dev)
-    depth = (2 * cfg.n_layers) ** -0.5
+    depth = (2 * (cfg.n_layers + cfg.n_cross_layers)) ** -0.5
     with torch.no_grad():
-        for key in ("dense_blocks", "blocks"):
+        for key in STACKS:
             if key not in p:
                 continue
-            attn, ffn = p[key]["attn"], p[key]["ffn"]
+            attn, ffn = p[key].get("attn", {}), p[key].get("ffn", {})
             for name, w in attn.items():
                 if w.dim() == 4:   # [L, ., ., .]: std shape[-2]^-0.5 now
                     fan = w.shape[1] * (w.shape[2] if name == "wo" else 1)
                     w.mul_((w.shape[-2] / fan) ** 0.5)
-            for w in (attn["wo"], ffn["wo"], ffn.get("shared", {}).get("wo")):
+            for w in (attn.get("wo"), ffn.get("wo"),
+                      ffn.get("shared", {}).get("wo"),
+                      p[key].get("mamba", {}).get("out_proj")):
                 if w is not None:
                     w.mul_(depth)
     return p
@@ -2346,7 +2819,7 @@ def active_params(pm, cfg, params) -> int:
     n = pm.count_params(params)
     if not cfg.tie_embeddings:
         n -= params["embed"].numel()
-    for key in ("dense_blocks", "blocks"):
+    for key in STACKS:
         ffn = params.get(key, {}).get("ffn", {})
         if "router" in ffn:
             routed = sum(ffn[k].numel() for k in ("wi", "wg", "wo"))
@@ -2369,7 +2842,7 @@ def trace_split(prof, params) -> tuple:
 
     from repro_torch.models import params as pm
 
-    shapes = {tuple(x.shape[1:]) for key in ("dense_blocks", "blocks")
+    shapes = {tuple(x.shape[1:]) for key in STACKS
               for x in pm.tree_leaves(params.get(key, {})) if x.dim() >= 3}
     shapes.add(tuple(params["embed"].shape))
     ops = [e for e in prof.events() if e.device_type == DeviceType.CPU]
@@ -2453,7 +2926,7 @@ def kernel_kind(name: str) -> str:
     return "other"
 
 
-def train_phase(ops, tm, pm, cfg, *, tag="train") -> dict:
+def train_phase(ops, tm, pm, cfg, *, tag="train", t=TRAIN_T) -> dict:
     """cfg trained at full width: TRAIN_STEPS steps through train.loop.fit
     from trainable_params(seed 0) (remat "full", the RunConfig default),
     the launch counters set to 0 just before and read just after (the
@@ -2472,10 +2945,10 @@ def train_phase(ops, tm, pm, cfg, *, tag="train") -> dict:
     n_params = pm.count_params(params)
     n_active = active_params(pm, cfg, params)
     run = RunConfig(model=cfg, shape=ShapeConfig(
-        "chip", TRAIN_T, TRAIN_B, "train"), learning_rate=TRAIN_LR,
+        "chip", t, TRAIN_B, "train"), learning_rate=TRAIN_LR,
         lr_warmup=TRAIN_WARMUP)
     check(run.remat == "full", f"RunConfig's remat default is {run.remat}")
-    batches = synthetic_batches(cfg.vocab, TRAIN_STEPS + 2, TRAIN_B, TRAIN_T)
+    batches = synthetic_batches(cfg, TRAIN_STEPS + 2, TRAIN_B, t)
     log: list = []
 
     def on_metrics(step, m):
@@ -2486,7 +2959,7 @@ def train_phase(ops, tm, pm, cfg, *, tag="train") -> dict:
     moe = (f", {cfg.attn_impl} attention, {cfg.first_dense} dense layer(s)"
            f" then {cfg.n_experts} experts top-{cfg.top_k}"
            f" ({cfg.n_shared_experts} shared) of d_ff {cfg.d_ff_expert}"
-           if cfg.is_moe else "")
+           if cfg.is_moe else arch_note(cfg))
     active = ("routed experts at top_k / n_experts, the embedding table"
               " not counted (a lookup), the head counted"
               if cfg.is_moe else "all (the tied embedding is the head)"
@@ -2498,7 +2971,7 @@ def train_phase(ops, tm, pm, cfg, *, tag="train") -> dict:
           f" ({n_active} active a token: {active}),"
           f" {torch.cuda.memory_allocated() / 1e9:.3f} GB on the card;"
           f" {cfg.compute_dtype} compute, remat {run.remat!r}, B {TRAIN_B},"
-          f" T {TRAIN_T}, lr {TRAIN_LR}, warmup {TRAIN_WARMUP}")
+          f" T {t}, lr {TRAIN_LR}, warmup {TRAIN_WARMUP}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_dispatch_count()
@@ -2520,7 +2993,7 @@ def train_phase(ops, tm, pm, cfg, *, tag="train") -> dict:
     ends = [t0] + [e[0] for e in log]
     step_s = [b - a for a, b in zip(ends, ends[1:])]
     steady = sum(step_s[1:]) / len(step_s[1:])
-    tokens = TRAIN_B * TRAIN_T
+    tokens = TRAIN_B * t
     flops = 6 * n_active * tokens
     peak_flops = PEAK_FLOPS["bfloat16"]
     print(f"[{tag}] losses {[round(x, 4) for x in losses]}; gradient norms"
@@ -2600,7 +3073,7 @@ def remat_phase(tm, pm, cfg) -> dict:
     dev = torch.device(DEVICE)
     cfg = dataclasses.replace(cfg, n_layers=REMAT_LAYERS)
     base = trainable_params(tm, pm, cfg, 1)
-    b0, b1 = synthetic_batches(cfg.vocab, 2, TRAIN_B, TRAIN_T)
+    b0, b1 = synthetic_batches(cfg, 2, TRAIN_B, TRAIN_T)
     out = {}
     for name in ("none", "dots", "full"):
         run = RunConfig(model=cfg, shape=ShapeConfig(
@@ -3261,6 +3734,10 @@ def main() -> int:
     moe_runs = moe_serve_phase(ops, serve, tm, pm, configs)
     lap("MoE and MLA serving")
 
+    # ---- 8e, 8e', 8f. Mamba, Hymba and the VLM at full width and depth --
+    ssm_runs = ssm_serve_phase(ops, serve, tm, pm, configs)
+    lap("Mamba, Hymba and VLM serving")
+
     # ---- 10. training: gemma-2b at full width and depth -----------------
     train_cfg = configs.get_config(TRAIN_ARCH)
     train_run = train_phase(ops, tm, pm, train_cfg)
@@ -3273,6 +3750,8 @@ def main() -> int:
     lap("the example's path with checkpoints")
     moe_train = moe_train_phase(ops, tm, pm, configs)
     lap("MoE and MLA training at full width")
+    ssm_train = ssm_train_phase(ops, tm, pm, configs)
+    lap("Mamba, Hymba and VLM training at full width")
 
     # ---- 9. times --------------------------------------------------------
     real_tables = sf.padded_tables(realistic, match="bsearch", infix=True)
@@ -3773,6 +4252,23 @@ def main() -> int:
           f" {moe_train['busy_ms']:.3f} ms of them; weight casts"
           f" {casts['forward'][1]:.6f} ms forward, {casts['backward'][1]:.6f}"
           " ms backward")
+    for name, r in ssm_runs.items():
+        step_ms = r["decode_s"] / r["steps"] * 1e3
+        print(f"[times] serve, {name} ({r['params']} parameters):"
+              f" {r['steps']} decode steps, {step_ms:.6f} ms a step,"
+              f" {r['tokens'] / r['wall']:.6f} tokens/s, {r['kernels']}"
+              f" kernels a step, {r['busy_ms']:.3f} ms of them (busy"
+              f" {r['busy_ms'] / step_ms:.4f} of a served step), peak"
+              f" {r['peak_gb']:.6f} GB")
+    for name, r in ssm_train.items():
+        print(f"[times] train, {name} full width, {r['layers']} layers,"
+              f" remat full, B {TRAIN_B}, T {r['t']}: {r['steady_ms']:.6f} ms"
+              f" a step, {r['tokens_s']:.6f} tokens/s, {r['tflops']:.6f}"
+              f" TFLOP/s (6 N tokens, N = {r['n_active']}),"
+              f" {r['tflops'] * 1e12 / PEAK_FLOPS['bfloat16']:.6f} of the bf16"
+              f" peak, peak {r['peak_gb']:.6f} GB, {r['n_kernels']} kernels a"
+              f" step, {r['busy_ms']:.3f} ms of them; the reference's init"
+              f" gave a first gradient norm of {r['raw_gnorm']!r}")
     lap("times")
     print(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(card_line())

@@ -10,13 +10,16 @@ without one; ``--device cpu`` runs on the CPU. ``--smoke`` takes the
 reduced same-family config. Fault tolerance (resume, the preemption
 checkpoint, straggler counters) comes from ``train/loop.py``.
 ``--morph-data`` trains on the Arabic character stream with the stemmer
-run on the same device.
+run on the same device. The VLM (llama-3.2-vision-11b) trains on
+stand-in vision embeddings drawn from a seed (``with_vision_embeds``):
+its vision front end is not modelled, as in the reference.
 """
 from __future__ import annotations
 
 import argparse
 
 import numpy as np
+import torch
 
 from repro_torch import configs
 from repro_torch import device as devmod
@@ -34,6 +37,18 @@ def batched(base, batch: int):
             "tokens": np.concatenate([r["tokens"] for r in rows]),
             "labels": np.concatenate([r["labels"] for r in rows]),
         }
+
+
+def with_vision_embeds(base, cfg, seed: int = 0):
+    """The batches of ``base`` with the VLM's stand-in vision_embeds [B,
+    vision_seq, d_model]: unit normals drawn with numpy from ``seed``,
+    rounded to bf16 (as tests/test_arch_smoke.py makes them)."""
+    rng = np.random.default_rng(seed)
+    for batch in base:
+        ve = rng.normal(size=(batch["tokens"].shape[0], cfg.vision_seq,
+                              cfg.d_model)).astype(np.float32)
+        yield dict(batch,
+                   vision_embeds=torch.from_numpy(ve).to(torch.bfloat16))
 
 
 def main(argv=None):
@@ -74,6 +89,8 @@ def main(argv=None):
     else:
         data = data_pipeline.synthetic_lm_batches(
             cfg.vocab, args.batch, args.seq, effective_vocab=64)
+    if cfg.n_cross_layers:
+        data = with_vision_embeds(data, cfg)
 
     def on_metrics(step, m):
         if step % args.log_every == 0:

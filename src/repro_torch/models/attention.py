@@ -12,8 +12,8 @@ remat policy saves the first kind only (``models.model``).
 
 K9 (``kernels/flash_attention.py``) is not called here, in serving or in
 training: the reference's model does not call its flash kernel either,
-and that kernel has no backward. ``cross_attention`` (VLM) waits for that
-family (ROADMAP §1 item 9.5).
+and that kernel has no backward. ``cross_attention`` (the VLM's) attends
+to encoder states with no mask and no rotary embedding.
 """
 from __future__ import annotations
 
@@ -79,10 +79,21 @@ def dequantise_kv(q: torch.Tensor, scale: torch.Tensor, dt) -> torch.Tensor:
     return (q.float() * scale).to(dt)
 
 
+def _promoted(*xs):
+    """xs cast to their common dtype, as jnp's einsum promotes mixed
+    operands (a bf16 vision embedding or cache under fp32 compute)."""
+    ct = xs[0].dtype
+    for x in xs[1:]:
+        ct = torch.promote_types(ct, x.dtype)
+    return tuple(x.to(ct) for x in xs)
+
+
 def _heads_in(x, w, dt):
-    """The reference's einsum "btd,dnh->btnh" as one matrix product."""
+    """The reference's einsum "btd,dnh->btnh" as one matrix product (x
+    and the weight cast to dt promoted to their common dtype)."""
     d, n, hd = w.shape
-    return (x @ w.to(dt).reshape(d, n * hd)).reshape(*x.shape[:-1], n, hd)
+    x, w = _promoted(x, w.to(dt).reshape(d, n * hd))
+    return (x @ w).reshape(*x.shape[:-1], n, hd)
 
 
 def _heads_out(y, w, dt):
@@ -246,3 +257,14 @@ def decode_attention(p, x, cfg, cache, *, pos, dt=torch.bfloat16):
     out = _sdpa(q, new_k, new_v, bias, n_rep)
     y = _heads_out(out, p["wo"], dt)
     return y, (cache if quant else KVCache(k=new_k, v=new_v))
+
+
+def cross_attention(p, x, enc, cfg, dt=torch.bfloat16):
+    """x [B,T,d] attends to encoder states enc [B,S,d] (no mask, no
+    rope)."""
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    q = _heads_in(x, p["wq"], dt)
+    k = _heads_in(enc, p["wk"], dt)
+    v = _heads_in(enc, p["wv"], dt)
+    out = _sdpa(*_promoted(q, k, v), None, n_rep)
+    return _heads_out(out, p["wo"], dt)

@@ -1,13 +1,13 @@
 """Decoder blocks: attention (dense GQA or MLA) with a dense or MoE FFN,
-in the full, prefill and decode modes.
+Mamba (no FFN), Hymba (attention and Mamba heads in parallel, then the
+FFN) and the VLM's cross-attention block, in the full, prefill and decode
+modes.
 
 The counterpart of ``repro.models.blocks``. Every family's parameters are
 declared here (so that ``models.model.model_spec`` and ``count_params``
-cover all ten architectures). ``block="attn"`` is applied in every mode
-(the full forward, which trains, prefill and decode), with
-``attn_impl="gqa"`` or ``"mla"`` and a dense or MoE FFN; the Mamba,
-Hymba, VLM and audio branches raise NotImplementedError until they are
-ported (ROADMAP §1 items 9.4-9.6).
+cover all ten architectures), and every family but the audio one
+(musicgen-medium, ROADMAP §1 item 9.6) is applied in every mode: the
+full forward, which trains, prefill and decode.
 """
 from __future__ import annotations
 
@@ -16,8 +16,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models import layers, mla, moe
-from repro_torch.models.params import ParamSpec
+from repro_torch.models import layers, mamba, mla, moe
 
 # {item}: the ROADMAP §1 sub-item that ports the family
 NOT_PORTED = "is not ported yet (ROADMAP §1 item {item})"
@@ -27,26 +26,7 @@ class BlockCache(NamedTuple):
     """Uniform per-layer cache; unused fields are () placeholders."""
 
     kv: Any = ()      # attention.KVCache | QuantKVCache | mla.MLACache
-    ssm: Any = ()     # the Mamba state, once ported
-
-
-# ---------------------------------------------------------------------------
-# parameter declarations of the families that are not applied yet (the
-# reference's mamba.mamba_spec)
-# ---------------------------------------------------------------------------
-def mamba_spec(cfg):
-    d, di, n, r = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank_
-    return {
-        "in_proj": ParamSpec((d, 2 * di), ("fsdp", "model")),
-        "conv_w": ParamSpec((cfg.d_conv, di), (None, "model"), scale=0.2),
-        "conv_b": ParamSpec((di,), ("model",), init="zeros"),
-        "x_proj": ParamSpec((di, r + 2 * n), ("model", None)),
-        "dt_proj": ParamSpec((r, di), (None, "model"), scale=0.1),
-        "dt_bias": ParamSpec((di,), ("model",), init="zeros"),
-        "a_log": ParamSpec((di, n), ("model", None), init="ones"),
-        "d_skip": ParamSpec((di,), ("model",), init="ones"),
-        "out_proj": ParamSpec((di, d), ("model", "fsdp")),
-    }
+    ssm: Any = ()     # mamba.MambaCache
 
 
 # ---------------------------------------------------------------------------
@@ -57,11 +37,11 @@ def block_spec(cfg, *, moe_layer: bool | None = None):
         moe_layer = cfg.is_moe
     s = {"norm1": layers.rmsnorm_spec(cfg.d_model)}
     if cfg.block == "mamba":
-        s["mamba"] = mamba_spec(cfg)
+        s["mamba"] = mamba.mamba_spec(cfg)
         return s  # mamba blocks in Falcon-Mamba have no separate FFN
     if cfg.block == "hymba":
         s["attn"] = attn.attn_spec(cfg)
-        s["mamba"] = mamba_spec(cfg)
+        s["mamba"] = mamba.mamba_spec(cfg)
         s["norm_a"] = layers.rmsnorm_spec(cfg.d_model)
         s["norm_m"] = layers.rmsnorm_spec(cfg.d_model)
     elif cfg.attn_impl == "mla":
@@ -93,24 +73,45 @@ def strip_markers(tree):
 
 def check_ported(cfg) -> None:
     """Raise NotImplementedError for a family whose apply is not ported."""
-    what = item = None
-    if cfg.block != "attn":
-        what, item = f"the {cfg.block!r} block", "9.4"
-    elif cfg.n_cross_layers:
-        what, item = "cross-attention (the VLM family)", "9.5"
-    elif cfg.n_codebooks:
-        what, item = "the audio embedding and heads", "9.6"
-    if what is not None:
+    if cfg.n_codebooks:
         raise NotImplementedError(
-            f"{cfg.name}: {what} {NOT_PORTED.format(item=item)}")
+            f"{cfg.name}: the audio embedding and heads"
+            f" {NOT_PORTED.format(item='9.6')}")
 
 
 # ---------------------------------------------------------------------------
 # apply
 # ---------------------------------------------------------------------------
 def _mixer_full(p, h, cfg, mode, cache, positions, pos, dt):
-    """Token mixer (dense attention or MLA) in any mode."""
+    """Token mixer (attention, MLA, Mamba or Hymba) in any mode -> (y,
+    the mixer's cache: Hymba's a pair (kv, ssm))."""
     check_ported(cfg)
+    if cfg.block == "mamba":
+        if mode == "decode":
+            return mamba.mamba_decode(p["mamba"], h, cfg, cache.ssm, dt=dt)
+        return mamba.mamba_block(p["mamba"], h, cfg, dt=dt)
+
+    if cfg.block == "hymba":
+        if mode == "decode":
+            ya, kvc = attn.decode_attention(p["attn"], h, cfg, cache.kv,
+                                            pos=pos, dt=dt)
+            ym, ssc = mamba.mamba_decode(p["mamba"], h, cfg, cache.ssm,
+                                         dt=dt)
+        else:
+            if mode == "prefill":
+                ya, kvc = attn.prefill_attention(
+                    p["attn"], h, cfg, positions=positions,
+                    cache_len=_cache_len(cfg, h.shape[1]), dt=dt)
+            else:
+                ya = attn.self_attention(p["attn"], h, cfg,
+                                         positions=positions,
+                                         chunk_q=_chunk_q(h.shape[1]), dt=dt)
+                kvc = ()
+            ym, ssc = mamba.mamba_block(p["mamba"], h, cfg, dt=dt)
+        ya = layers.rmsnorm(p["norm_a"], ya, cfg.rms_eps)
+        ym = layers.rmsnorm(p["norm_m"], ym, cfg.rms_eps)
+        return 0.5 * (ya + ym), (kvc, ssc)
+
     if cfg.attn_impl == "mla":
         if mode == "decode":
             return mla.mla_decode(p["attn"], h, cfg, cache.kv, pos=pos, dt=dt)
@@ -151,11 +152,18 @@ def block(p, h, cfg, *, mode="full", cache=BlockCache(), positions=None,
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
 
     hn = layers.rmsnorm(p["norm1"], h, cfg.rms_eps)
-    y, kv = _mixer_full(p, hn, cfg, mode, cache, positions, pos, dt)
+    y, mixer_cache = _mixer_full(p, hn, cfg, mode, cache, positions, pos, dt)
     h = h + y
     if mode == "full":  # training: never materialise stacked caches
-        kv = ()
-    new_cache = BlockCache(kv=kv, ssm=())
+        new_cache = BlockCache()
+    elif cfg.block == "mamba":
+        new_cache = BlockCache(ssm=mixer_cache)
+    elif cfg.block == "hymba":
+        new_cache = BlockCache(*mixer_cache)
+    else:
+        new_cache = BlockCache(kv=mixer_cache)
+    if cfg.block == "mamba":  # mamba blocks have no FFN
+        return h, new_cache, aux
 
     hn = layers.rmsnorm(p["norm2"], h, cfg.rms_eps)
     if moe_layer:
@@ -164,3 +172,11 @@ def block(p, h, cfg, *, mode="full", cache=BlockCache(), positions=None,
         y = layers.ffn(p["ffn"], hn, cfg.ffn, compute_dtype=dt)
     h = h + y
     return h, new_cache, aux
+
+
+def cross_block(p, h, enc, cfg, dt=torch.bfloat16):
+    """Cross-attention block (VLM): attends to vision embeddings."""
+    hn = layers.rmsnorm(p["norm1"], h, cfg.rms_eps)
+    h = h + attn.cross_attention(p["attn"], hn, enc, cfg, dt=dt)
+    hn = layers.rmsnorm(p["norm2"], h, cfg.rms_eps)
+    return h + layers.ffn(p["ffn"], hn, cfg.ffn, compute_dtype=dt)

@@ -4,11 +4,16 @@ losses, and the execution modes (full, prefill, decode).
 The counterpart of ``repro.models.model``. Parameters are the reference's
 tree: ``blocks`` holds every layer's leaves stacked on a leading [L]
 axis (DeepSeek's leading dense layers a stack of their own,
-``dense_blocks``, run first), and a Python loop over the layers takes the
-place of the reference's scans. ``model_spec`` declares all ten
-architectures; ``forward``, ``loss_fn``, ``init_caches`` and
-``decode_step`` run the attention families (dense GQA, MoE, MLA) and
-raise NotImplementedError for the rest (ROADMAP §1 items 9.4-9.6).
+``dense_blocks``, run first; the VLM's ``cross_blocks`` [G] and
+``self_blocks`` [G x g], run as G groups of one cross block and g self
+blocks), and a Python loop over the layers takes the place of the
+reference's scans. ``model_spec`` declares all ten architectures;
+``forward``, ``loss_fn``, ``init_caches`` and ``decode_step`` run every
+family but the audio one (musicgen-medium, which raises
+NotImplementedError: ROADMAP §1 item 9.6): dense GQA, MoE, MLA, Mamba,
+Hymba and the VLM, whose vision front end is a stand-in of precomputed
+embeddings ``vision_embeds`` [B, vision_seq, d_model], as in the
+reference.
 Training is ``forward(mode="full")`` under autograd, through
 ``loss_fn``: the full mode keeps no caches, can rematerialise each layer
 (``remat_policy``) and, for the chunked loss, stops before the head
@@ -26,7 +31,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch import device as devmod
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import blocks, layers, mla
+from repro_torch.models import blocks, layers, mamba, mla
 from repro_torch.models import params as pm
 from repro_torch.models.params import ParamSpec
 
@@ -165,13 +170,16 @@ def _stacks(cfg) -> list:
     return dense + [("blocks", "blocks", cfg.is_moe)]
 
 
-def forward(p, cfg, tokens, *, mode="full", remat_policy=None,
-            return_hidden=False):
+def forward(p, cfg, tokens, *, vision_embeds=None, mode="full",
+            remat_policy=None, return_hidden=False):
     """tokens [B,T] -> ModelOutputs. mode: full (the training forward: no
     caches) | prefill (which also returns the caches, a stack's layers
     stacked: ``{"blocks": BlockCache(kv=KVCache([L,B,S,KV,hd] ...))}``,
-    MLACache leaves [L,B,S,kv_lora] and [L,B,S,rope] for MLA, and
-    ``"dense"`` for the leading dense layers).
+    MLACache leaves [L,B,S,kv_lora] and [L,B,S,rope] for MLA, MambaCache
+    leaves [L,B,d_conv-1,d_inner] and [L,B,d_inner,N] in ``ssm`` for
+    Mamba and Hymba, ``"dense"`` for the leading dense layers; the VLM's
+    ``"self"`` [G,g,B,...] and ``"cross"`` KVCache [G,B,vision_seq,KV,hd],
+    the cross-attention keys and values of ``vision_embeds``).
 
     remat_policy (None, :func:`nothing_saveable` or
     :func:`dots_with_no_batch_dims_saveable`) wraps each layer's block, as
@@ -185,26 +193,56 @@ def forward(p, cfg, tokens, *, mode="full", remat_policy=None,
     t = tokens.shape[1]
     positions = torch.arange(t, dtype=torch.int32, device=h.device)
 
+    def layer_fn(lp, h, moe_layer):
+        return blocks.block(lp, h, cfg, mode=mode, positions=positions,
+                            moe_layer=moe_layer, dt=dt)
+
     caches = {}
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
-    for key, ckey, moe_layer in _stacks(cfg):
-        def layer_fn(lp, h, moe_layer=moe_layer):
-            return blocks.block(lp, h, cfg, mode=mode, positions=positions,
-                                moe_layer=moe_layer, dt=dt)
-
-        caches[ckey] = []
-        for lp in _unstack(p[key]):
-            h, cache, aux = remat(layer_fn, remat_policy, lp, h)
-            caches[ckey].append(cache)
-            aux_total = aux_total + aux
+    if cfg.n_cross_layers:
+        # G groups: one cross block (not rematerialised, as in the
+        # reference), then group_self self blocks
+        g = cfg.group_self
+        self_layers = _unstack(p["self_blocks"])
+        groups = []
+        for i, cross_p in enumerate(_unstack(p["cross_blocks"])):
+            h = blocks.cross_block(cross_p, h, vision_embeds, cfg, dt=dt)
+            group = []
+            for lp in self_layers[i * g:(i + 1) * g]:
+                h, cache, aux = remat(layer_fn, remat_policy, lp, h, False)
+                group.append(cache)
+                aux_total = aux_total + aux
+            groups.append(group)
+        if mode == "prefill":
+            caches["self"] = _stack_layers([_stack_layers(c) for c in groups])
+            caches["cross"] = _cross_kv(p["cross_blocks"], cfg, vision_embeds,
+                                        dt)
+    else:
+        for key, ckey, moe_layer in _stacks(cfg):
+            stack = []
+            for lp in _unstack(p[key]):
+                h, cache, aux = remat(layer_fn, remat_policy, lp, h,
+                                      moe_layer)
+                stack.append(cache)
+                aux_total = aux_total + aux
+            if mode == "prefill":
+                caches[ckey] = _stack_layers(stack)
 
     h = layers.rmsnorm(p["final_norm"], h, cfg.rms_eps)
     if return_hidden:
         return ModelOutputs(logits=h, aux_loss=aux_total)
     logits = logits_fn(p, cfg, h, dt)
-    caches = ({k: _stack_layers(v) for k, v in caches.items()}
-              if mode == "prefill" else ())
-    return ModelOutputs(logits=logits, aux_loss=aux_total, caches=caches)
+    return ModelOutputs(logits=logits, aux_loss=aux_total,
+                        caches=caches if mode == "prefill" else ())
+
+
+def _cross_kv(cross_p, cfg, enc, dt):
+    """The cross-attention keys and values of every cross layer, from the
+    (fixed) encoder states: KVCache(k, v) [G, B, S, KV, hd]."""
+    kv = [attn_mod.KVCache(k=attn_mod._heads_in(enc, lp["attn"]["wk"], dt),
+                           v=attn_mod._heads_in(enc, lp["attn"]["wv"], dt))
+          for lp in _unstack(cross_p)]
+    return _stack_layers(kv)
 
 
 # ---------------------------------------------------------------------------
@@ -245,16 +283,17 @@ def chunked_xent_loss(p, cfg, h, labels, *, chunk: int = 512,
 
 
 def loss_fn(p, cfg, batch, *, remat_policy=None):
-    """The training loss of batch {"tokens", "labels"} [B,T]: the
-    cross-entropy with z-loss, chunked over the head when T >= 2048 and
+    """The training loss of batch {"tokens", "labels"} [B,T] (and the
+    VLM's "vision_embeds" [B, vision_seq, d_model]): the cross-entropy
+    with z-loss, chunked over the head when T >= 2048 and
     ``cfg.loss_chunk`` divides T, plus the blocks' auxiliary loss."""
     blocks.check_ported(cfg)
     tokens, labels = batch["tokens"], batch["labels"]
     t = tokens.shape[1]
     lc = cfg.loss_chunk
     chunk = lc if (t >= 2048 and lc and t % lc == 0) else 0
-    out = forward(p, cfg, tokens, remat_policy=remat_policy,
-                  return_hidden=bool(chunk))
+    out = forward(p, cfg, tokens, vision_embeds=batch.get("vision_embeds"),
+                  remat_policy=remat_policy, return_hidden=bool(chunk))
     if chunk:
         ce = chunked_xent_loss(p, cfg, out.logits, labels, chunk=chunk)
     else:
@@ -267,13 +306,16 @@ def loss_fn(p, cfg, batch, *, remat_policy=None):
 # ---------------------------------------------------------------------------
 def init_caches(cfg, batch: int, cache_len: int, dt=torch.bfloat16,
                 device=devmod.DEFAULT_DEVICE):
-    """Zero caches for every layer stack: ``{"blocks": BlockCache(kv=...)}``
-    (and ``"dense"`` for the leading dense layers). Attention caches have
-    leaves [L, B, S, KV, hd] (S capped at the sliding window), int8 with
-    fp32 scales of one when ``cfg.kv_quant``; MLA caches MLACache(c_kv
-    [L, B, S, kv_lora], k_rope [L, B, S, rope]), S never capped. Like the
-    reference's, they are bf16 whatever the compute dtype unless ``dt``
-    says otherwise."""
+    """Zero caches for every layer stack: ``{"blocks": BlockCache(kv=...,
+    ssm=...)}`` (and ``"dense"`` for the leading dense layers; the VLM's
+    ``"self"`` [G, g, B, ...] and ``"cross"`` [G, B, vision_seq, KV,
+    hd]). Attention caches have leaves [L, B, S, KV, hd] (S capped at the
+    sliding window), int8 with fp32 scales of one when ``cfg.kv_quant``;
+    MLA caches MLACache(c_kv [L, B, S, kv_lora], k_rope [L, B, S, rope]),
+    S never capped; Mamba and Hymba MambaCache(conv [L, B, d_conv-1,
+    d_inner], ssm [L, B, d_inner, N] fp32), the same at any position.
+    Like the reference's, they are bf16 (the SSM state fp32) whatever the
+    compute dtype unless ``dt`` says otherwise."""
     blocks.check_ported(cfg)
     dev = devmod.resolve(device)
 
@@ -300,33 +342,88 @@ def init_caches(cfg, batch: int, cache_len: int, dt=torch.bfloat16,
             k_rope=torch.zeros((n, batch, cache_len, cfg.qk_rope_dim),
                                dtype=dt, device=dev))
 
+    def ssm_cache(n):
+        return mamba.MambaCache(
+            conv=torch.zeros((n, batch, cfg.d_conv - 1, cfg.d_inner),
+                             dtype=dt, device=dev),
+            ssm=torch.zeros((n, batch, cfg.d_inner, cfg.ssm_state),
+                            dtype=torch.float32, device=dev))
+
     def block_cache(n):
-        kv = mla_cache(n) if cfg.attn_impl == "mla" else attn_cache(n)
-        return blocks.BlockCache(kv=kv, ssm=())
+        if cfg.block == "mamba":
+            return blocks.BlockCache(ssm=ssm_cache(n))
+        if cfg.block == "hymba":
+            return blocks.BlockCache(kv=attn_cache(n), ssm=ssm_cache(n))
+        if cfg.attn_impl == "mla":
+            return blocks.BlockCache(kv=mla_cache(n))
+        return blocks.BlockCache(kv=attn_cache(n))
 
     caches = {}
+    if cfg.n_cross_layers:
+        caches["self"] = pm.tree_map(
+            lambda x: x.reshape(cfg.n_cross_layers, cfg.group_self,
+                                *x.shape[1:]), block_cache(cfg.n_layers))
+        shape = (cfg.n_cross_layers, batch, cfg.vision_seq, cfg.n_kv_heads,
+                 cfg.head_dim)
+        caches["cross"] = attn_mod.KVCache(
+            k=torch.zeros(shape, dtype=dt, device=dev),
+            v=torch.zeros(shape, dtype=dt, device=dev))
+        return caches
     if cfg.first_dense:
         caches["dense"] = block_cache(cfg.first_dense)
     caches["blocks"] = block_cache(cfg.n_layers - cfg.first_dense)
     return caches
 
 
+def _cross_decode(cross_p, h, cross_c, cfg, dt):
+    """A cross block at decode: the query of the new token against the
+    prefilled cross keys and values (a cache of another dtype promoted
+    with the compute dtype, as the reference's einsums do)."""
+    a = cross_p["attn"]
+    hn = layers.rmsnorm(cross_p["norm1"], h, cfg.rms_eps)
+    q = attn_mod._heads_in(hn, a["wq"], dt)
+    y = attn_mod._sdpa(*attn_mod._promoted(q, cross_c.k, cross_c.v), None,
+                       cfg.n_heads // cfg.n_kv_heads)
+    h = h + attn_mod._heads_out(y, a["wo"], dt)
+    hn = layers.rmsnorm(cross_p["norm2"], h, cfg.rms_eps)
+    return h + layers.ffn(cross_p["ffn"], hn, cfg.ffn, compute_dtype=dt)
+
+
 def decode_step(p, cfg, tokens, caches, pos):
     """One decode step: tokens [B,1], pos (int or 0-d tensor) the position
     of every row's token. Returns (logits [B,1,V], new caches); the caches
-    passed in are left as they were."""
+    passed in are left as they were (the VLM's cross caches are passed
+    on as they are)."""
     blocks.check_ported(cfg)
     dt = compute_dtype(cfg)
     h = embed_tokens(p, cfg, tokens, dt)
-    new_caches = {}
-    for key, ckey, moe_layer in _stacks(cfg):
+
+    def run(stacked, stack_caches, moe_layer):
+        """The layers of one stack in order -> their new caches stacked."""
+        nonlocal h
         new = []
-        for i in range(_n_layers(p[key])):
-            h, cache, _ = blocks.block(_layer(p[key], i), h, cfg,
+        for i in range(_n_layers(stacked)):
+            h, cache, _ = blocks.block(_layer(stacked, i), h, cfg,
                                        mode="decode",
-                                       cache=_layer(caches[ckey], i),
+                                       cache=_layer(stack_caches, i),
                                        pos=pos, moe_layer=moe_layer, dt=dt)
             new.append(cache)
-        new_caches[ckey] = _stack_layers(new)
+        return _stack_layers(new)
+
+    new_caches = {}
+    if cfg.n_cross_layers:
+        g = cfg.group_self
+        groups = []
+        for i in range(cfg.n_cross_layers):
+            h = _cross_decode(_layer(p["cross_blocks"], i), h,
+                              _layer(caches["cross"], i), cfg, dt)
+            group_p = pm.tree_map(lambda x: x[i * g:(i + 1) * g],
+                                  p["self_blocks"])
+            groups.append(run(group_p, _layer(caches["self"], i), False))
+        new_caches["self"] = _stack_layers(groups)
+        new_caches["cross"] = caches["cross"]
+    else:
+        for key, ckey, moe_layer in _stacks(cfg):
+            new_caches[ckey] = run(p[key], caches[ckey], moe_layer)
     h = layers.rmsnorm(p["final_norm"], h, cfg.rms_eps)
     return logits_fn(p, cfg, h, dt), new_caches

@@ -1283,7 +1283,16 @@ class ServeEngine(Engine):
 
 
 def _merge_slot(old, new, slot: int) -> None:
-    """Copy slot ``slot``'s rows (batch axis 1 of every [L, B, ...] leaf)
-    from ``new`` into ``old``, in place: the reference builds a new tree
-    with ``.at[:, slot].set``; the values are the same."""
-    pm.tree_map(lambda o, n: o[:, slot].copy_(n[:, slot]), old, new)
+    """Copy slot ``slot``'s rows from ``new`` into ``old``, in place: the
+    reference builds a new tree with ``.at[:, slot].set``; the values are
+    the same. The batch is axis 1 of every [L, B, ...] leaf, and axis 2
+    of the VLM's grouped self-caches ``"self"`` [G, g, B, ...], which the
+    port tells by their key (the reference by a leaf's axis 1 differing
+    from the batch, which misses when g equals it)."""
+    for key in old:
+        if key == "self":
+            pm.tree_map(lambda o, n: o[:, :, slot].copy_(n[:, :, slot]),
+                        old[key], new[key])
+        else:
+            pm.tree_map(lambda o, n: o[:, slot].copy_(n[:, slot]),
+                        old[key], new[key])

@@ -1,7 +1,7 @@
-"""Training of the port's dense LMs: AdamW (``optimizer``), the training
-step with rematerialisation and microbatching (``train_step``),
-checkpoints interchangeable with the reference's (``checkpoint``) and the
-fault-tolerant loop (``loop.fit``).
+"""Training of the port's LMs (every family but the audio one): AdamW
+(``optimizer``), the training step with rematerialisation and
+microbatching (``train_step``), checkpoints interchangeable with the
+reference's (``checkpoint``) and the fault-tolerant loop (``loop.fit``).
 
 The counterpart of ``repro.train``. One device; a mesh raises
 NotImplementedError (ROADMAP §1 item 7).

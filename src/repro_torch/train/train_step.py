@@ -31,11 +31,11 @@ def check_mesh(mesh, what: str) -> None:
 
 
 def to_device(batch: dict, device) -> dict:
-    """The batch's tokens and labels (numpy or tensors) as tensors on
-    ``device``; its other entries (a morph stream's root ids) are not the
-    loss's."""
+    """The batch's tokens, labels and the VLM's vision_embeds (numpy or
+    tensors) as tensors on ``device``; its other entries (a morph
+    stream's root ids) are not the loss's."""
     return {k: torch.as_tensor(batch[k]).to(device)
-            for k in ("tokens", "labels")}
+            for k in ("tokens", "labels", "vision_embeds") if k in batch}
 
 
 def make_train_step(cfg, run, mesh=None):
@@ -91,16 +91,15 @@ def make_train_step(cfg, run, mesh=None):
 
 
 def make_prefill_step(cfg, mesh=None):
-    """prefill_step(params, tokens) -> (last logits [B,1,V], caches)."""
+    """prefill_step(params, tokens, vision_embeds=None) -> (last logits
+    [B,1,V], caches); the VLM takes vision_embeds [B, vision_seq,
+    d_model]."""
     check_mesh(mesh, "make_prefill_step")
 
     @torch.no_grad()
     def prefill_step(params, tokens, vision_embeds=None):
-        if vision_embeds is not None:
-            raise NotImplementedError(
-                "vision_embeds: the VLM family is not ported yet (ROADMAP §1"
-                " item 9.5)")
-        out = model_mod.forward(params, cfg, tokens, mode="prefill")
+        out = model_mod.forward(params, cfg, tokens,
+                                vision_embeds=vision_embeds, mode="prefill")
         return out.logits[:, -1:], out.caches
 
     return prefill_step

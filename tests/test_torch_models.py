@@ -1,7 +1,8 @@
 """The port's LM substrate (repro_torch.models, repro_torch.configs)
 against the reference's, for the four dense-attention architectures and
 the two MoE ones (qwen3-moe-235b-a22b; deepseek-v2-lite-16b, MLA after a
-leading dense layer) at smoke size (the tests/test_arch_smoke.py shapes:
+leading dense layer) at smoke size (Mamba and Hymba are held to the
+reference in tests/test_torch_mamba.py, the VLM in test_torch_vlm.py) (the tests/test_arch_smoke.py shapes:
 batch 2, seq 32). At these widths and seeds no token of the MoE models
 lies within 1e-5 of a routing tie (tests/test_torch_moe.py's margin), so
 both packages route every token alike.
@@ -51,6 +52,7 @@ from repro_torch.models import params as tp  # noqa: E402
 DENSE = ["llama3-8b", "qwen2.5-14b", "deepseek-coder-33b", "gemma-2b"]
 MOE = ["deepseek-v2-lite-16b", "qwen3-moe-235b-a22b"]
 PORTED = DENSE + MOE
+SSM_VLM = ["falcon-mamba-7b", "hymba-1.5b", "llama-3.2-vision-11b"]
 OTHERS = sorted(set(rc.ARCHS) - set(PORTED))
 FP32_TOL = 1e-4
 AUX_RTOL = 1e-5
@@ -201,10 +203,12 @@ def test_params_from_numpy_keeps_values_and_bf16_bits():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", MOE)
+@pytest.mark.parametrize("arch", MOE + SSM_VLM)
 def test_params_from_numpy_carries_the_moe_trees(arch, dtype):
-    """The reference's whole tree (``dense_blocks`` included) arrives with
-    the same keys, shapes, dtypes and bits."""
+    """The reference's whole tree (``dense_blocks``; Mamba's
+    ``blocks.mamba``, Hymba's ``norm_a`` and ``norm_m``, the VLM's
+    ``cross_blocks`` and ``self_blocks`` included) arrives with the same
+    keys, shapes, dtypes and bits."""
     rcfg, _ = _cfgs(arch)
     p = rp.init_params(rm.model_spec(rcfg), jax.random.key(1),
                        dtype=getattr(jnp, dtype))
@@ -475,11 +479,33 @@ def test_cache_dtype_mismatch_raises_in_both():
                        tm.init_caches(tcfg, 2, 8, device="cpu"), 0)
 
 
+def _vision_kw(cfg, b=2):
+    """The VLM's stand-in embeddings (bf16), {} for the other families."""
+    if not cfg.n_cross_layers:
+        return {}
+    return {"vision_embeds": torch.from_numpy(_x(
+        (b, cfg.vision_seq, cfg.d_model), seed=9)).to(torch.bfloat16)}
+
+
 @pytest.mark.parametrize("arch", OTHERS)
 def test_unported_families_raise(arch):
+    """Of the families the attention ones leave, only the audio one
+    (musicgen-medium, ROADMAP §1 item 9.6) still raises; Mamba, Hymba and
+    the VLM (items 9.4 and 9.5) run: caches, forward and a decode step."""
     cfg = tc.smoke_config(tc.get_config(arch))
     spec = tm.model_spec(cfg)
     assert tp.count_params(spec) > 0
+    if arch in SSM_VLM:
+        tb.check_ported(cfg)
+        pt = tp.init_params(spec, torch.Generator().manual_seed(0),
+                            device="cpu")
+        toks = torch.zeros((2, 4), dtype=torch.int32)
+        out = tm.forward(pt, cfg, toks, **_vision_kw(cfg))
+        assert out.logits.shape == (2, 4, cfg.vocab)
+        caches = tm.init_caches(cfg, 2, 8, device="cpu")
+        logits, _ = tm.decode_step(pt, cfg, toks[:, :1], caches, 0)
+        assert torch.isfinite(logits).all()
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tm.init_caches(cfg, 1, 8, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -488,10 +514,12 @@ def test_unported_families_raise(arch):
         tb.check_ported(cfg)
 
 
-@pytest.mark.parametrize("arch", ["llama3-8b"] + MOE)
+@pytest.mark.parametrize("arch", ["llama3-8b"] + MOE + SSM_VLM)
 def test_the_lm_path_launches_no_kernel(arch):
-    """The reference's model reaches no pallas_call, so the port's forward
-    and decode_step launch none of K1-K9."""
+    """The reference's model reaches no pallas_call (its Mamba scan is
+    lax.associative_scan and lax.scan, its cross-attention the jnp
+    _sdpa), so the port's forward and decode_step launch none of
+    K1-K9."""
     from repro_torch.kernels import ops
 
     _, tcfg = _cfgs(arch)
@@ -499,7 +527,7 @@ def test_the_lm_path_launches_no_kernel(arch):
                         device="cpu")
     ops.reset_dispatch_count()
     toks = torch.from_numpy(_tokens(tcfg, t=8))
-    tm.forward(pt, tcfg, toks, mode="prefill")
+    tm.forward(pt, tcfg, toks, mode="prefill", **_vision_kw(tcfg))
     tm.decode_step(pt, tcfg, toks[:, :1],
                    tm.init_caches(tcfg, 2, 8, device="cpu"), 0)
     assert ops.dispatch_count() == 0

@@ -419,6 +419,7 @@ def test_gradients_are_the_same_run_to_run():
 _IMPORT = """
 import sys
 import repro_torch.models.moe, repro_torch.models.mla
+import repro_torch.models.mamba, repro_torch.models.scan_utils
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("forbidden:", bad)

@@ -3,7 +3,10 @@
 with 6 requests on 4 slots so that slots are reused, for the dense and
 the MoE families (deepseek-v2-lite-16b's caches are two stacks, "dense"
 and "blocks", of 4-d MLA leaves [L, B, S, .]; the slot merge copies axis
-1 of every leaf).
+1 of every leaf) and, at fp32, for Mamba, Hymba (caches of an attention
+ring and an SSM state) and the VLM (text-only, as the reference's
+ServeEngine serves it: zero cross caches; the grouped self-caches [G, g,
+B, ...] merged on axis 2).
 
 Weights come from the reference's init_params (params_from_numpy);
 prompts are made with numpy. At fp32 compute both workloads run on fp32
@@ -44,6 +47,7 @@ from repro_torch.serve import Engine, LMDecodeWorkload, ServeEngine  # noqa: E40
 
 DENSE = ["llama3-8b", "qwen2.5-14b", "deepseek-coder-33b", "gemma-2b"]
 MOE = ["deepseek-v2-lite-16b", "qwen3-moe-235b-a22b"]
+SSM_VLM = ["falcon-mamba-7b", "hymba-1.5b", "llama-3.2-vision-11b"]
 BF16_TOL = 6e-2
 PROMPT_LENS = (5, 3, 8, 4, 6, 2)
 MAX_NEWS = (4, 1, 3, 5, 2, 4)
@@ -73,7 +77,7 @@ def _serve(engine, prompts):
     return [engine.result(r).tokens_out for r in rids]
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + SSM_VLM)
 def test_greedy_tokens_identical_at_fp32(arch):
     """Both engines on fp32 caches, and a plain greedy decode_step loop
     per request in each package: one token stream."""
@@ -218,6 +222,18 @@ def test_cli_lm_is_the_default_and_prints_the_summary(capsys):
 
 @pytest.mark.parametrize("arch", MOE[:1])
 def test_cli_serves_the_moe_families(arch, capsys):
+    tserve.main(["--workload", "lm", "--device", "cpu", "--arch", arch,
+                 "--requests", "3", "--prompt-len", "4", "--max-new", "3",
+                 "--max-batch", "2"])
+    out = capsys.readouterr().out
+    assert "served 3 requests / 9 tokens" in out, out
+    assert len(re.findall(r"^  req \d: \[\d+, \d+, \d+\]$", out, re.M)) == 3
+
+
+@pytest.mark.parametrize("arch", SSM_VLM)
+def test_cli_serves_the_ssm_and_vlm_families(arch, capsys):
+    """``--arch`` of Mamba, Hymba and the VLM (text-only) through the
+    launcher's smoke config."""
     tserve.main(["--workload", "lm", "--device", "cpu", "--arch", arch,
                  "--requests", "3", "--prompt-len", "4", "--max-new", "3",
                  "--max-batch", "2"])

@@ -5,7 +5,10 @@ GQA) and gemma-2b (GeGLU, MQA, tied embeddings, embed_scale) smoke
 configs at fp32 compute, and for the MoE ones: qwen3-moe-235b-a22b (GQA,
 4 experts top-2) and deepseek-v2-lite-16b (MLA, a leading dense layer,
 then MoE with a shared expert). Their losses include the router's
-auxiliary loss.
+auxiliary loss. Mamba (falcon-mamba-7b), Hymba (hymba-1.5b) and the VLM
+(llama-3.2-vision-11b, its batches carrying "vision_embeds" [B, 16, 64]
+rounded to bf16, as tests/test_arch_smoke.py makes them) take the loss,
+gradient and train-step cases at T = 32.
 
 The reference runs under jax.jit, as its own tests run it; its
 parameters are carried across with params_from_numpy; batches are made
@@ -14,8 +17,10 @@ other orders):
   * loss_fn: 1e-5 relative, unchunked (T = 32) and chunked (T = 2048,
     loss_chunk 512), with -1 (masked) labels;
   * gradients: each leaf within 1e-4 of that leaf's largest |g|; at
-    T = 4096 plus the reference's own rounding error there, measured by
-    the reference alone (its fp32 gradients against its float64 run);
+    T = 4096, and for the VLM, plus the reference's own rounding error
+    there, measured by the reference alone (its fp32 gradients against
+    its float64 run; the VLM's nearly one-hot cross attention puts it at
+    1-2.5e-4 of a leaf's scale);
   * optimizer.update: parameters and moments within 1e-6 of each leaf's
     largest |value|, bf16 moments within one bf16 step (2^-8) of it, since
     an fp32 value one ulp apart may round to the neighbouring bf16;
@@ -54,6 +59,7 @@ from repro_torch.train import train_step as tts  # noqa: E402
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ["llama3-8b", "gemma-2b"]
 MOE = ["deepseek-v2-lite-16b", "qwen3-moe-235b-a22b"]
+SSM_VLM = ["falcon-mamba-7b", "hymba-1.5b", "llama-3.2-vision-11b"]
 LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-4
 OPT_RTOL = 1e-6
@@ -81,7 +87,12 @@ def _batch(cfg, b, t, seed=0, masked=True):
     if masked:
         labels[rng.random((b, t)) < 0.1] = -1
         labels[0, :5] = -1
-    return {"tokens": tokens, "labels": labels}
+    out = {"tokens": tokens, "labels": labels}
+    if cfg.n_cross_layers:   # bf16 values, held as fp32 in both packages
+        ve = rng.normal(size=(b, cfg.vision_seq, cfg.d_model))
+        out["vision_embeds"] = np.array(jnp.asarray(
+            ve, jnp.bfloat16).astype(jnp.float32))
+    return out
 
 
 def _tbatch(batch):
@@ -105,7 +116,7 @@ _ref_grads = jax.jit(jax.value_and_grad(
 # ---------------------------------------------------------------------------
 # the MoE families at T 2048 only as deepseek-v2-lite-16b (MLA, MoE and
 # dense_blocks): the chunked loss is shared code
-_LOSS_CASES = [(a, 2, 32) for a in ARCHS + MOE] + [
+_LOSS_CASES = [(a, 2, 32) for a in ARCHS + MOE + SSM_VLM] + [
     (a, 1, 2048) for a in ARCHS + MOE[:1]]
 
 
@@ -170,7 +181,8 @@ shape = jax.eval_shape(lambda: rp.init_params(rm.model_spec(cfg),
 n = len(jax.tree.leaves(shape))
 params = jax.tree.unflatten(jax.tree.structure(shape), [
     data[f"p{i}"].astype(np.float64) for i in range(n)])
-batch = {"tokens": data["tokens"], "labels": data["labels"]}
+batch = {k: data[k] for k in ("tokens", "labels", "vision_embeds")
+         if k in data}
 grads = jax.grad(lambda p: rm.loss_fn(p, cfg, batch))(params)
 assert jax.tree.leaves(grads)[0].dtype == np.float64
 np.savez(out, *[np.asarray(g) for g in jax.tree.leaves(grads)])
@@ -197,7 +209,8 @@ def _ref_grads_x64(arch, n_layers, rparams, batch, tmp):
                                       ("gemma-2b", 2, 32),
                                       ("gemma-2b", 1, 4096),
                                       ("deepseek-v2-lite-16b", 2, 32),
-                                      ("qwen3-moe-235b-a22b", 2, 32)])
+                                      ("qwen3-moe-235b-a22b", 2, 32)]
+                         + [(a, 2, 32) for a in SSM_VLM])
 def test_grads_match_reference(arch, b, t, tmp_path):
     """T = 4096 (at one layer) takes the checkpointed query blocks (chunk
     512) and the chunked loss. There a gradient sums 4096 positions, so the
@@ -215,7 +228,7 @@ def test_grads_match_reference(arch, b, t, tmp_path):
     assert abs(got_l - float(want_l)) <= LOSS_RTOL * abs(float(want_l))
     want_g = [np.asarray(w) for w in jax.tree.leaves(want_g)]
     ref_err = [0.0] * len(want_g)
-    if t > 32:
+    if t > 32 or rcfg.n_cross_layers:
         g64 = _ref_grads_x64(arch, n_layers, rparams, batch, tmp_path)
         assert len(g64) == len(want_g)
         ref_err = [np.abs(w - g).max() for w, g in zip(want_g, g64)]
@@ -412,7 +425,7 @@ def _runs(rcfg, tcfg, **kw):
             TRun(model=tcfg, shape=TShape("t", 32, 4, "train"), **kw))
 
 
-@pytest.mark.parametrize("arch", ARCHS + MOE[:1])
+@pytest.mark.parametrize("arch", ARCHS + MOE[:1] + SSM_VLM)
 def test_five_train_steps_match_reference(arch):
     rcfg, tcfg = _cfgs(arch)
     rparams, tparams = _params(rcfg)
@@ -473,8 +486,17 @@ def test_prefill_and_decode_steps_match_the_model():
     got, _ = tts.make_decode_step(tcfg)(tparams, tokens[:, :1], dcaches, 0)
     want, _ = tm.decode_step(tparams, tcfg, tokens[:, :1], dcaches, 0)
     assert torch.equal(got, want)
-    with pytest.raises(NotImplementedError, match="9.5"):
-        tts.make_prefill_step(tcfg)(tparams, tokens, vision_embeds=tokens)
+    # the VLM's prefill step takes the vision embeddings
+    vcfg = _cfgs("llama-3.2-vision-11b")[1]
+    _, vparams = _params(_cfgs("llama-3.2-vision-11b")[0])
+    vbatch = _tbatch(_batch(vcfg, 2, 8, seed=2))
+    last, caches = tts.make_prefill_step(vcfg)(
+        vparams, vbatch["tokens"], vision_embeds=vbatch["vision_embeds"])
+    with torch.no_grad():
+        full = tm.forward(vparams, vcfg, vbatch["tokens"], mode="prefill",
+                          vision_embeds=vbatch["vision_embeds"])
+    assert torch.equal(last, full.logits[:, -1:])
+    assert torch.equal(caches["cross"].k, full.caches["cross"].k)
 
 
 def test_mesh_and_unported_families_raise():
@@ -485,13 +507,17 @@ def test_mesh_and_unported_families_raise():
                  lambda: tts.make_decode_step(tcfg, mesh=object())):
         with pytest.raises(NotImplementedError, match="item 7"):
             make()
-    batch = _tbatch(_batch(tcfg, 1, 8))
-    for arch, item in (("falcon-mamba-7b", "9.4"), ("hymba-1.5b", "9.4"),
-                       ("llama-3.2-vision-11b", "9.5"),
-                       ("musicgen-medium", "9.6")):
-        cfg = tc.smoke_config(tc.get_config(arch))
-        with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
-            tm.loss_fn({}, cfg, batch)
+    # Mamba, Hymba and the VLM (items 9.4 and 9.5) train; the audio
+    # family (9.6) raises
+    for arch in SSM_VLM:
+        _, cfg = _cfgs(arch)
+        _, params = _params(_cfgs(arch)[0])
+        with torch.no_grad():
+            loss = tm.loss_fn(params, cfg, _tbatch(_batch(cfg, 1, 8)))
+        assert torch.isfinite(loss)
+    cfg = tc.smoke_config(tc.get_config("musicgen-medium"))
+    with pytest.raises(NotImplementedError, match="item 9.6\\)"):
+        tm.loss_fn({}, cfg, _tbatch(_batch(tcfg, 1, 8)))
 
 
 # ---------------------------------------------------------------------------
