@@ -9,12 +9,14 @@ drives its main paths — root extraction served through
 kernels, text served through ``TextAnalysisWorkload`` onto the text front
 end and the stemmer kernels, a corpus index built through the stemmer
 kernels and the postings kernel, flash attention (K9) on a full-width
-LM's attention, that LM, the MoE and MLA models, Mamba, Hymba and the
-VLM served through ``LMDecodeWorkload``, and gemma-2b, deepseek-v2-lite-16b,
-hymba-1.5b, falcon-mamba-7b and the VLM trained through
-``repro_torch.train.loop.fit`` — at a realistic size. Phases (8d, 8d',
-8e, 8e', 8f, 10, 10b, 10c, 10d and 10e run in that order after 8c, each
-model freed before the next, and before 9):
+LM's attention, that LM, the MoE and MLA models, Mamba, Hymba, the VLM
+and the audio model served through ``LMDecodeWorkload``, and gemma-2b,
+deepseek-v2-lite-16b, hymba-1.5b, falcon-mamba-7b, the VLM and the audio
+model trained through ``repro_torch.train.loop.fit`` — at a realistic
+size — and the dry run (``repro_torch.launch.dryrun``) held against what
+the card measured. Phases (8d, 8d', 8e, 8e', 8f, 8g, 10, 10b, 10c, 10d,
+10e, 10f and 11 run in that order after 8c, each model freed before the
+next, and before 9):
 
   1. card      name and power limit (nvidia-smi)
   2. build     nvcc build of every kernel library, with its seconds
@@ -202,6 +204,17 @@ model freed before the next, and before 9):
                reported at 2 whole groups; then 8c's traffic, text-only
                with zero cross caches (the grouped self-caches merged on
                axis 2)
+  8g. audio   musicgen-medium at full width and depth (48 layers, d 1536,
+               24 heads x 64, d_ff 6144, 4 codebooks of 2048; 1.38 B fp32
+               parameters, 5.54 GB, from a seeded CUDA generator): its
+               embeddings, first block, final norm and heads at fp32 over
+               64 positions of [1, 64, 4] tokens on the card and on the
+               CPU, logits within 1e-4 of their scale; then 8c's traffic
+               and checks (1-D prompts, each id in every codebook and
+               codebook 0's greedy id emitted, as the reference serves
+               them); prefill against prefill-by-decode on 4 prompts of
+               [32, 4] distinct ids at 2 layers in bf16 and fp32; the
+               kernels a step, the device's busy share, peak memory
   10. train    gemma-2b at full width and depth (18 layers, d 2048, 8
                heads x 256, 1 KV head, d_ff 16384, vocab 256,000 tied;
                2.51 B fp32 parameters from a seeded CUDA generator,
@@ -244,6 +257,23 @@ model freed before the next, and before 9):
                4 self layers, 2.1 B; the training launcher's vision
                embeddings); before each, the first batch's gradient norm
                at the reference's own init
+  10f. audio  musicgen-medium at full width and depth trained as 10 (8
+               steps through fit, B 1, T 4096, remat "full", rescaled
+               weights) on synthetic [1, 4096, 4] batches, one stream a
+               codebook (22.1 GB of weights, gradients and moments);
+               phases 10 and 10f also read the memory held at one AdamW
+               update (parameters, gradients, moments, batch)
+  11. dryrun  launch.dryrun --all over its 32 cells, in a process of its
+               own on the host's CPU started after the build (the meta
+               device, no CUDA device visible), every line printed, all 32
+               OK, with its seconds; then its functions applied to the
+               configurations measured here: the argument bytes of 10's
+               gemma-2b and 10f's musicgen-medium within 1% of the memory
+               held at their AdamW update, the bytes kept for the backward
+               pass within 10% (or 0.05 GB) of 10b's under "none", "dots"
+               and "full", the predicted peak beside the fit's (ratio
+               reported, not checked), and each steady step no faster than
+               the roofline's compute term (989 TFLOP/s bf16)
   9. times     the launch floor (a one-element torch op, same timer);
                the registers and spills of every instance of the resident
                kernels, K4 and K7/K8 (the build's -Xptxas -v log); each
@@ -490,6 +520,27 @@ VLM_DECODE_STEPS = 16
 SSM_TRAIN_LAYERS = 16
 SSM_TRAIN_T = 4096
 VLM_TRAIN_GROUPS = 1
+# phases 8g and 10f: the audio family, musicgen-medium at full width and
+# depth (48 layers, d 1536, 24 heads x 64, d_ff 6144, 4 codebooks of 2048;
+# 1.38 B parameters, 5.54 GB in fp32). 8g serves it with phase 8c's
+# traffic (1-D prompts, each id in every codebook, as the reference
+# serves it), runs its embedding, first block, final norm and heads at
+# fp32 over AUDIO_BLOCK_T positions of [1, T, 4] tokens on the card and
+# on the CPU (logits within AUDIO_BLOCK_TOL of their scale), and holds
+# prefill against prefill-by-decode on LM_SLOTS [T, 4] prompts at
+# LM_CHECK_LAYERS layers. 10f trains it as phase 10 on [1, 4096, 4]
+# batches, 22.1 GB of weights, gradients and AdamW moments
+AUDIO_ARCH = "musicgen-medium"
+AUDIO_BLOCK_T = 64
+AUDIO_BLOCK_TOL = 1e-4
+# phase 11: the dry run's predictions of the configurations phases 10,
+# 10b and 10f measured: argument bytes within ARGS_TOL of the state the
+# card holds at the AdamW update, the bytes kept for the backward pass
+# within KEPT_TOL (or KEPT_FLOOR_GB, whichever is larger) of 10b's
+ARGS_TOL = 0.01
+KEPT_TOL = 0.10
+KEPT_FLOOR_GB = 0.05
+DRYRUN_CELLS = 32
 BLOCK_B = 256
 DEVICE = "cuda"
 
@@ -2072,6 +2123,9 @@ def arch_note(cfg) -> str:
     if cfg.n_cross_layers:
         note += (f", {cfg.n_cross_layers} cross layers, one before each"
                  f" {cfg.group_self} self layers, vision_seq {cfg.vision_seq}")
+    if cfg.n_codebooks:
+        note += (f", {cfg.n_codebooks} codebooks (embeddings summed, one"
+                 f" head each), ffn {cfg.ffn}")
     return note
 
 
@@ -2098,7 +2152,9 @@ def lm_serve_phase(ops, serve, tm, pm, cfg, params, *, tag="lm-serve",
     the same at all layers. For an MoE model both paths must be free of
     capacity drops (no_drops), so that they route alike. Without
     ``check_prefill`` (the VLM served text-only, whose prefill needs the
-    vision embeddings: vlm_phase checks it) only the serve runs."""
+    vision embeddings: vlm_phase checks it; the audio family, whose
+    prefill audio_prefill_phase checks on [T, K] prompts) only the serve
+    runs."""
     import dataclasses
 
     import numpy as np
@@ -2118,8 +2174,10 @@ def lm_serve_phase(ops, serve, tm, pm, cfg, params, *, tag="lm-serve",
 
     wl = serve.LMDecodeWorkload(cfg, params, max_batch=LM_SLOTS,
                                 cache_len=LM_CACHE, device=DEVICE)
-    # device time of two decode steps by kernel (also the warm-up)
-    tok = torch.zeros((LM_SLOTS, 1), dtype=torch.int32, device=DEVICE)
+    # device time of two decode steps by kernel (also the warm-up); the
+    # audio family's tokens [B, 1, K]
+    k = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    tok = torch.zeros((LM_SLOTS, 1, *k), dtype=torch.int32, device=DEVICE)
     prof = profile_kernels(tag, f"decode steps (B={LM_SLOTS})",
                            lambda i: tm.decode_step(wl.params, cfg, tok,
                                                     wl.caches, i), 2)
@@ -2753,14 +2811,275 @@ def ssm_train_phase(ops, tm, pm, configs) -> dict:
     return out
 
 
+def audio_block_phase(tm, pm, cfg, params) -> dict:
+    """8g: the audio path of the full-width weights at fp32 over
+    AUDIO_BLOCK_T positions of random [1, T, K] tokens, by the same port
+    code on the card and on the CPU: the codebooks' embeddings summed,
+    ``blocks`` layer 0, the final norm and the K heads; the logits [1, T,
+    K, V] within AUDIO_BLOCK_TOL of their largest |value|."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import blocks, layers
+
+    f32 = torch.float32
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    g = torch.Generator(DEVICE).manual_seed(5)
+    toks = torch.randint(0, cfg.vocab, (1, AUDIO_BLOCK_T, cfg.n_codebooks),
+                         generator=g, device=DEVICE)
+    keys = ("embed", "final_norm", "head")
+
+    def run(p, lp, toks):
+        h = tm.embed_tokens(p, cfg32, toks, f32)
+        pos = torch.arange(AUDIO_BLOCK_T, dtype=torch.int32, device=h.device)
+        h, _, _ = blocks.block(lp, h, cfg32, mode="full", positions=pos,
+                               dt=f32)
+        h = layers.rmsnorm(p["final_norm"], h, cfg.rms_eps)
+        return tm.logits_fn(p, cfg32, h, f32).cpu()
+
+    lp = tm._layer(params["blocks"], 0)
+    top = {k: params[k] for k in keys}
+    with torch.no_grad():
+        t = time.perf_counter()
+        card = run(top, lp, toks)
+        card_s = time.perf_counter() - t
+        t = time.perf_counter()
+        host = run(pm.tree_map(lambda x: x.cpu(), top),
+                   pm.tree_map(lambda x: x.cpu(), lp), toks.cpu())
+        host_s = time.perf_counter() - t
+    err = float((card - host).abs().max() / host.abs().max())
+    print(f"[audio-block] {cfg.name} at fp32, {AUDIO_BLOCK_T} positions of"
+          f" {cfg.n_codebooks} codebooks: embeddings summed, blocks[0], the"
+          f" final norm and the heads (logits {list(card.shape)}), card"
+          f" {card_s:.3f} s, CPU {host_s:.3f} s: max error {err:.3e} of the"
+          f" logits' scale (tolerance {AUDIO_BLOCK_TOL})")
+    check(card.shape == (1, AUDIO_BLOCK_T, cfg.n_codebooks, cfg.vocab),
+          f"audio logits of shape {tuple(card.shape)}")
+    check(err <= AUDIO_BLOCK_TOL, f"the audio path on the card differs from"
+          f" the CPU's by {err} of the scale")
+    return dict(err=err)
+
+
+def audio_prefill_phase(tm, pm, cfg, params) -> dict:
+    """8g: prefill against prefill-by-decode on LM_SLOTS prompts of
+    LM_PROMPT positions [B, T, K] (every codebook its own random ids), on
+    the full-width weights cut to LM_CHECK_LAYERS layers, in bf16 and in
+    fp32 (fp32 caches): the prefill forward's last logits [B, K, V]
+    against decode_step's after the prompt's positions one by one, within
+    LM_PREFILL_TOL of the largest |logit|, the same argmax wherever the
+    top-2 gap is clear of it."""
+    import dataclasses
+
+    import torch
+
+    g = torch.Generator(DEVICE).manual_seed(6)
+    prompts = torch.randint(0, cfg.vocab, (LM_SLOTS, LM_PROMPT,
+                                           cfg.n_codebooks),
+                            generator=g, device=DEVICE, dtype=torch.int32)
+    cfg_cut, cut = cut_layers(pm, cfg, params, LM_CHECK_LAYERS)
+    out = {}
+    with torch.no_grad():
+        for dtype in ("bfloat16", "float32"):
+            cfg_d = dataclasses.replace(cfg_cut, compute_dtype=dtype)
+            pre = tm.forward(cut, cfg_d, prompts, mode="prefill")
+            a = pre.logits[:, -1].float()
+            caches = tm.init_caches(
+                cfg_d, LM_SLOTS, LM_PROMPT, device=DEVICE,
+                dt=torch.float32 if dtype == "float32" else torch.bfloat16)
+            for i in range(LM_PROMPT):
+                logits, caches = tm.decode_step(cut, cfg_d,
+                                                prompts[:, i:i + 1], caches, i)
+            b = logits[:, -1].float()
+            scale = float(a.abs().max())
+            err = float((a - b).abs().max()) / scale
+            tol = LM_PREFILL_TOL[dtype]
+            top2 = a.topk(2, dim=-1).values
+            clear = (top2[..., 0] - top2[..., 1]) > tol * scale
+            same_top = bool((a.argmax(-1) == b.argmax(-1))[clear].all())
+            print(f"[audio-serve] {dtype}, full width cut to"
+                  f" {LM_CHECK_LAYERS} layers, {LM_SLOTS} prompts [T"
+                  f" {LM_PROMPT}, {cfg.n_codebooks} codebooks]: prefill vs"
+                  f" prefill-by-decode, max error {err:.3e} of the largest"
+                  f" |logit| (tolerance {tol}), same argmax on the"
+                  f" {int(clear.sum())} of {clear.numel()} (prompt, codebook)"
+                  f" rows whose top-2 gap is clear: {same_top}")
+            check(err <= tol and same_top, f"{dtype} audio prefill and"
+                  f" prefill-by-decode differ by {err} of the scale")
+            out[dtype] = err
+    return out
+
+
+def audio_serve_phase(ops, serve, tm, pm, configs) -> dict:
+    """8g: musicgen-medium at full width and depth, drawn on the card from
+    a seeded CUDA generator: audio_block_phase, lm_serve_phase at phase
+    8c's traffic (1-D prompts, as the reference's ServeEngine serves the
+    audio family), audio_prefill_phase; freed at the end."""
+    import torch
+
+    dev = torch.device(DEVICE)
+    cfg = configs.get_config(AUDIO_ARCH)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    params = pm.init_params(tm.model_spec(cfg),
+                            torch.Generator(dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    n = pm.count_params(params)
+    print(f"[audio-serve] {cfg.name} at full width and depth,"
+          f" {cfg.n_layers} layers{arch_note(cfg)}: {n} parameters,"
+          f" {torch.cuda.memory_allocated() / 1e9:.3f} GB on the card (fp32,"
+          f" drawn on the card in {time.perf_counter() - t:.3f} s)")
+    block = audio_block_phase(tm, pm, cfg, params)
+    torch.cuda.reset_peak_memory_stats()
+    run = lm_serve_phase(ops, serve, tm, pm, cfg, params, tag="audio-serve",
+                         check_prefill=False)
+    prefill = audio_prefill_phase(tm, pm, cfg, params)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return dict(run, params=n, block=block, prefill=prefill)
+
+
+def audio_train_phase(ops, tm, pm, configs) -> dict:
+    """10f: train_phase on musicgen-medium at full width and depth, B 1,
+    T TRAIN_T, remat "full", from trainable_params, on synthetic [1, T,
+    K] batches; no profiled step, which with its 36,000 kernels a step
+    would add tens of seconds to the run."""
+    import torch
+
+    cfg = configs.get_config(AUDIO_ARCH)
+    torch.cuda.empty_cache()
+    res = train_phase(ops, tm, pm, cfg, tag="audio-train", profile=False)
+    res.pop("batches")
+    res.pop("run")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return res
+
+
+def start_dryrun():
+    """Phase 11's ``launch.dryrun --all`` in a process of its own, on the
+    host's CPU and the meta device (no CUDA device visible to it), while
+    the card runs the phases before; dryrun_phase collects it."""
+    import atexit
+    import os
+
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root / "src"),
+           "CUDA_VISIBLE_DEVICES": ""}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--force"], cwd=root, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, time.perf_counter()
+
+
+def dryrun_phase(dry, configs, train_run, remat_runs, audio_run) -> dict:
+    """11: the dry run's 32 cells (every line printed, all OK), then its
+    own functions applied to the configurations phases 10, 10b and 10f
+    measured on the card: the argument bytes (dryrun.argument_bytes)
+    within ARGS_TOL of the memory held at the AdamW update, the bytes kept
+    for the backward pass (dryrun.kept_bytes) within KEPT_TOL (or
+    KEPT_FLOOR_GB) of 10b's under each policy, the predicted peak against
+    the fit's (reported, not checked), and the steady step no faster than
+    the roofline's compute term."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun, input_specs
+
+    proc, t0 = dry
+    out, _ = proc.communicate(timeout=900)
+    wall = time.perf_counter() - t0
+    lines = out.strip().splitlines()
+    for line in lines:
+        print(f"[dryrun-card] {line}")
+    ok = [x for x in lines if x.startswith("[dryrun] OK")]
+    print(f"[dryrun-card] {len(ok)} cells OK; the process (its own"
+          " seconds on its last line but one) started after the build, ran"
+          f" on the host's CPU beside phases 3 on and was collected"
+          f" {wall:.1f} s after it started")
+    check(proc.returncode == 0 and len(ok) == DRYRUN_CELLS
+          and lines[-1] == f"[dryrun] {DRYRUN_CELLS} ok, 0 failed",
+          f"the dry run exited {proc.returncode}: {lines[-3:]}")
+
+    shape = ShapeConfig("chip", TRAIN_T, TRAIN_B, "train")
+    res = {}
+    for tag, arch, run in (("train", TRAIN_ARCH, train_run),
+                           ("audio-train", AUDIO_ARCH, audio_run)):
+        cfg = configs.get_config(arch)
+        t = time.perf_counter()
+        pred = dryrun.predict(cfg, shape,
+                              costs=dryrun.analysis_costs(arch, shape))
+        sec = time.perf_counter() - t
+        mem, roof = pred["memory"], pred["roofline"]
+        args, held = mem["arguments"], run["state_bytes"]
+        err = (args - held) / held
+        peak_ratio = mem["peak"] / run["peak_above"]
+        compute_ms = roof["compute_s"] * 1e3
+        print(f"[dryrun-card] {tag} ({arch}, B {TRAIN_B}, T {TRAIN_T},"
+              f" remat full; predicted in {sec:.3f} s): arguments"
+              f" {args} B predicted, {held} B held at the AdamW update on"
+              f" the card ({err:+.6f}; tolerance {ARGS_TOL}); kept for the"
+              f" backward pass {mem['kept'] / 1e9:.6f} GB; peak"
+              f" {mem['peak'] / 1e9:.6f} GB predicted, the fit's"
+              f" {run['peak_above'] / 1e9:.6f} GB (ratio {peak_ratio:.4f},"
+              f" reported); FLOPs {pred['flops']:.6e}, bytes moved"
+              f" {pred['bytes']:.6e}: compute term {compute_ms:.3f} ms,"
+              f" memory term {roof['memory_s'] * 1e3:.3f} ms"
+              f" ({roof['bottleneck']}) against the steady step's"
+              f" {run['steady_ms']:.3f} ms ({compute_ms / run['steady_ms']:.4f}"
+              " of it)")
+        check(abs(err) <= ARGS_TOL, f"{tag}: predicted arguments {args} B,"
+              f" held {held} B")
+        check(run["steady_ms"] >= compute_ms, f"{tag}: a step of"
+              f" {run['steady_ms']} ms beats the roofline's compute term"
+              f" {compute_ms} ms")
+        res[tag] = dict(args=args, held=held, err=err, peak=mem["peak"],
+                        peak_ratio=peak_ratio, compute_ms=compute_ms,
+                        memory_ms=roof["memory_s"] * 1e3,
+                        flops=pred["flops"], bytes=pred["bytes"])
+
+    cfg = dataclasses.replace(configs.get_config(TRAIN_ARCH),
+                              n_layers=REMAT_LAYERS)
+    batch = input_specs.batch_specs(cfg, shape)
+    for name in ("none", "dots", "full"):
+        pred = dryrun.kept_bytes(cfg, batch, name) / 1e9
+        got = remat_runs[name]["kept_gb"]
+        tol = max(KEPT_TOL * got, KEPT_FLOOR_GB)
+        print(f"[dryrun-card] remat {name!r} ({TRAIN_ARCH} at"
+              f" {REMAT_LAYERS} layers, T {TRAIN_T}): kept for the backward"
+              f" pass {pred:.6f} GB predicted, {got:.6f} GB measured (10b),"
+              f" {pred - got:+.6f} GB (tolerance {tol:.6f})")
+        check(abs(pred - got) <= tol, f"remat {name!r}: predicted kept"
+              f" {pred} GB, measured {got} GB")
+        res[f"kept_{name}"] = (pred, got)
+    res["wall"] = wall
+    return res
+
+
 def synthetic_batches(cfg, n: int, b: int, t: int) -> list:
     """n numpy batches of the synthetic LM stream, made before a timed run
     (a 4096-token batch takes the host tens of ms); the VLM's with the
     training launcher's stand-in vision embeddings, bf16 [b, vision_seq,
-    d_model] drawn from seed 0."""
+    d_model] drawn from seed 0; the audio family's [b, t, K], K streams
+    stacked."""
     from repro_torch.data import pipeline
     from repro_torch.launch import train as launch_train
 
+    import numpy as np
+
+    if cfg.n_codebooks:   # one stream a codebook (seed k), stacked
+        its = [pipeline.synthetic_lm_batches(cfg.vocab, b, t, seed=k,
+                                             effective_vocab=TRAIN_LIVE_IDS)
+               for k in range(cfg.n_codebooks)]
+        out = []
+        for _ in range(n):
+            parts = [next(it) for it in its]
+            out.append({key: np.stack([p[key] for p in parts], axis=-1)
+                        for key in ("tokens", "labels")})
+        return out
     it = pipeline.synthetic_lm_batches(cfg.vocab, b, t,
                                        effective_vocab=TRAIN_LIVE_IDS)
     if cfg.n_cross_layers:
@@ -2913,6 +3232,31 @@ def profiled_step(step, params, opt, batch) -> dict:
                 split=split, casts=casts)
 
 
+@contextlib.contextmanager
+def memory_at_update():
+    """torch.cuda.memory_allocated() at the entry of each AdamW update run
+    inside the block (train_step calls optimizer.update once a step, when
+    the parameters, their gradients, the moments and the batch are all
+    alive) -> the list of readings."""
+    import torch
+
+    from repro_torch.train import optimizer
+
+    seen: list = []
+    update = optimizer.update
+
+    def reading(*args, **kwargs):
+        torch.cuda.synchronize()
+        seen.append(torch.cuda.memory_allocated())
+        return update(*args, **kwargs)
+
+    optimizer.update = reading
+    try:
+        yield seen
+    finally:
+        optimizer.update = update
+
+
 def kernel_kind(name: str) -> str:
     """A kernel's kind, by its name."""
     if any(k in name for k in ("nvjet", "gemm", "cutlass", "xmma")):
@@ -2926,21 +3270,25 @@ def kernel_kind(name: str) -> str:
     return "other"
 
 
-def train_phase(ops, tm, pm, cfg, *, tag="train", t=TRAIN_T) -> dict:
+def train_phase(ops, tm, pm, cfg, *, tag="train", t=TRAIN_T,
+                profile=True) -> dict:
     """cfg trained at full width: TRAIN_STEPS steps through train.loop.fit
     from trainable_params(seed 0) (remat "full", the RunConfig default),
     the launch counters set to 0 just before and read just after (the
     training path reaches no kernel of the port, as the reference's
     reaches no pallas_call). Checks every loss and gradient norm finite
     and the last loss below the first; prints ms a step, tokens/s, 6 N
-    tokens/s (N = active_params), peak memory, then a profile of one more
-    step and its weight casts. -> its numbers and the losses."""
+    tokens/s (N = active_params), peak memory, then the memory held at one
+    more step's AdamW update and (``profile``) a profile of a step and its
+    weight casts. -> its numbers and the losses."""
     import torch
 
     from repro_torch.configs import RunConfig, ShapeConfig
     from repro_torch.train import loop, optimizer, train_step as ts
 
     dev = torch.device(DEVICE)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     params = trainable_params(tm, pm, cfg, 0)
     n_params = pm.count_params(params)
     n_active = active_params(pm, cfg, params)
@@ -3008,21 +3356,32 @@ def train_phase(ops, tm, pm, cfg, *, tag="train", t=TRAIN_T) -> dict:
           f" {peak / 1e9:.6f} GB (torch.cuda.max_memory_allocated); kernel"
           " launches of the port 0")
 
-    # one more step, unprofiled, then one profiled
+    # one more step, unprofiled (the memory held at its AdamW update:
+    # the parameters, their gradients, the moments and the batch), then
+    # one profiled
     opt = optimizer.init(params)
     step = ts.make_train_step(cfg, run)
-    step(params, opt, batches[TRAIN_STEPS])
+    with memory_at_update() as at_update:
+        step(params, opt, batches[TRAIN_STEPS])
+    state = at_update[0] - base
+    print(f"[{tag}] held at the AdamW update (parameters, gradients,"
+          f" moments, batch): {state} B ({state / 1e9:.6f} GB above the"
+          f" {base / 1e9:.6f} GB held before the phase); the fit's peak"
+          f" {(peak - base) / 1e9:.6f} GB above it")
+    out = dict(steady_ms=steady * 1e3, tokens_s=tokens / steady,
+               tflops=flops / steady / 1e12, peak_gb=peak / 1e9,
+               state_bytes=state, peak_above=peak - base,
+               losses=losses, n_active=n_active, n_params=n_params,
+               batches=batches, run=run)
+    if not profile:
+        return out
     pr = profiled_step(step, params, opt, batches[TRAIN_STEPS + 1])
     del opt
     prof, prof_wall, by_name, by_kind = (pr["prof"], pr["wall"],
                                          pr["by_name"], pr["by_kind"])
     n_kernels, busy, split, casts = (pr["n_kernels"], pr["busy"],
                                      pr["split"], pr["casts"])
-    out = dict(steady_ms=steady * 1e3, tokens_s=tokens / steady,
-               tflops=flops / steady / 1e12, peak_gb=peak / 1e9,
-               n_kernels=n_kernels, busy_ms=busy, casts=casts, split=split,
-               losses=losses, n_active=n_active, n_params=n_params,
-               batches=batches, run=run)
+    out.update(n_kernels=n_kernels, busy_ms=busy, casts=casts, split=split)
     print(f"[{tag}] the profiled step's kernel ms by part (its trace):"
           f" forward {split['forward']:.3f}, backward with the"
           f" recomputation {split['backward']:.3f}, gradient norm and AdamW"
@@ -3455,6 +3814,8 @@ def main() -> int:
     build_s, libs = build.build_cuda(forced_lanes=FORCED_LANES,
                                      forced_text_lanes=build.TEXT_LANES)
     print(f"[build] {len(libs)} kernel libraries built in {build_s:.1f} s")
+    # phase 11's dry run, on the host's CPU beside the phases to come
+    dry = start_dryrun()
     for name, path in libs.items():
         log = path.with_suffix(".log")
         lines = log.read_text().splitlines() if log.exists() else []
@@ -3738,6 +4099,10 @@ def main() -> int:
     ssm_runs = ssm_serve_phase(ops, serve, tm, pm, configs)
     lap("Mamba, Hymba and VLM serving")
 
+    # ---- 8g. the audio family: musicgen-medium at full width and depth --
+    audio_serve = audio_serve_phase(ops, serve, tm, pm, configs)
+    lap("audio serving")
+
     # ---- 10. training: gemma-2b at full width and depth -----------------
     train_cfg = configs.get_config(TRAIN_ARCH)
     train_run = train_phase(ops, tm, pm, train_cfg)
@@ -3752,6 +4117,12 @@ def main() -> int:
     lap("MoE and MLA training at full width")
     ssm_train = ssm_train_phase(ops, tm, pm, configs)
     lap("Mamba, Hymba and VLM training at full width")
+    audio_train = audio_train_phase(ops, tm, pm, configs)
+    lap("audio training at full width")
+
+    # ---- 11. the dry run, and its predictions against the card ----------
+    dry_run = dryrun_phase(dry, configs, train_run, remat_runs, audio_train)
+    lap("dry run")
 
     # ---- 9. times --------------------------------------------------------
     real_tables = sf.padded_tables(realistic, match="bsearch", infix=True)
@@ -4269,6 +4640,27 @@ def main() -> int:
               f" peak, peak {r['peak_gb']:.6f} GB, {r['n_kernels']} kernels a"
               f" step, {r['busy_ms']:.3f} ms of them; the reference's init"
               f" gave a first gradient norm of {r['raw_gnorm']!r}")
+    r = audio_serve
+    step_ms = r["decode_s"] / r["steps"] * 1e3
+    print(f"[times] serve, {AUDIO_ARCH} ({r['params']} parameters):"
+          f" {r['steps']} decode steps, {step_ms:.6f} ms a step,"
+          f" {r['tokens'] / r['wall']:.6f} tokens/s, {r['kernels']} kernels a"
+          f" step, {r['busy_ms']:.3f} ms of them (busy"
+          f" {r['busy_ms'] / step_ms:.4f} of a served step), peak"
+          f" {r['peak_gb']:.6f} GB")
+    r = audio_train
+    print(f"[times] train, {AUDIO_ARCH} full width and depth, remat full, B"
+          f" {TRAIN_B}, T {TRAIN_T}: {r['steady_ms']:.6f} ms a step,"
+          f" {r['tokens_s']:.6f} tokens/s, {r['tflops']:.6f} TFLOP/s (6 N"
+          f" tokens, N = {r['n_active']}),"
+          f" {r['tflops'] * 1e12 / PEAK_FLOPS['bfloat16']:.6f} of the bf16"
+          f" peak, peak {r['peak_gb']:.6f} GB")
+    for tag in ("train", "audio-train"):
+        r = dry_run[tag]
+        print(f"[times] dry run, {tag}: arguments {r['err']:+.6f} off the"
+              f" card's, peak ratio {r['peak_ratio']:.4f}, compute term"
+              f" {r['compute_ms']:.3f} ms, memory term {r['memory_ms']:.3f}"
+              " ms")
     lap("times")
     print(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(card_line())

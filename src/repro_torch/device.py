@@ -10,7 +10,9 @@ def resolve(device=DEFAULT_DEVICE) -> torch.device:
     """-> the torch.device to run on; raises if CUDA is asked for and absent.
 
     There is no silent fallback: a caller that wants the CPU says
-    ``device="cpu"``.
+    ``device="cpu"``. ``"meta"`` (shapes and dtypes, no storage, nothing
+    launched) serves abstract builds only, such as the dry run's
+    (``launch/dryrun.py``); it is never a default.
     """
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -21,8 +23,9 @@ def resolve(device=DEFAULT_DEVICE) -> torch.device:
                 " PyTorch path on the CPU")
         if dev.index is None:   # "cuda" -> "cuda:N", as tensors report it
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"repro_torch runs on 'cuda' or 'cpu', not {dev}")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"repro_torch runs on 'cuda' or 'cpu' (or builds"
+                         f" abstractly on 'meta'), not {dev}")
     return dev
 
 

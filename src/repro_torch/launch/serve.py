@@ -11,9 +11,11 @@ Engine.
 
 The LM workload (the default, as in the reference) serves the reduced
 same-family config (``configs.smoke_config``) of ``--arch`` with weights
-drawn from seed 0: any family but the audio one, ``falcon-mamba-7b`` and
-``hymba-1.5b`` among them; ``llama-3.2-vision-11b`` text-only, with zero
-cross caches, as the reference's ServeEngine serves it. Runs on the CUDA device unless ``--device cpu`` is
+drawn from seed 0: every family, ``falcon-mamba-7b`` and ``hymba-1.5b``
+among them; ``llama-3.2-vision-11b`` text-only, with zero cross caches,
+and ``musicgen-medium`` on 1-D prompts, each id written into all four
+codebooks and codebook 0's greedy id emitted, as the reference's
+ServeEngine serves them. Runs on the CUDA device unless ``--device cpu`` is
 given; with no CUDA device present the default raises instead of falling
 back to the CPU.
 

@@ -12,7 +12,11 @@ checkpoint, straggler counters) comes from ``train/loop.py``.
 ``--morph-data`` trains on the Arabic character stream with the stemmer
 run on the same device. The VLM (llama-3.2-vision-11b) trains on
 stand-in vision embeddings drawn from a seed (``with_vision_embeds``):
-its vision front end is not modelled, as in the reference.
+its vision front end is not modelled, as in the reference. The audio
+family (musicgen-medium) is refused with exit code 2: the data streams
+give [B, T] token batches and its model takes [B, T, K] ones (the
+reference's launcher fails on them inside the model); ``loop.fit`` and
+``train_step.make_train_step`` train it on [B, T, K] batches.
 """
 from __future__ import annotations
 
@@ -71,9 +75,14 @@ def main(argv=None):
                     help="cuda (default; raises without a CUDA device) or"
                          " cpu")
     args = ap.parse_args(argv)
+    cfg = configs.get_config(args.arch)
+    if cfg.n_codebooks:
+        ap.error(f"--arch {args.arch}: the audio family trains on [B, T,"
+                 f" {cfg.n_codebooks}] token batches, and this launcher's"
+                 " data streams make [B, T] ones; train it through"
+                 " repro_torch.train.loop.fit on [B, T, K] batches")
 
     dev = devmod.resolve(args.device)
-    cfg = configs.get_config(args.arch)
     if args.smoke:
         cfg = configs.smoke_config(cfg)
     run = RunConfig(

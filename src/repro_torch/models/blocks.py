@@ -5,9 +5,10 @@ modes.
 
 The counterpart of ``repro.models.blocks``. Every family's parameters are
 declared here (so that ``models.model.model_spec`` and ``count_params``
-cover all ten architectures), and every family but the audio one
-(musicgen-medium, ROADMAP §1 item 9.6) is applied in every mode: the
-full forward, which trains, prefill and decode.
+cover all ten architectures), and every family is applied in every mode:
+the full forward, which trains, prefill and decode. The audio family's
+blocks are the dense attention ones; its codebooks live only in the
+embedding and the heads (``models.model``).
 """
 from __future__ import annotations
 
@@ -17,9 +18,6 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, mamba, mla, moe
-
-# {item}: the ROADMAP §1 sub-item that ports the family
-NOT_PORTED = "is not ported yet (ROADMAP §1 item {item})"
 
 
 class BlockCache(NamedTuple):
@@ -71,21 +69,12 @@ def strip_markers(tree):
     return tree
 
 
-def check_ported(cfg) -> None:
-    """Raise NotImplementedError for a family whose apply is not ported."""
-    if cfg.n_codebooks:
-        raise NotImplementedError(
-            f"{cfg.name}: the audio embedding and heads"
-            f" {NOT_PORTED.format(item='9.6')}")
-
-
 # ---------------------------------------------------------------------------
 # apply
 # ---------------------------------------------------------------------------
 def _mixer_full(p, h, cfg, mode, cache, positions, pos, dt):
     """Token mixer (attention, MLA, Mamba or Hymba) in any mode -> (y,
     the mixer's cache: Hymba's a pair (kv, ssm))."""
-    check_ported(cfg)
     if cfg.block == "mamba":
         if mode == "decode":
             return mamba.mamba_decode(p["mamba"], h, cfg, cache.ssm, dt=dt)

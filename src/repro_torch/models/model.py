@@ -7,13 +7,13 @@ axis (DeepSeek's leading dense layers a stack of their own,
 ``dense_blocks``, run first; the VLM's ``cross_blocks`` [G] and
 ``self_blocks`` [G x g], run as G groups of one cross block and g self
 blocks), and a Python loop over the layers takes the place of the
-reference's scans. ``model_spec`` declares all ten architectures;
+reference's scans. ``model_spec`` declares all ten architectures, and
 ``forward``, ``loss_fn``, ``init_caches`` and ``decode_step`` run every
-family but the audio one (musicgen-medium, which raises
-NotImplementedError: ROADMAP §1 item 9.6): dense GQA, MoE, MLA, Mamba,
-Hymba and the VLM, whose vision front end is a stand-in of precomputed
-embeddings ``vision_embeds`` [B, vision_seq, d_model], as in the
-reference.
+family: dense GQA, MoE, MLA, Mamba, Hymba, the VLM, whose vision front
+end is a stand-in of precomputed embeddings ``vision_embeds`` [B,
+vision_seq, d_model], and the audio family (musicgen-medium), whose
+tokens are [B, T, K] over K codebooks, one embedding table and one head
+each, as in the reference (its EnCodec front end is a stub there too).
 Training is ``forward(mode="full")`` under autograd, through
 ``loss_fn``: the full mode keeps no caches, can rematerialise each layer
 (``remat_policy``) and, for the chunked loss, stops before the head
@@ -79,18 +79,39 @@ def compute_dtype(cfg) -> torch.dtype:
 # embedding / head
 # ---------------------------------------------------------------------------
 def embed_tokens(p, cfg, tokens, dt):
-    """tokens [B,T] -> [B,T,d]. The rows are gathered, then cast: the same
-    values as the reference's cast-then-gather (the cast is elementwise)
-    without converting the whole table every step. ``F.embedding``, whose
-    backward sums a token's rows in a fixed order on the CPU (an indexing
-    gather's adds them atomically, in any order)."""
+    """tokens [B,T] (or the audio family's [B,T,K]) -> [B,T,d]. The rows
+    are gathered, then cast: the same values as the reference's
+    cast-then-gather (the cast is elementwise) without converting the
+    whole table every step. ``F.embedding``, whose backward sums a
+    token's rows in a fixed order on the CPU (an indexing gather's adds
+    them atomically, in any order)."""
+    if cfg.n_codebooks:
+        return _audio_embed(p, cfg, tokens, dt)
     h = F.embedding(tokens.long(), p["embed"]).to(dt)
     if cfg.embed_scale:   # the scale rounded to dt, as a Python float
         h = h * float(torch.tensor(cfg.d_model ** 0.5, dtype=dt))
     return h
 
 
+def _audio_embed(p, cfg, tokens, dt):
+    """tokens [B,T,K] -> [B,T,d]: codebook k's row of its table ``embed``
+    [K, V, d], gathered and cast, summed over the codebooks in dt in the
+    reference's order, ((e0 + e1) + e2) + e3."""
+    tokens = tokens.long()
+    h = None
+    for k in range(cfg.n_codebooks):
+        e = F.embedding(tokens[..., k], p["embed"][k]).to(dt)
+        h = e if h is None else h + e
+    return h
+
+
 def logits_fn(p, cfg, h, dt):
+    if cfg.n_codebooks:
+        # the reference's einsum "btd,kdv->btkv", one weight product (mm,
+        # as its dot has no batch dimension) on the heads laid side by side
+        k, d, v = p["head"].shape
+        w = p["head"].to(dt).permute(1, 0, 2).reshape(d, k * v)
+        return (h @ w).unflatten(-1, (k, v))
     if cfg.tie_embeddings:   # the reference's einsum "btd,vd->btv"
         return h @ p["embed"].to(dt).t()
     return h @ p["head"].to(dt)
@@ -172,7 +193,8 @@ def _stacks(cfg) -> list:
 
 def forward(p, cfg, tokens, *, vision_embeds=None, mode="full",
             remat_policy=None, return_hidden=False):
-    """tokens [B,T] -> ModelOutputs. mode: full (the training forward: no
+    """tokens [B,T] (or [B,T,K]) -> ModelOutputs, logits [B,T,V] (or
+    [B,T,K,V]). mode: full (the training forward: no
     caches) | prefill (which also returns the caches, a stack's layers
     stacked: ``{"blocks": BlockCache(kv=KVCache([L,B,S,KV,hd] ...))}``,
     MLACache leaves [L,B,S,kv_lora] and [L,B,S,rope] for MLA, MambaCache
@@ -187,7 +209,6 @@ def forward(p, cfg, tokens, *, vision_embeds=None, mode="full",
     are summed into ``aux_loss``. return_hidden=True skips the output head
     and returns the final normed hidden states in ``.logits`` (the chunked
     loss applies the head itself)."""
-    blocks.check_ported(cfg)
     dt = compute_dtype(cfg)
     h = embed_tokens(p, cfg, tokens, dt)
     t = tokens.shape[1]
@@ -249,7 +270,7 @@ def _cross_kv(cross_p, cfg, enc, dt):
 # loss
 # ---------------------------------------------------------------------------
 def xent_loss(logits, labels, z_weight: float = 1e-4):
-    """Stable CE with z-loss. labels [B,T]; -1 = masked."""
+    """Stable CE with z-loss. labels [B,T] (or [B,T,K]); -1 = masked."""
     ce, zl, n = _xent_sums(logits, labels)
     return (ce + z_weight * zl) / torch.clamp(n, min=1)
 
@@ -283,11 +304,11 @@ def chunked_xent_loss(p, cfg, h, labels, *, chunk: int = 512,
 
 
 def loss_fn(p, cfg, batch, *, remat_policy=None):
-    """The training loss of batch {"tokens", "labels"} [B,T] (and the
-    VLM's "vision_embeds" [B, vision_seq, d_model]): the cross-entropy
-    with z-loss, chunked over the head when T >= 2048 and
-    ``cfg.loss_chunk`` divides T, plus the blocks' auxiliary loss."""
-    blocks.check_ported(cfg)
+    """The training loss of batch {"tokens", "labels"} [B,T] (the audio
+    family's [B,T,K]; the VLM's also "vision_embeds" [B, vision_seq,
+    d_model]): the cross-entropy with z-loss, chunked over the head when
+    T >= 2048 and ``cfg.loss_chunk`` divides T, plus the blocks'
+    auxiliary loss."""
     tokens, labels = batch["tokens"], batch["labels"]
     t = tokens.shape[1]
     lc = cfg.loss_chunk
@@ -315,8 +336,8 @@ def init_caches(cfg, batch: int, cache_len: int, dt=torch.bfloat16,
     S never capped; Mamba and Hymba MambaCache(conv [L, B, d_conv-1,
     d_inner], ssm [L, B, d_inner, N] fp32), the same at any position.
     Like the reference's, they are bf16 (the SSM state fp32) whatever the
-    compute dtype unless ``dt`` says otherwise."""
-    blocks.check_ported(cfg)
+    compute dtype unless ``dt`` says otherwise. ``device="meta"`` gives
+    their shapes and dtypes without storage."""
     dev = devmod.resolve(device)
 
     def attn_cache(n):
@@ -390,11 +411,10 @@ def _cross_decode(cross_p, h, cross_c, cfg, dt):
 
 
 def decode_step(p, cfg, tokens, caches, pos):
-    """One decode step: tokens [B,1], pos (int or 0-d tensor) the position
-    of every row's token. Returns (logits [B,1,V], new caches); the caches
-    passed in are left as they were (the VLM's cross caches are passed
-    on as they are)."""
-    blocks.check_ported(cfg)
+    """One decode step: tokens [B,1] (or [B,1,K]), pos (int or 0-d
+    tensor) the position of every row's token. Returns (logits [B,1,V]
+    (or [B,1,K,V]), new caches); the caches passed in are left as they
+    were (the VLM's cross caches are passed on as they are)."""
     dt = compute_dtype(cfg)
     h = embed_tokens(p, cfg, tokens, dt)
 

@@ -1144,7 +1144,7 @@ class StemmerWorkload:
 @dataclass
 class Request:
     rid: int
-    prompt: np.ndarray          # int32 [T]
+    prompt: np.ndarray          # int32 [T] (the audio family's too)
     max_new: int = 16
     tokens_out: list = field(default_factory=list)
     done: bool = False
@@ -1184,7 +1184,16 @@ class LMDecodeWorkload:
             # prefill always emits the first generated token, so the engine
             # cannot return fewer than one token per request
             raise ValueError(f"max_new must be >= 1, got {max_new}")
-        return Request(rid, np.asarray(prompt, np.int32), max_new)
+        prompt = np.asarray(prompt, np.int32)
+        if prompt.ndim != 1:
+            # the reference documents [T, K] audio prompts but fails on
+            # them when it admits one (int() of a K-vector)
+            raise ValueError(
+                f"a prompt is 1-D token ids [T], got shape {prompt.shape};"
+                " the audio family takes one id a position, written into"
+                " every codebook, as in the reference (whose [T, K] prompts"
+                " fail at admission)")
+        return Request(rid, prompt, max_new)
 
     def has_capacity(self) -> bool:
         return any(r is None for r in self.slot_req)
@@ -1256,7 +1265,12 @@ class LMDecodeWorkload:
         self._step_slot(slot, int(req.prompt[-1]), emit=True)
 
     def _step_slot(self, slot: int, token: int, emit: bool):
-        toks = torch.zeros((self.B, 1), dtype=torch.int32, device=self.device)
+        """Decode ``token`` at the slot's position (the audio family's
+        tokens [B, 1, K], the id in every codebook) and, with ``emit``,
+        append the greedy next id (codebook 0's for the audio family)."""
+        cfg = self.cfg
+        shape = (self.B, 1, cfg.n_codebooks) if cfg.n_codebooks else (self.B, 1)
+        toks = torch.zeros(shape, dtype=torch.int32, device=self.device)
         toks[slot] = token
         logits, new_caches = self._decode(self.params, toks, self.caches,
                                           int(self.slot_pos[slot]))
@@ -1264,7 +1278,7 @@ class LMDecodeWorkload:
         _merge_slot(self.caches, new_caches, slot)
         self.slot_pos[slot] += 1
         if emit:
-            nxt = int(torch.argmax(logits[slot, -1], dim=-1))
+            nxt = int(torch.argmax(logits[slot, -1], dim=-1).reshape(-1)[0])
             self.slot_req[slot].tokens_out.append(nxt)
 
     def _finish_slot(self, slot: int, req: Request) -> Request:

@@ -1,4 +1,4 @@
-"""Training of the port's LMs (every family but the audio one): AdamW
+"""Training of the port's LMs (every family): AdamW
 (``optimizer``), the training step with rematerialisation and
 microbatching (``train_step``), checkpoints interchangeable with the
 reference's (``checkpoint``) and the fault-tolerant loop (``loop.fit``).

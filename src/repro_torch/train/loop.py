@@ -10,7 +10,6 @@ from dataclasses import dataclass, field
 import torch
 
 from repro_torch import device as devmod
-from repro_torch.models import blocks
 from repro_torch.models import model as model_mod
 from repro_torch.models import params as pm
 from repro_torch.train import checkpoint, optimizer, train_step as ts
@@ -45,7 +44,6 @@ def fit(cfg, run, data_iter, *, params=None, steps: int = 100,
       - checkpoints are written asynchronously, each joined before the
         next save and at exit.
     """
-    blocks.check_ported(cfg)
     ts.check_mesh(mesh, "fit")
     dev = devmod.resolve(device)
     step_fn = ts.make_train_step(cfg, run)

@@ -100,8 +100,8 @@ print("new modules missing:", missing)
 assert not missing, missing
 """
 
-# the modules of the text, index, staged-Compare and LM slices, which the
-# walk must reach
+# the modules of the text, index, staged-Compare, LM and dry-run slices,
+# which the walk must reach
 _NEW_MODULES = ("repro_torch.core.textnorm", "repro_torch.core.corpus",
                 "repro_torch.kernels.text_frontend",
                 "repro_torch.kernels.postings", "repro_torch.kernels.ops",
@@ -115,7 +115,8 @@ _NEW_MODULES = ("repro_torch.core.textnorm", "repro_torch.core.corpus",
                 "repro_torch.kernels.flash_attention", "repro_torch.models",
                 "repro_torch.models.params", "repro_torch.models.layers",
                 "repro_torch.models.attention", "repro_torch.models.blocks",
-                "repro_torch.models.model")
+                "repro_torch.models.model", "repro_torch.launch.input_specs",
+                "repro_torch.launch.dryrun")
 
 
 def test_port_imports_without_jax_or_repro():

@@ -44,7 +44,6 @@ from repro.models import params as rp  # noqa: E402
 
 from repro_torch import configs as tc  # noqa: E402
 from repro_torch.models import attention as ta  # noqa: E402
-from repro_torch.models import blocks as tb  # noqa: E402
 from repro_torch.models import layers as tl  # noqa: E402
 from repro_torch.models import model as tm  # noqa: E402
 from repro_torch.models import params as tp  # noqa: E402
@@ -489,29 +488,23 @@ def _vision_kw(cfg, b=2):
 
 @pytest.mark.parametrize("arch", OTHERS)
 def test_unported_families_raise(arch):
-    """Of the families the attention ones leave, only the audio one
-    (musicgen-medium, ROADMAP §1 item 9.6) still raises; Mamba, Hymba and
-    the VLM (items 9.4 and 9.5) run: caches, forward and a decode step."""
+    """No family the attention ones leave raises any more: Mamba, Hymba
+    and the VLM (items 9.4 and 9.5) and the audio family (9.6, [B, T, K]
+    tokens, logits [B, T, K, V]) run: caches, forward and a decode
+    step."""
     cfg = tc.smoke_config(tc.get_config(arch))
     spec = tm.model_spec(cfg)
     assert tp.count_params(spec) > 0
-    if arch in SSM_VLM:
-        tb.check_ported(cfg)
-        pt = tp.init_params(spec, torch.Generator().manual_seed(0),
-                            device="cpu")
-        toks = torch.zeros((2, 4), dtype=torch.int32)
-        out = tm.forward(pt, cfg, toks, **_vision_kw(cfg))
-        assert out.logits.shape == (2, 4, cfg.vocab)
-        caches = tm.init_caches(cfg, 2, 8, device="cpu")
-        logits, _ = tm.decode_step(pt, cfg, toks[:, :1], caches, 0)
-        assert torch.isfinite(logits).all()
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.init_caches(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.forward({}, cfg, torch.zeros((1, 4), dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tb.check_ported(cfg)
+    pt = tp.init_params(spec, torch.Generator().manual_seed(0),
+                        device="cpu")
+    k = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    toks = torch.zeros((2, 4, *k), dtype=torch.int32)
+    out = tm.forward(pt, cfg, toks, **_vision_kw(cfg))
+    assert out.logits.shape == (2, 4, *k, cfg.vocab)
+    caches = tm.init_caches(cfg, 2, 8, device="cpu")
+    logits, _ = tm.decode_step(pt, cfg, toks[:, :1], caches, 0)
+    assert logits.shape == (2, 1, *k, cfg.vocab)
+    assert torch.isfinite(logits).all()
 
 
 @pytest.mark.parametrize("arch", ["llama3-8b"] + MOE + SSM_VLM)

@@ -6,7 +6,9 @@ and "blocks", of 4-d MLA leaves [L, B, S, .]; the slot merge copies axis
 1 of every leaf) and, at fp32, for Mamba, Hymba (caches of an attention
 ring and an SSM state) and the VLM (text-only, as the reference's
 ServeEngine serves it: zero cross caches; the grouped self-caches [G, g,
-B, ...] merged on axis 2).
+B, ...] merged on axis 2), and the audio family (musicgen-medium) on 1-D
+prompts, as the reference serves it: each id written into all four
+codebooks, codebook 0's greedy id emitted.
 
 Weights come from the reference's init_params (params_from_numpy);
 prompts are made with numpy. At fp32 compute both workloads run on fp32
@@ -48,6 +50,7 @@ from repro_torch.serve import Engine, LMDecodeWorkload, ServeEngine  # noqa: E40
 DENSE = ["llama3-8b", "qwen2.5-14b", "deepseek-coder-33b", "gemma-2b"]
 MOE = ["deepseek-v2-lite-16b", "qwen3-moe-235b-a22b"]
 SSM_VLM = ["falcon-mamba-7b", "hymba-1.5b", "llama-3.2-vision-11b"]
+AUDIO = ["musicgen-medium"]
 BF16_TOL = 6e-2
 PROMPT_LENS = (5, 3, 8, 4, 6, 2)
 MAX_NEWS = (4, 1, 3, 5, 2, 4)
@@ -77,7 +80,7 @@ def _serve(engine, prompts):
     return [engine.result(r).tokens_out for r in rids]
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE + SSM_VLM)
+@pytest.mark.parametrize("arch", DENSE + MOE + SSM_VLM + AUDIO)
 def test_greedy_tokens_identical_at_fp32(arch):
     """Both engines on fp32 caches, and a plain greedy decode_step loop
     per request in each package: one token stream."""
@@ -95,17 +98,21 @@ def test_greedy_tokens_identical_at_fp32(arch):
     assert [len(t) for t in got] == list(MAX_NEWS)
 
     # the engines' streams equal a plain greedy loop over decode_step
+    # (the audio family's id in every codebook, codebook 0's argmax)
     prompt, n_new = prompts[0], MAX_NEWS[0]
+    k = (tcfg.n_codebooks,) if tcfg.n_codebooks else ()
     caches = tm.init_caches(tcfg, 1, cl, dt=torch.float32, device="cpu")
     out, logits = [], None
-    for i, tok in enumerate(prompt):
-        logits, caches = tm.decode_step(
-            pt, tcfg, torch.tensor([[tok]], dtype=torch.int32), caches, i)
+
+    def tok(t):
+        return torch.full((1, 1, *k), int(t), dtype=torch.int32)
+
+    for i, t in enumerate(prompt):
+        logits, caches = tm.decode_step(pt, tcfg, tok(t), caches, i)
     for j in range(n_new):
-        out.append(int(torch.argmax(logits[0, -1])))
-        logits, caches = tm.decode_step(
-            pt, tcfg, torch.tensor([[out[-1]]], dtype=torch.int32), caches,
-            len(prompt) + j)
+        out.append(int(torch.argmax(logits[0, -1], -1).reshape(-1)[0]))
+        logits, caches = tm.decode_step(pt, tcfg, tok(out[-1]), caches,
+                                        len(prompt) + j)
     assert out == want[0]
 
 
@@ -123,7 +130,7 @@ def _recording(decode, log, forced=None):
     return step
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + AUDIO)
 def test_teacher_forced_logits_at_bf16(arch):
     rcfg, tcfg, p, pt, prompts = _setup(arch, "bfloat16")
     cl = _cache_len()

@@ -507,17 +507,19 @@ def test_mesh_and_unported_families_raise():
                  lambda: tts.make_decode_step(tcfg, mesh=object())):
         with pytest.raises(NotImplementedError, match="item 7"):
             make()
-    # Mamba, Hymba and the VLM (items 9.4 and 9.5) train; the audio
-    # family (9.6) raises
-    for arch in SSM_VLM:
+    # Mamba, Hymba and the VLM (items 9.4 and 9.5) train, and so does the
+    # audio family (9.6), on [B, T, K] tokens and labels
+    for arch in SSM_VLM + ["musicgen-medium"]:
         _, cfg = _cfgs(arch)
         _, params = _params(_cfgs(arch)[0])
+        batch = _batch(cfg, 1, 8)
+        if cfg.n_codebooks:
+            rng = np.random.default_rng(0)
+            batch = {k: rng.integers(0, cfg.vocab, (1, 8, cfg.n_codebooks))
+                     .astype(np.int32) for k in ("tokens", "labels")}
         with torch.no_grad():
-            loss = tm.loss_fn(params, cfg, _tbatch(_batch(cfg, 1, 8)))
+            loss = tm.loss_fn(params, cfg, _tbatch(batch))
         assert torch.isfinite(loss)
-    cfg = tc.smoke_config(tc.get_config("musicgen-medium"))
-    with pytest.raises(NotImplementedError, match="item 9.6\\)"):
-        tm.loss_fn({}, cfg, _tbatch(_batch(tcfg, 1, 8)))
 
 
 # ---------------------------------------------------------------------------

@@ -230,13 +230,18 @@ def test_mesh_and_unported_families_raise():
     _, tcfg = _cfgs()
     with pytest.raises(NotImplementedError, match="item 7"):
         tloop.fit(tcfg, _run(tcfg), iter(()), mesh=object(), device="cpu")
-    # Mamba (item 9.4) fits now; the audio family (9.6) raises
+    # Mamba (item 9.4) fits now, and so does the audio family (9.6), on
+    # [B, T, K] batches
     _, cfg = _cfgs("falcon-mamba-7b")
     res = tloop.fit(cfg, _run(cfg), _batches(cfg), steps=1, device="cpu")
     assert res.steps_run == 1 and np.isfinite(res.losses).all()
-    cfg = tc.smoke_config(tc.get_config("musicgen-medium"))
-    with pytest.raises(NotImplementedError, match="item 9.6"):
-        tloop.fit(cfg, _run(cfg), iter(()), device="cpu")
+    _, cfg = _cfgs("musicgen-medium")
+    rng = np.random.default_rng(0)
+    audio = ({k: rng.integers(0, cfg.vocab, (4, 32, cfg.n_codebooks))
+              .astype(np.int32) for k in ("tokens", "labels")}
+             for _ in iter(int, 1))
+    res = tloop.fit(cfg, _run(cfg), audio, steps=1, device="cpu")
+    assert res.steps_run == 1 and np.isfinite(res.losses).all()
 
 
 # ---------------------------------------------------------------------------
