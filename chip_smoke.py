@@ -154,14 +154,15 @@ next, and before 9):
                through its entry point on layer 0's q, k, v after rope over
                4096 random tokens (K/V repeat_interleave'd to 32 heads),
                launches counted from zero, against the port's
-               _attend_chunked (chunk 512) at fp32; then 8 requests of 32
-               prompt tokens and 16 new served by Engine + LMDecodeWorkload
-               on 4 slots (376 full-batch decode steps, prefill-by-decode):
+               _attend_chunked (chunk 512) at fp32; then 8 requests of 16
+               prompt tokens and 4 new served by Engine + LMDecodeWorkload
+               on 4 slots (152 decode steps, prefill-by-decode):
                tokens/s, the wall, decode_step's share, a profile of two
                decode steps by kernel; every request max_new tokens, every
                logit finite, no kernel launched; prefill against
-               prefill-by-decode checked in bf16 and fp32 on the same
-               weights cut to 2 layers, reported at all 32
+               prefill-by-decode on a 32-token prompt of its own, checked
+               in bf16 and fp32 on the same weights cut to 2 layers,
+               reported at all 32
   8d. moe     deepseek-v2-lite-16b at full width and depth (27 layers:
                MLA with kv_lora 512, one dense layer, then 64 experts
                top-6 and 2 shared; 15.7 B fp32 parameters, 62.8 GB, drawn
@@ -169,9 +170,10 @@ next, and before 9):
                block at fp32 over 64 tokens on the card and on the CPU
                (every token past a 1e-5 routing margin to the same
                experts, the output within 1e-4 of its scale); then 8c's
-               traffic and checks (8 requests of 32 + 16 tokens on 4
-               slots), the capacity of a prompt's and a decode step's
-               tokens keeping every assignment, prefill against
+               traffic and checks (8 requests of 16 + 4 tokens on 4
+               slots, the checks' 32-token prompt), the capacity of a
+               prompt's and a decode step's tokens keeping every
+               assignment, prefill against
                prefill-by-decode at 2 layers (the dense one and an MoE
                one); the kernels a step, the device's busy share, peak
                memory
@@ -249,11 +251,10 @@ next, and before 9):
                the aux loss before and after two steps; those two steps
                run again from the same seed give bit-identical losses
   10e. ssm    trained as 10 (8 steps through fit, B 1, T 4096, remat
-               "full", rescaled weights): hymba-1.5b at full width and
-               depth (26.6 GB of weights, gradients and moments),
-               falcon-mamba-7b at full width cut to 16 layers (1.95 B,
-               31 GB of state; the scan's [1, 4096, 8192, 16] fp32
-               tensors), llama-3.2-vision-11b cut to one group (1 cross +
+               "full", rescaled weights): hymba-1.5b at full width cut to
+               4 layers, falcon-mamba-7b at full width cut to 4 layers
+               (the scan's [1, 4096, 8192, 16] fp32 tensors),
+               llama-3.2-vision-11b cut to one group (1 cross +
                4 self layers, 2.1 B; the training launcher's vision
                embeddings); before each, the first batch's gradient norm
                at the reference's own init
@@ -263,6 +264,24 @@ next, and before 9):
                codebook (22.1 GB of weights, gradients and moments);
                phases 10 and 10f also read the memory held at one AdamW
                update (parameters, gradients, moments, batch)
+  12. devices several devices, after 7b: make_data_mesh over every GPU
+               there is (one on the card) and explicit meshes that repeat
+               cuda:0 (4 and 5 shards on one GPU, run one after another on
+               its stream: not four GPUs); shard_batch over the 1M serve
+               words and B 7 and 100 on the realistic (K1) and the
+               262,144-key (K2) dictionaries, equal to phases 6-7's
+               unsharded results, checksums verified, at 1 and 4 shards;
+               Engine + StemmerWorkload(data_devices=4) over the 256
+               requests; the 1M-word index on 4 shards equal to 7b's; the
+               5-stage pipeline_map on 5 entries over 1,024 words (K6 a
+               tick) equal to the plain stemmer. Each of these runs is
+               warmed up, then timed with the launch counters set to 0
+               just before and read just after (the 4-shard ones summed
+               into the kernels line). Then, untimed, while the CLI with
+               --devices 1 runs in a process of its own: the ragged
+               batches, and the serve again with a device lost at one
+               launch (the ladder's devices-2 rung, then served on 2
+               shards with the streamed override), every request exact
   11. dryrun  launch.dryrun --all over its 32 cells, in a process of its
                own on the host's CPU started after the build (the meta
                device, no CUDA device visible), every line printed, all 32
@@ -419,14 +438,20 @@ GEMMA_ATTN_SHAPE = (1, 8, 2048, 256)
 # reference's 1e-5 tolerance rules out TF32)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # the dense LM path at full width: llama3-8b, layer 0's attention over
-# 4096 tokens (_chunk_q(4096) = 512), and serving 8 requests of a 32-token
-# prompt and 16 new tokens on 4 slots (cache_len = 32 + 16 - 1)
+# 4096 tokens (_chunk_q(4096) = 512), and serving 8 requests of a 16-token
+# prompt and 4 new tokens on 4 slots: twice as many requests as slots, so
+# every slot is refilled. Every LM serve phase takes this traffic; its
+# decode steps (19 a request) set most of their time, so they are kept to
+# what the script's time aim allows. Prefill is held against
+# prefill-by-decode on a prompt of its own, LM_PROMPT ids (the serve
+# generator's first draw), in caches of LM_CACHE = 32 + 4 - 1 positions
 LM_ARCH = "llama3-8b"
 LM_ATTN_T = 4096
 LM_SLOTS = 4
 LM_REQUESTS = 8
+LM_SERVE_PROMPT = 16
 LM_PROMPT = 32
-LM_NEW = 16
+LM_NEW = 4
 LM_CACHE = LM_PROMPT + LM_NEW - 1
 # K9 against the LM's attention: relative to the largest |output|
 LM_ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -510,14 +535,17 @@ RING_TOL = 5e-4
 VLM_BATCH = 4
 VLM_DECODE_STEPS = 16
 # phase 10e: phase 10's training (B 1, remat "full", TRAIN_STEPS steps
-# through fit) of hymba-1.5b at full width and depth (26.6 GB of weights,
-# gradients and AdamW moments), falcon-mamba-7b at full width cut to
-# SSM_TRAIN_LAYERS layers at T SSM_TRAIN_T (the whole model's 112 GB at 16
-# B a parameter fits no card; each layer's scan keeps [1, T, 8192, 16]
-# fp32 tensors of 2.15 GB at T 4096 for the backward pass) and the VLM at
-# full width cut to VLM_TRAIN_GROUPS group (one cross and four self
-# layers)
-SSM_TRAIN_LAYERS = 16
+# through fit) of hymba-1.5b at full width cut to HYBRID_TRAIN_LAYERS
+# layers, falcon-mamba-7b at full width cut to SSM_TRAIN_LAYERS layers at T
+# SSM_TRAIN_T (the whole model's 112 GB at 16 B a parameter fits no card;
+# each layer's scan keeps [1, T, 8192, 16] fp32 tensors of 2.15 GB at T
+# 4096 for the backward pass) and the VLM at full width cut to
+# VLM_TRAIN_GROUPS group (one cross and four self layers). The depths keep
+# the whole script inside its time aim: hymba at 32 layers and
+# falcon-mamba at 16 took 190-199 s of it; a layer's step is the same at
+# any depth
+SSM_TRAIN_LAYERS = 4
+HYBRID_TRAIN_LAYERS = 4
 SSM_TRAIN_T = 4096
 VLM_TRAIN_GROUPS = 1
 # phases 8g and 10f: the audio family, musicgen-medium at full width and
@@ -541,6 +569,17 @@ ARGS_TOL = 0.01
 KEPT_TOL = 0.10
 KEPT_FLOOR_GB = 0.05
 DRYRUN_CELLS = 32
+# phase 12: several devices. The card has one GPU, so the meshes of
+# DEVICE_SHARDS and PIPELINE_STAGES entries repeat cuda:0 (Mesh.of): their
+# shards run one after another on its stream
+DEVICE_SHARDS = 4
+SHARD_MEGABATCH = 4          # 4 x 256 x 4 = 4096 rows a launch
+RAGGED_BATCHES = (7, 100)
+DEVICE_LOSS_AT = 128         # the 129th sharded launch loses a device
+AFTER_LOSS_REQUESTS = 8      # served on the ladder's devices-2 rung
+PIPELINE_STAGES = 5
+PIPELINE_WORDS = 1024
+PIPELINE_MICROBATCHES = 8
 BLOCK_B = 256
 DEVICE = "cuda"
 
@@ -1321,7 +1360,8 @@ def models_phase(ops, stemmer, presets, arrays, words, fused):
 def index_phase(ops, pk, ix, corpus, tn, arrays, table):
     """The corpus index over 1M words, words path then text path, launches
     counted from zero for each; bit-identical to the host build ->
-    (launches, K5 launches by instance, words-path s, text-path s)."""
+    (launches, K5 launches by instance, words-path s, text-path s, the
+    words path's index)."""
     import numpy as np
     import torch
 
@@ -1415,7 +1455,7 @@ def index_phase(ops, pk, ix, corpus, tn, arrays, table):
           f" copies back and the merge in {text_s:.6f} s"
           f" ({INDEX_WORDS / text_s:.0f} words/s, {n_bytes / text_s:.0f}"
           f" B/s, launches {text_launches}), equal to the words path")
-    return launches, instances, words_s, text_s
+    return launches, instances, words_s, text_s, idx
 
 
 def index_grown_phase(ops, pk, sf, ix, corpus, grown, table):
@@ -2142,7 +2182,7 @@ def first_state(caches, n: int):
 def lm_serve_phase(ops, serve, tm, pm, cfg, params, *, tag="lm-serve",
                    requests=LM_REQUESTS, check_prefill=True) -> dict:
     """Serving at full width: Engine + LMDecodeWorkload serve ``requests``
-    requests of LM_PROMPT + LM_NEW tokens through prefill-by-decode on
+    requests of LM_SERVE_PROMPT + LM_NEW tokens through prefill-by-decode on
     LM_SLOTS slots, the launch counters set to 0 just before and read just
     after (the model reaches no kernel, as the reference's reaches no
     pallas_call). Checks every request's token count and every step's
@@ -2185,7 +2225,8 @@ def lm_serve_phase(ops, serve, tm, pm, cfg, params, *, tag="lm-serve",
     recording(wl, log)
     eng = serve.Engine(wl)
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab, LM_PROMPT)
+    check_ids = rng.integers(0, cfg.vocab, LM_PROMPT)
+    prompts = [rng.integers(0, cfg.vocab, LM_SERVE_PROMPT)
                for _ in range(requests)]
     torch.cuda.synchronize()
     ops.reset_dispatch_count()
@@ -2200,7 +2241,7 @@ def lm_serve_phase(ops, serve, tm, pm, cfg, params, *, tag="lm-serve",
     outs = [eng.result(r).tokens_out for r in rids]
     check([len(o) for o in outs] == [LM_NEW] * requests,
           f"token counts {[len(o) for o in outs]}, want {LM_NEW} each")
-    steps = requests * (LM_PROMPT + LM_NEW - 1)
+    steps = requests * (LM_SERVE_PROMPT + LM_NEW - 1)
     check(len(log) == steps, f"{len(log)} decode steps, want {steps}")
     check(bool(torch.stack([f for _, f, _ in log]).all()),
           "non-finite logits in a decode step")
@@ -2210,7 +2251,7 @@ def lm_serve_phase(ops, serve, tm, pm, cfg, params, *, tag="lm-serve",
     print(f"[{tag}] {cfg.name} at full width ({cfg.n_layers} layers, d"
           f" {cfg.d_model}, vocab {cfg.vocab}{arch_note(cfg)}, bf16 compute"
           " on fp32"
-          f" weights): {requests} requests of {LM_PROMPT} prompt tokens"
+          f" weights): {requests} requests of {LM_SERVE_PROMPT} prompt tokens"
           f" and {LM_NEW} new on {LM_SLOTS} slots (cache_len {LM_CACHE}),"
           f" {tokens} tokens in {wall:.6f} s ({tokens / wall:.6f} tokens/s,"
           f" {steps} decode steps, {decode_s / steps * 1e3:.6f} ms a step,"
@@ -2227,27 +2268,24 @@ def lm_serve_phase(ops, serve, tm, pm, cfg, params, *, tag="lm-serve",
         if line:
             print(f"[{tag}] {line}")
 
-    # request 0's prefill-by-decode emitted at step LM_PROMPT (slot 0)
-    prompt = torch.from_numpy(prompts[0][None]).to(DEVICE)
+    prompt = torch.from_numpy(check_ids[None]).to(DEVICE)
 
-    def prefill_vs_decode(cfg_, params_, by_decode=None):
+    def prefill_vs_decode(cfg_, params_):
         """-> (max error / scale, norm, argmax equal where the top-2 gap
         is clear of tol, the prefill caches' and the decode caches' first
         leaf of "blocks": attention's k, MLA's latent)."""
         fp32 = cfg_.compute_dtype == "float32"
         pre = tm.forward(params_, cfg_, prompt, mode="prefill")
-        k_dec = None
-        if by_decode is None:
-            wl_ = serve.LMDecodeWorkload(cfg_, params_, max_batch=LM_SLOTS,
-                                         cache_len=LM_CACHE, device=DEVICE)
-            if fp32:
-                wl_.caches = tm.init_caches(cfg_, LM_SLOTS, LM_CACHE,
-                                            dt=torch.float32, device=DEVICE)
-            log_: list = []
-            recording(wl_, log_)
-            wl_.admit(wl_.make_request(0, prompts[0], max_new=1))
-            by_decode = log_[-1][2]
-            k_dec = first_state(wl_.caches, LM_PROMPT)
+        wl_ = serve.LMDecodeWorkload(cfg_, params_, max_batch=LM_SLOTS,
+                                     cache_len=LM_CACHE, device=DEVICE)
+        if fp32:
+            wl_.caches = tm.init_caches(cfg_, LM_SLOTS, LM_CACHE,
+                                        dt=torch.float32, device=DEVICE)
+        log_: list = []
+        recording(wl_, log_)
+        wl_.admit(wl_.make_request(0, check_ids, max_new=1))
+        by_decode = log_[-1][2]
+        k_dec = first_state(wl_.caches, LM_PROMPT)
         a, b = pre.logits[0, -1].float(), by_decode
         scale = float(a.abs().max())
         err = float((a - b).abs().max()) / scale
@@ -2276,10 +2314,9 @@ def lm_serve_phase(ops, serve, tm, pm, cfg, params, *, tag="lm-serve",
               f"decode differ by {err} of the logits' scale at"
               f" {LM_CHECK_LAYERS} layers")
     if cfg.n_layers > LM_CHECK_LAYERS:
-        err, norm, same_top, _, _ = prefill_vs_decode(cfg, params,
-                                                      log[LM_PROMPT - 1][2])
+        err, norm, same_top, _, _ = prefill_vs_decode(cfg, params)
         print(f"[{tag}] bfloat16, all {cfg.n_layers} layers (the served"
-              f" run): prefill vs prefill-by-decode, max error {err:.3e} of"
+              f" model): prefill vs prefill-by-decode, max error {err:.3e} of"
               f" the scale, norm {norm:.3e}, same clear argmax {same_top}"
               " (reported, not checked)")
         cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
@@ -2780,8 +2817,9 @@ def raw_init_gnorm(tm, pm, cfg, t: int, tag: str) -> float:
 
 def ssm_train_phase(ops, tm, pm, configs) -> dict:
     """10e: train_phase (TRAIN_STEPS steps through fit, B 1, remat "full",
-    from trainable_params) on hymba-1.5b at full width and depth,
-    falcon-mamba-7b cut to SSM_TRAIN_LAYERS layers at T SSM_TRAIN_T, and
+    from trainable_params) on hymba-1.5b cut to HYBRID_TRAIN_LAYERS
+    layers, falcon-mamba-7b cut to SSM_TRAIN_LAYERS layers at T
+    SSM_TRAIN_T, and
     llama-3.2-vision-11b cut to VLM_TRAIN_GROUPS group with the training
     launcher's vision embeddings; before each, the first batch's gradient
     norm at the reference's own init (raw_init_gnorm)."""
@@ -2790,7 +2828,9 @@ def ssm_train_phase(ops, tm, pm, configs) -> dict:
     import torch
 
     vlm = configs.get_config(VLM_ARCH)
-    runs = (("hymba-train", configs.get_config(HYBRID_ARCH), TRAIN_T),
+    runs = (("hymba-train", dataclasses.replace(
+                configs.get_config(HYBRID_ARCH),
+                n_layers=HYBRID_TRAIN_LAYERS), TRAIN_T),
             ("mamba-train", dataclasses.replace(
                 configs.get_config(SSM_ARCH), n_layers=SSM_TRAIN_LAYERS),
              SSM_TRAIN_T),
@@ -2955,6 +2995,284 @@ def audio_train_phase(ops, tm, pm, configs) -> dict:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return res
+
+
+def devices_phase(ops, sf, pk, ix, corpus, stemmer, arrays, grown,
+                  serve_words, wants, table, index_want) -> dict:
+    """12, several devices: the sharded stemmer, serving, index and stage
+    pipeline on meshes of the card (see the module docstring), each result
+    held to its unsharded counterpart. The path's runs (the pipeline,
+    shard_batch over the 1M words at 4 shards on both dictionaries, the
+    sharded serve, the sharded index) are each warmed up, then timed with
+    the launch counters set to 0 just before and read just after; their
+    counts are summed. Then the CLI starts in a process of its own while
+    the untimed checks run (ragged batches, shard_batch at 1 shard's
+    launches, the device loss). -> launches by wrapper and K5 instance
+    over the counted runs, words/s by path, seconds."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.dist import mesh_axis_size, shard_batch
+    from repro_torch.dist import pipeline as dpipe
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.serve import (DegradationPolicy, DictStore, Engine,
+                                   FaultInjector, FaultPlan, FaultSpec,
+                                   StemmerWorkload)
+
+    dev = torch.device(DEVICE, 0)
+    root = Path(__file__).resolve().parent
+    cli = None
+    try:
+        t_phase = time.perf_counter()
+        n_gpu = torch.cuda.device_count()
+        gpus = mesh_mod.make_data_mesh(n_gpu)
+        check(gpus.shape == {"data": n_gpu}
+              and [d.index for d in gpus.devices] == list(range(n_gpu)),
+              f"make_data_mesh({n_gpu}) gave {gpus}")
+        mesh = mesh_mod.Mesh.of([dev] * DEVICE_SHARDS)
+        stages = mesh_mod.Mesh.of([dev] * PIPELINE_STAGES, axis="stage")
+        print(f"[devices] torch.cuda.device_count() = {n_gpu}:"
+              f" make_data_mesh({n_gpu}) = {gpus}; the {DEVICE_SHARDS}- and"
+              f" {PIPELINE_STAGES}-entry meshes repeat {dev}, so their shards"
+              f" run one after another on one GPU, not on {DEVICE_SHARDS}"
+              f" GPUs; {card_line()}")
+        handles = {"realistic": stemmer.resolve_dict(arrays, dict_block_r=8),
+                   "grown": stemmer.resolve_dict(grown, dict_block_r=8)}
+        words = torch.from_numpy(serve_words).to(dev)
+        n_req = SERVE_WORDS // SERVE_REQUEST_WORDS
+        counted: dict = {}              # launches over the counted runs
+        counted_k5: dict = {}
+
+        def run(fn, count=True):
+            """fn() with the counters set to 0 just before and read just
+            after -> (its result, seconds, launches by wrapper); with
+            ``count`` the launches join the phase's."""
+            torch.cuda.synchronize()
+            ops.reset_dispatch_count()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            n = launch_counts(ops)
+            if count:
+                for k, v in n.items():
+                    counted[k] = counted.get(k, 0) + v
+                for k, v in pk.postings_cuda.instances.items():
+                    counted_k5[k] = counted_k5.get(k, 0) + v
+            return out, secs, n
+
+        # -- the 5-stage pipeline over 1,024 words ---------------------------
+        m = PIPELINE_MICROBATCHES
+        mb = PIPELINE_WORDS // m
+        pw = words[:PIPELINE_WORDS]
+        z = lambda *shape: torch.zeros(shape, dtype=torch.int32,  # noqa: E731
+                                       device=dev)
+        bundle = {"words": pw.reshape(m, mb, 16), "keys": z(m, mb, 32),
+                  "valid": z(m, mb, 32), "root": z(m, mb, 4),
+                  "source": z(m, mb)}
+        fns = dpipe.stemmer_stage_fns(arrays)
+        dpipe.pipeline_map(fns, bundle, stages)             # warm-up
+        out, pipe_s, n = run(lambda: dpipe.pipeline_map(fns, bundle, stages))
+        k6 = sum(n.values())
+        want_r, want_s = wants["realistic"]
+        check(np.array_equal(out["root"].reshape(-1, 4).cpu().numpy(),
+                             want_r[:PIPELINE_WORDS])
+              and np.array_equal(out["source"].reshape(-1).cpu().numpy(),
+                                 want_s[:PIPELINE_WORDS]),
+              "pipeline_map differs from the plain stemmer")
+        check(n == {"stem_datapath_cuda": m + PIPELINE_STAGES - 1},
+              f"pipeline_map launched {n}, want K6 once a tick"
+              f" ({m + PIPELINE_STAGES - 1})")
+        print(f"[devices] pipeline_map, {PIPELINE_STAGES} stages on"
+              f" {PIPELINE_STAGES} entries of {dev}, {m} microbatches of {mb}"
+              f" words: {m + PIPELINE_STAGES - 1} ticks, {k6} K6 launches, in"
+              f" {pipe_s:.6f} s, equal to the plain stemmer")
+
+        # -- shard_batch over 1M words at 1 and 4 shards ---------------------
+        rates = {}
+        for name, h in handles.items():
+            want_r, want_s = wants[name]
+            want_cs = ops.tile_checksum_host(want_r, want_s, block_b=BLOCK_B)
+            for label, mm in (("1 shard", gpus), ("4 shards", mesh)):
+                n_dev = mesh_axis_size(mm, "data")
+                sharded = lambda: shard_batch(  # noqa: E731
+                    words, h, mm, block_b=BLOCK_B, with_checksum=True)
+                sharded()                                   # warm-up
+                (r, s_, cs), secs, n = run(sharded, count=mm is mesh)
+                planned = n_dev * sf.planned_launches(
+                    -(-SERVE_WORDS // n_dev), h, block_b=BLOCK_B)
+                check(np.array_equal(r.cpu().numpy(), want_r)
+                      and np.array_equal(s_.cpu().numpy(), want_s)
+                      and np.array_equal(cs.cpu().numpy(), want_cs),
+                      f"shard_batch, {name}, {label}: differs from the"
+                      " unsharded result or its checksums")
+                check(sum(n.values()) == planned, f"shard_batch, {name},"
+                      f" {label}: launched {n}, planned {planned}")
+                rates[(name, label)] = SERVE_WORDS / secs
+                print(f"[devices] shard_batch, {name} dictionary"
+                      f" ({h.residency}), {SERVE_WORDS} words on {label} of"
+                      f" {dev}: {secs:.6f} s"
+                      f" ({SERVE_WORDS / secs:.0f} words/s, {n} = planned),"
+                      " equal to the unsharded result,"
+                      f" {cs.shape[0]} tile checksums equal")
+
+        # -- the sharded serve, no fault -------------------------------------
+        def serve(n, *, injector=None, policy=None):
+            wl = StemmerWorkload(DictStore(arrays, device=dev),
+                                 block_b=BLOCK_B,
+                                 megabatch_tiles=SHARD_MEGABATCH,
+                                 max_inflight=2, data_devices=DEVICE_SHARDS,
+                                 mesh=mesh, injector=injector)
+            eng = Engine(wl, policy=policy)
+            rids = [eng.submit(serve_words[i * SERVE_REQUEST_WORDS:
+                                           (i + 1) * SERVE_REQUEST_WORDS])
+                    for i in range(n)]
+            return eng, rids, eng.run_until_drained(max_ticks=100_000)
+
+        def exact(eng, rids, label):
+            want_r, want_s = wants["realistic"]
+            for i, rid in enumerate(rids):
+                req = eng.result(rid)
+                sl = slice(i * SERVE_REQUEST_WORDS,
+                           (i + 1) * SERVE_REQUEST_WORDS)
+                check(req is not None and req.done and req.failure is None
+                      and np.array_equal(req.roots, want_r[sl])
+                      and np.array_equal(req.sources, want_s[sl]),
+                      f"{label}: request {rid} differs from the plain stemmer")
+
+        serve(8)                        # warm-up: buffers at size
+        (eng, rids, rep), serve_s, n = run(lambda: serve(n_req))
+        wl = eng.workload
+        exact(eng, rids, "sharded serve")
+        check(wl.checksum_tiles == SERVE_WORDS // BLOCK_B
+              and wl.ticks_launched == SERVE_WORDS // wl.launch_b
+              and n == {"stem_fused_cuda": DEVICE_SHARDS * wl.ticks_launched},
+              f"sharded serve: {wl.checksum_tiles} tiles checksum-verified,"
+              f" {wl.ticks_launched} launches of {wl.launch_b} rows,"
+              f" launched {n}")
+        rates["serve, 4 shards"] = SERVE_WORDS / serve_s
+        print(f"[devices] Engine + StemmerWorkload(data_devices="
+              f"{DEVICE_SHARDS}, megabatch_tiles {SHARD_MEGABATCH}) on"
+              f" {DEVICE_SHARDS} x {dev}: {n_req} requests / {SERVE_WORDS}"
+              f" words in {serve_s:.6f} s"
+              f" ({SERVE_WORDS / serve_s:.0f} words/s,"
+              f" {rep.ticks} ticks, {wl.ticks_launched} launches of"
+              f" {wl.launch_b} rows = {sum(n.values())} K1 kernels,"
+              f" {wl.checksum_tiles} tiles"
+              " checksum-verified), every request exact")
+
+        # -- the 1M-word index on 4 shards -----------------------------------
+        chunks = list(corpus.stream_corpus_words(
+            INDEX_WORDS, seed=0, chunk_words=INDEX_CHUNK,
+            words_per_doc=INDEX_WORDS_PER_DOC, table=table))
+        kw = dict(mesh=mesh, block_b=INDEX_BLOCK, block_w=INDEX_BLOCK)
+        ix.build_corpus_index(iter(chunks[:1]), arrays, **kw)    # warm-up
+        idx, index_s, n = run(
+            lambda: ix.build_corpus_index(iter(chunks), arrays, **kw))
+        for name in ("counts", "offsets", "docs", "positions"):
+            check(np.array_equal(getattr(idx, name),
+                                 getattr(index_want, name)),
+                  f"the sharded index's {name} differ from phase 7b's")
+        want_n = DEVICE_SHARDS * len(chunks)
+        check(n == {"stem_fused_cuda": want_n, "postings_cuda": want_n},
+              f"sharded index: launched {n}, want K1 and K5 once a shard a"
+              " chunk")
+        rates["index, 4 shards"] = INDEX_WORDS / index_s
+        print(f"[devices] build_corpus_index over {INDEX_WORDS} words in"
+              f" {len(chunks)} chunks on {DEVICE_SHARDS} x {dev}:"
+              f" {index_s:.6f} s ({INDEX_WORDS / index_s:.0f} words/s,"
+              f" launched {n}), equal to phase 7b's index")
+        for name in ("stem_fused_cuda", "stem_streamed_cuda", "postings_cuda",
+                     "stem_datapath_cuda"):
+            check(counted.get(name, 0) > 0,
+                  f"phase 12's counted runs never launched {name}: {counted}")
+        print(f"[devices] launches of the counted runs (pipeline, shard_batch"
+              f" at 4 shards on both dictionaries, serve, index): {counted}"
+              f" (K5 instances {counted_k5})")
+
+        # -- untimed: the CLI in a process of its own meanwhile --------------
+        cli = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--workload",
+             "stemmer", "--devices", "1"], cwd=root,
+            env={**os.environ, "PYTHONPATH": str(root / "src")},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+        def launched() -> int:
+            torch.cuda.synchronize()
+            return ops.dispatch_count()
+
+        # -- untimed: shard_batch on ragged batches, both dictionaries -------
+        for name, h in handles.items():
+            want_r, want_s = wants[name]
+            for b in RAGGED_BATCHES:
+                before = launched()
+                r, s_ = shard_batch(serve_words[:b], h, mesh, block_b=BLOCK_B)
+                n = launched() - before
+                planned = DEVICE_SHARDS * sf.planned_launches(
+                    -(-b // DEVICE_SHARDS), h, block_b=BLOCK_B)
+                check(np.array_equal(r.cpu().numpy(), want_r[:b])
+                      and np.array_equal(s_.cpu().numpy(), want_s[:b]),
+                      f"shard_batch, {name}, B={b}: differs from the unsharded"
+                      " result")
+                check(n == planned, f"shard_batch, {name}, B={b}: {n}"
+                      f" launches, planned {planned}")
+
+        # -- untimed: the sharded serve under a device loss ------------------
+        inj = FaultInjector(FaultPlan(specs=(FaultSpec("device_loss",
+                                                       at=DEVICE_LOSS_AT),)))
+        pol = DegradationPolicy(down_after=1)
+        eng, rids, rep = serve(n_req, injector=inj, policy=pol)
+        wl = eng.workload
+        exact(eng, rids, "sharded serve under a device loss")
+        check(wl.device_losses == 1 and inj.fired == [
+            ("device_loss", "lost", DEVICE_LOSS_AT)]
+              and [t[1:] for t in pol.transitions] == [
+                  (f"devices-{DEVICE_SHARDS // 2}", "device_loss")],
+              f"device loss: {wl.device_losses} losses, fired {inj.fired},"
+              f" transitions {pol.transitions}")
+        loss_launches = wl.ticks_launched
+        eng.step()                      # the mode lands at an empty ring
+        check(wl.data_devices == DEVICE_SHARDS // 2
+              and wl.residency_override == "streamed",
+              f"after the loss: {wl.data_devices} data devices, residency"
+              f" {wl.residency_override}")
+        before = launched()
+        streamed_before = sf.stem_streamed_cuda.launches
+        rids2 = [eng.submit(serve_words[i * SERVE_REQUEST_WORDS:
+                                        (i + 1) * SERVE_REQUEST_WORDS])
+                 for i in range(AFTER_LOSS_REQUESTS)]
+        check(eng.run_until_drained(max_ticks=100_000).drained,
+              "the serve on the smaller mesh did not drain")
+        exact(eng, rids2, "sharded serve on the devices-2 rung")
+        check(launched() > before
+              and sf.stem_streamed_cuda.launches > streamed_before,
+              "the devices-2 rung launched no K2 (the streamed override)")
+        print(f"[devices] Engine + StemmerWorkload(data_devices="
+              f"{DEVICE_SHARDS}) on {DEVICE_SHARDS} x {dev}, {n_req} requests"
+              f" of {SERVE_WORDS // n_req} words with a device lost at launch"
+              f" {DEVICE_LOSS_AT}: {rep.ticks} ticks, {loss_launches}"
+              f" launches, {wl.retries_total} retried, events"
+              f" {sorted({e.kind for e in eng.events()})}, transitions"
+              f" {pol.transitions}, every request exact; then"
+              f" {AFTER_LOSS_REQUESTS} requests on {wl.data_devices} shards"
+              " (streamed override), exact (untimed: the CLI runs"
+              " meanwhile)")
+
+        cli_out, _ = cli.communicate(timeout=300)
+        check(cli.returncode == 0 and "super-tile 1x256" in cli_out,
+              f"the CLI with --devices 1 failed: {cli_out[-2000:]}")
+        print("[devices] CLI: python -m repro_torch.launch.serve --workload"
+              f" stemmer --devices 1: {cli_out.strip().splitlines()[0]}")
+        secs = time.perf_counter() - t_phase
+        print(f"[devices] phase 12 in {secs:.1f} s")
+        return {"launches": counted, "rates": rates, "seconds": secs,
+                "k5_instances": counted_k5}
+    finally:
+        if cli is not None and cli.poll() is None:
+            cli.kill()
+            cli.wait()
 
 
 def start_dryrun():
@@ -4005,12 +4323,29 @@ def main() -> int:
     lap("extract")
 
     # ---- 7b. the corpus index, words and text --------------------------
-    k5_launches, k5_inst, index_s, index_text_s = index_phase(
+    k5_launches, k5_inst, index_s, index_text_s, index_1m = index_phase(
         ops, pk, ix, corpus, tn, realistic, table)
     k5_grown_inst, index_grown_s = index_grown_phase(ops, pk, sf, ix, corpus,
                                                      grown, table)
 
     lap("index")
+
+    # ---- 12. several devices: the sharded paths on meshes of the card ----
+    devices = devices_phase(
+        ops, sf, pk, ix, corpus, stemmer, realistic, grown, serve_words,
+        {"realistic": want_real, "grown": want_grown}, table, index_1m)
+    print(f"[devices] words/s: shard_batch at 1 / 4 shards,"
+          f" realistic {devices['rates'][('realistic', '1 shard')]:.0f} /"
+          f" {devices['rates'][('realistic', '4 shards')]:.0f}, 262,144"
+          f" keys {devices['rates'][('grown', '1 shard')]:.0f} /"
+          f" {devices['rates'][('grown', '4 shards')]:.0f}; the served"
+          f" words at 4 shards {devices['rates']['serve, 4 shards']:.0f}"
+          f" beside phase 6's unsharded {SERVE_WORDS / k1_serve_s:.0f};"
+          f" the index at 4 shards {devices['rates']['index, 4 shards']:.0f}"
+          f" beside 7b's {INDEX_WORDS / index_s:.0f}; 4 shards on one GPU,"
+          f" not 4 GPUs; {card_line()}")
+
+    lap("several devices")
 
     # ---- 7c. text serving -------------------------------------------------
     text_docs = build_documents(TEXT_REQUESTS * TEXT_DOCS_PER_REQUEST,
@@ -4675,11 +5010,17 @@ def main() -> int:
 
     csrc = "src/repro_torch/kernels/csrc/"
     ref = "src/repro/kernels/stem_fused.py:"
+    # each kernel's launches on its main path's run, plus those of phase
+    # 12's counted runs (each with the counters set to 0 just before)
+    more = devices["launches"]
+    more_k5 = devices["k5_instances"]
+    print(f"[done] launches added by phase 12: {more} (K5 {more_k5})")
     print(json.dumps({"kernels": [
         entry("stem_fused", "K1", csrc + "stem_fused.cu", ref + "166",
-              k1_launches["stem_fused_cuda"], k1_err),
+              k1_launches["stem_fused_cuda"]
+              + more.get("stem_fused_cuda", 0), k1_err),
         entry("stem_streamed", "K2", csrc + "stem_streamed.cu", ref + "312",
-              k2_launches, k2_err),
+              k2_launches + more.get("stem_streamed_cuda", 0), k2_err),
         entry("persistent_resident", "K3 resident, mapped flags",
               csrc + "stem_persistent.cu", ref + "403",
               k3r_launches["persistent_resident_cuda"], k3_err),
@@ -4691,14 +5032,16 @@ def main() -> int:
               text_runs[False][0]["text_frontend_cuda"], k4_err,
               shape="request"),
         entry("postings_counting", "K5", csrc + "postings.cu (+ postings.cuh)",
-              "src/repro/kernels/postings.py:92", k5_inst["counting"],
+              "src/repro/kernels/postings.py:92",
+              k5_inst["counting"] + more_k5.get("counting", 0),
               k5_err, shape="index chunk"),
         entry("postings_bitonic", "K5", csrc + "postings.cu (+ postings.cuh)",
               "src/repro/kernels/postings.py:92", k5_grown_inst["bitonic"],
               k5_err, shape="index chunk, 262,144-key vocabulary"),
         entry("stem_candidates", "K6", csrc + "stem_candidates.cu",
               "src/repro/kernels/stem_datapath.py:121",
-              staged["K6+K7"][0]["stem_datapath_cuda"], k6_err),
+              staged["K6+K7"][0]["stem_datapath_cuda"]
+              + more.get("stem_datapath_cuda", 0), k6_err),
         entry("dict_match_bank", "K7",
               csrc + "dict_match.cu (+ dict_bank.cuh)",
               "src/repro/kernels/stem_match.py:152",

@@ -235,15 +235,12 @@ def build_corpus_index(stream, roots, *, mesh=None, checkpoint_dir=None,
     recomputed if missing or torn. ``injector`` threads a
     ``serve.faults.FaultInjector`` through the chunk compute (site
     ``dispatch``) and the checkpoint writes (site ``checkpoint``);
-    ``chunk_retries`` bounds per-chunk retry of either. ``mesh`` (the
-    sharded build) is not ported yet and raises NotImplementedError.
+    ``chunk_retries`` bounds per-chunk retry of either. ``mesh``
+    (``launch.mesh``) shards every chunk over its ``data`` axis
+    (``ops.build_root_index(mesh=...)``); ``device`` is then unused.
     """
     from repro_torch.kernels import ops  # lazy: keep index importable light
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "build_corpus_index(mesh=...): the sharded index is not ported"
-            " yet (ROADMAP §1 item 7, multiple GPUs)")
     store = roots if hasattr(roots, "acquire") else None
     pinned = store.acquire().handle if store else roots
     vocab = build_vocab(pinned)
@@ -296,8 +293,8 @@ def build_corpus_index(stream, roots, *, mesh=None, checkpoint_dir=None,
                     injector.on_dispatch()
                 counts, docs, poss, n_post = ops.build_root_index(
                     ch.words, handle, vocab, ch.doc_ids, ch.positions,
-                    block_b=block_b, block_w=block_w, device=device,
-                    **stem_kw)
+                    mesh=mesh, block_b=block_b, block_w=block_w,
+                    device=device, **stem_kw)
             except (KeyboardInterrupt, SystemExit):
                 raise
             except Exception as e:

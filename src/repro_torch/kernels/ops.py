@@ -7,7 +7,9 @@ The counterpart of ``repro.kernels.ops``: the stemmer megakernels
 :func:`extract_roots_multilaunch`), the megakernel autotuner
 (:func:`autotune_stem_fused`), the text front end
 (:func:`text_to_words`, :func:`extract_roots_text`), the corpus index
-(:func:`build_root_index`, :func:`build_root_index_text`), the launch
+(:func:`build_root_index`, :func:`build_root_index_text`), the
+data-sharded launches over a mesh (``extract_roots_sharded``, which is
+``dist.shard_batch``, and ``build_root_index(mesh=...)``), the launch
 counter over every kernel, and the per-tile integrity checksum the
 serving ring verifies at retire.
 """
@@ -23,6 +25,8 @@ from repro_torch import device as devmod
 from repro_torch.core import pyref
 from repro_torch.core import stemmer as core_stemmer
 from repro_torch.core import textnorm as tn
+from repro_torch.dist.shard_batch import map_shards, on_device, replica
+from repro_torch.dist.shard_batch import shard_batch as extract_roots_sharded
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import postings as pk
 from repro_torch.kernels import stem_datapath as sdp
@@ -369,12 +373,25 @@ def build_root_index(words, roots, vocab, doc_ids, positions, *,
     cumsums and final scatter are PyTorch ops between and after them, with
     no per-word host loop and no host sync. ``roots`` accepts plain
     RootDictArrays or a ResolvedRootDict handle, as everywhere.
+
+    With ``mesh`` the words shard over its ``data`` axis in whole postings
+    tiles (W padded to ``n_dev * block_w`` with empty words, which drop):
+    each entry runs the stemmer, the id map and K5 on its contiguous
+    slice with the dictionary and vocabulary copied there, the per-shard
+    histograms and ranks are stacked in corpus order on the mesh's first
+    entry, and :func:`postings.finish_postings` runs once on the stack, so
+    the global exclusive cumsum is the shard merge. ``device`` is then
+    unused: the result lies on the mesh's first entry, and W_pad is a
+    multiple of ``n_dev * block_w``. ``n_dev * (planned_launches +
+    postings launches)`` of a shard's rows, as the reference counts.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "build_root_index(mesh=...): the sharded index is not ported"
-            " yet (ROADMAP §1 item 7, multiple GPUs); call it with"
-            " mesh=None")
+        return _index_sharded(words, roots, vocab, doc_ids, positions,
+                              mesh=mesh, block_w=block_w,
+                              infix=infix, match=match, block_b=block_b,
+                              residency=residency, dict_block_r=dict_block_r,
+                              num_buffers=num_buffers, skip_index=skip_index,
+                              visit_budget=visit_budget)
     dev = devmod.resolve(device)
     words = devmod.as_int32(words, dev)
     vocab = devmod.as_int32(vocab, dev)
@@ -389,6 +406,32 @@ def build_root_index(words, roots, vocab, doc_ids, positions, *,
     return pk.finish_postings(hist, rank, ids, devmod.as_int32(doc_ids, dev),
                               devmod.as_int32(positions, dev),
                               n_roots=n_roots, block_w=block_w)
+
+
+def _index_sharded(words, roots, vocab, doc_ids, positions, *, mesh,
+                   block_w: int, **stem_kw):
+    """:func:`build_root_index` over a mesh (the counterpart of the
+    reference's ``_index_sharded_jit``)."""
+    w = torch.as_tensor(words).shape[0]
+    vocab = torch.as_tensor(vocab)
+    vocab = devmod.as_int32(vocab, vocab.device)
+    n_roots = vocab.shape[0]
+    dict_copies, vocab_copies = {}, {}
+
+    def index(shard, dev):
+        root, source = sf.stem_fused(shard, replica(roots, dev, dict_copies),
+                                     **stem_kw)
+        ids = _root_ids(root, source, replica(vocab, dev, vocab_copies))
+        return pk.postings(ids, n_roots=n_roots, block_w=block_w) + (ids,)
+
+    # whole postings tiles a shard: stacking the shards' (tile, root)
+    # histograms keeps corpus tile order
+    home, (hist, rank, ids) = map_shards(words, mesh, block_w, index)
+    with on_device(home):
+        return pk.finish_postings(
+            hist, rank, ids[:w], devmod.as_int32(doc_ids, home),
+            devmod.as_int32(positions, home), n_roots=n_roots,
+            block_w=block_w)
 
 
 def build_root_index_text(chars, roots, vocab, byte_off, *, doc0: int = 0,

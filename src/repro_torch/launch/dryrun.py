@@ -37,7 +37,9 @@ FLOPs, bytes, kept bytes and the step's own peak come from the 1- and
 reference does. The port runs every layer, so the extrapolation serves
 speed only; the arguments are counted at full depth. A mesh
 (``--multi-pod``, ``--both-meshes``) or another sharding profile raises
-NotImplementedError: the port runs on one device (ROADMAP §1 item 7).
+NotImplementedError: the reference's mesh cells call
+``sharding.shard_abstract``, ``array_sharding`` and ``rules_for``, which
+its ``dist/sharding.py`` does not define (ROADMAP §3).
 Records go to ``--out`` (``build/repro_torch/dryrun/``), one JSON file a
 cell; the CLI prints one ``[dryrun] OK`` line a cell, then ``[dryrun] N
 ok, M failed``, and exits 1 if a cell failed.
@@ -73,8 +75,10 @@ HBM_BW = 3.35e12             # B/s
 LINK_BW = 450e9              # NVLink 4, B/s a direction
 HBM_GB = 80.0
 
-MESH_NOT_PORTED = ("the dry run of a mesh ({what}) is not ported yet: the"
-                   " port runs on one device (ROADMAP §1 item 7)")
+MESH_NOT_PORTED = ("the dry run of a mesh ({what}) is not ported: the"
+                   " reference's mesh cells call sharding.shard_abstract,"
+                   " array_sharding and rules_for, which its"
+                   " dist/sharding.py does not define (ROADMAP §3)")
 
 
 def _moments_dtype(cfg):

@@ -1,9 +1,10 @@
 """Meta-device stand-ins for every model input, per (arch x shape): the
 counterpart of ``repro.launch.input_specs``, whose ShapeDtypeStructs
-carry a mesh's shardings. These carry none (the port runs on one
-device; a mesh is ROADMAP §1 item 7): they are tensors on the meta
-device, with shapes and dtypes and no storage, so that a step applied to
-them allocates no byte and launches no kernel.
+carry a mesh's shardings. These carry none (the reference's
+``sharding.array_sharding`` and ``rules_for`` are undefined, ROADMAP §3):
+they are tensors on the meta device, with shapes and dtypes and no
+storage, so that a step applied to them allocates no byte and launches no
+kernel.
 """
 from __future__ import annotations
 

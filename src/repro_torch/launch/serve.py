@@ -8,6 +8,8 @@ Engine.
       --megabatch 4 --persistent
   PYTHONPATH=src python -m repro_torch.launch.serve --workload text \
       --requests 16 --words-per-request 256 [--frontend kernel|reference|host]
+  PYTHONPATH=src python -m repro_torch.launch.serve --workload stemmer \
+      --devices 4 --device cpu
 
 The LM workload (the default, as in the reference) serves the reduced
 same-family config (``configs.smoke_config``) of ``--arch`` with weights
@@ -23,8 +25,11 @@ The reference's robustness flags: ``--deadline-ms``, ``--max-retries``
 (stemmer and text), ``--queue-cap`` with ``--on-full``, ``--journal PATH``
 (the write-ahead request journal behind ``Engine.recover``),
 ``--watchdog-ms`` (needs ``--persistent``) and ``--degrade on`` (the
-degradation ladder, stemmer and text). Bad combinations are rejected
-before any engine is built (exit code 2).
+degradation ladder, stemmer and text). ``--devices N`` shards every
+stemmer or text launch over a ``("data",)`` mesh of the first N GPUs (N
+CPU entries with ``--device cpu``); asking for more GPUs than the machine
+has exits with the mesh's error. Bad combinations are rejected before any
+engine is built (exit code 2).
 """
 from __future__ import annotations
 
@@ -142,6 +147,7 @@ def serve_stemmer(args) -> None:
                                  num_buffers=args.num_buffers,
                                  skip_index=not args.full_sweep,
                                  max_inflight=args.inflight,
+                                 data_devices=args.devices,
                                  megabatch_tiles=args.megabatch,
                                  persistent=args.persistent,
                                  **_retry_kw(args)), **_engine_kw(args))
@@ -160,7 +166,8 @@ def serve_stemmer(args) -> None:
     print(f"served {args.requests} word-batch requests / {n_words} words in "
           f"{dt:.2f}s ({n_words / dt:.1f} Wps, {rep.ticks} ticks, "
           f"{eng.workload.ticks_launched} launches, dict v{store.version}, "
-          f"super-tile 1x{args.block_b}, megabatch {args.megabatch}"
+          f"super-tile {args.devices}x{args.block_b}, megabatch"
+          f" {args.megabatch}"
           f"{', persistent' if args.persistent else ''}, "
           f"inflight {args.inflight}{_report_failures(eng, rids)})")
     _report_events(eng)
@@ -228,6 +235,7 @@ def serve_text(args) -> None:
                                       num_buffers=args.num_buffers,
                                       skip_index=not args.full_sweep,
                                       max_inflight=args.inflight,
+                                      data_devices=args.devices,
                                       megabatch_tiles=args.megabatch,
                                       persistent=args.persistent,
                                       **_retry_kw(args)), **_engine_kw(args))
@@ -276,6 +284,10 @@ def main(argv=None):
     ap.add_argument("--inflight", type=int, default=2,
                     help="dispatch ring depth: outstanding megakernel"
                          " launches (1 = synchronous tick, overlap off)")
+    ap.add_argument("--devices", type=int, default=1,
+                    help="data devices per super-tile: each launch is a"
+                         " [devices * block_b, 16] tile split over a"
+                         " ('data',) mesh (dist.shard_batch)")
     ap.add_argument("--dict-block-r", type=int, default=8,
                     help="streamed dictionary tile height in 128-lane"
                          " rows; also pins the publish-time tile stream")
@@ -331,7 +343,8 @@ def main(argv=None):
                     help="degradation ladder: under sustained faults or"
                          " queue pressure the serving mode downshifts"
                          " persistent -> megabatch -> per-tile ->"
-                         " streamed-dict, and upshifts when healthy"
+                         " streamed-dict -> fewer devices, and upshifts"
+                         " when healthy"
                          " (stemmer/text only)")
     args = ap.parse_args(argv)
     if args.requests < 1 or args.words_per_request < 1:
@@ -360,6 +373,20 @@ def main(argv=None):
     if args.degrade == "on" and args.workload == "lm":
         ap.error("--degrade applies to the stemmer/text workloads (the"
                  " LM decode loop has no mode ladder)")
+    if args.devices < 1:
+        ap.error("--devices must be >= 1")
+    if args.devices > 1:
+        if args.workload == "lm":
+            ap.error("--devices applies to the stemmer/text workloads")
+        if args.persistent:
+            ap.error("--persistent is single-device (the descriptor ring"
+                     " is one kernel's); use --megabatch with --devices")
+        from repro_torch.launch import mesh as mesh_mod
+
+        try:
+            mesh_mod.make_data_mesh(args.devices, device=args.device)
+        except (RuntimeError, ValueError) as e:
+            ap.error(f"--devices {args.devices}: {e}")
     if args.workload == "text":
         serve_text(args)
     elif args.workload == "stemmer":

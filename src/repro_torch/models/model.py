@@ -396,6 +396,64 @@ def init_caches(cfg, batch: int, cache_len: int, dt=torch.bfloat16,
     return caches
 
 
+def is_axes(x) -> bool:
+    """A leaf of :func:`cache_logical_axes`: a non-empty tuple of axis
+    names (str or None). An empty tuple is a cache's () placeholder."""
+    return (isinstance(x, tuple) and len(x) > 0 and not hasattr(x, "_fields")
+            and all(isinstance(e, (str, type(None))) for e in x))
+
+
+def cache_logical_axes(cfg):
+    """Logical sharding axes for every leaf of :func:`init_caches`' tree,
+    the counterpart of the reference's: the same structure, each tensor a
+    tuple of axis roles for ``dist.sharding.resolve``. Decode KV caches
+    shard their sequence dim on the model axis (split-KV); SSM states
+    shard d_inner. Kept in lock-step with :func:`init_caches`."""
+
+    def attn_axes():
+        a = ("layers", "batch", "kv_seq", None, None)
+        if cfg.kv_quant:
+            return attn_mod.QuantKVCache(k=a, v=a, k_scale=a, v_scale=a)
+        return attn_mod.KVCache(k=a, v=a)
+
+    def mla_axes():
+        return mla.MLACache(c_kv=("layers", "batch", "kv_seq", None),
+                            k_rope=("layers", "batch", "kv_seq", None))
+
+    def ssm_axes():
+        return mamba.MambaCache(conv=("layers", "batch", None, "model"),
+                                ssm=("layers", "batch", "model", None))
+
+    def block_axes():
+        if cfg.block == "mamba":
+            return blocks.BlockCache(ssm=ssm_axes())
+        if cfg.block == "hymba":
+            return blocks.BlockCache(kv=attn_axes(), ssm=ssm_axes())
+        if cfg.attn_impl == "mla":
+            return blocks.BlockCache(kv=mla_axes())
+        return blocks.BlockCache(kv=attn_axes())
+
+    def grouped(tree):
+        # the VLM's self caches gain a leading group dim
+        if is_axes(tree):
+            return (None, *tree)
+        if isinstance(tree, tuple) and tree:
+            return type(tree)(*(grouped(t) for t in tree))
+        return tree
+
+    axes: dict = {}
+    if cfg.n_cross_layers:
+        axes["self"] = grouped(block_axes())
+        axes["cross"] = attn_mod.KVCache(
+            k=(None, "batch", "kv_seq", None, None),
+            v=(None, "batch", "kv_seq", None, None))
+    else:
+        if cfg.first_dense:
+            axes["dense"] = block_axes()
+        axes["blocks"] = block_axes()
+    return axes
+
+
 def _cross_decode(cross_p, h, cross_c, cfg, dt):
     """A cross block at decode: the query of the new token against the
     prefilled cross keys and values (a cache of another dtype promoted

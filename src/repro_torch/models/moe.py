@@ -28,8 +28,9 @@ gathers; and each token's k contributions are added in order, one add at a time,
 reference's scatter-add rounds them on the CPU. The gradients are
 therefore the same from run to run on the card.
 
-Expert parallelism over a mesh (the reference's ``constrain``) waits for
-the multi-device slice (ROADMAP §1 item 7).
+Expert parallelism over a mesh is not ported: the reference's goes
+through ``sharding.make_constrain``, which its ``dist/sharding.py`` does
+not define (ROADMAP §3).
 """
 from __future__ import annotations
 

@@ -56,8 +56,11 @@ and rebuilds itself from a journal (:meth:`Engine.recover`).
 :class:`LMDecodeWorkload` runs greedy decode of the dense-attention LMs,
 one slot per request, with deadline expiry and cancellation.
 
-Not ported yet (ROADMAP §1 item 7): multi-device launches
-(``data_devices > 1``) and the ladder's fewer-devices rungs.
+``StemmerWorkload(data_devices=N)`` splits every launch across a
+``("data",)`` mesh of N entries (``ops.extract_roots_sharded``): a launch
+is up to ``megabatch_tiles`` super-tiles of ``[N * block_b, 16]``, each
+entry runs its contiguous shard, and retire verifies the merged rows. The
+ladder's ``devices-d`` rungs reshard onto the mesh's first d entries.
 """
 from __future__ import annotations
 
@@ -70,10 +73,12 @@ import torch
 
 from repro_torch import device as devmod
 from repro_torch.core import alphabet as ab
+from repro_torch.dist.shard_batch import on_device
+from repro_torch.dist.sharding import axis_devices
 from repro_torch.kernels import ops
 from repro_torch.models import model as model_mod
 from repro_torch.models import params as pm
-from repro_torch.serve.faults import FailureInfo
+from repro_torch.serve.faults import DeviceLost, FailureInfo
 from repro_torch.serve.health import EventLog
 
 
@@ -495,8 +500,19 @@ class StemmerWorkload:
     propagates. ``watchdog_s`` (persistent only) abandons a launch older
     than that. ``injector`` takes a
     :class:`~repro_torch.serve.faults.FaultInjector` (None: no fault
-    layer on the hot path). ``data_devices > 1`` raises
-    NotImplementedError (ROADMAP §1 item 7).
+    layer on the hot path).
+
+    ``data_devices=N > 1`` shards every launch over a ``("data",)`` mesh:
+    ``super_b = N * block_b`` rows a super-tile, ``launch_b = super_b *
+    megabatch_tiles`` rows a launch, each mesh entry running one
+    contiguous shard (``ops.extract_roots_sharded``). The mesh is
+    ``launch.mesh.make_data_mesh(N)`` on the store's device type (N GPUs,
+    or N CPU entries), or the first N entries of ``mesh`` when one is
+    given (``Mesh.of(["cuda:0"] * 4)`` runs four shards on one card).
+    The dictionary is copied once a device and a version. A sharded
+    launch is where the ``device_loss`` fault site fires. ``persistent``
+    is single-device (the descriptor ring is one kernel's), as in the
+    reference.
     """
 
     def __init__(self, store, *, block_b: int = 256, infix: bool = True,
@@ -508,18 +524,28 @@ class StemmerWorkload:
                  max_retries: int = 2, retry_backoff_s: float = 0.0,
                  launch_timeout_s: float | None = None,
                  watchdog_s: float | None = None,
-                 checksum: bool = True, injector=None):
+                 checksum: bool = True, injector=None, mesh=None):
         if max_inflight < 1:
             raise ValueError(f"max_inflight must be >= 1, got {max_inflight}")
         if data_devices < 1:
             raise ValueError(f"data_devices must be >= 1, got {data_devices}")
-        if data_devices > 1:
-            raise NotImplementedError(
-                "StemmerWorkload(data_devices > 1): multi-device launches"
-                " are not ported yet (ROADMAP §1 item 7, multiple GPUs)")
         if megabatch_tiles < 1:
             raise ValueError(
                 f"megabatch_tiles must be >= 1, got {megabatch_tiles}")
+        if persistent and data_devices > 1:
+            raise ValueError(
+                "persistent=True is single-device (the descriptor ring is"
+                " one kernel's); use megabatch_tiles for multi-device"
+                " coalescing")
+        if mesh is not None:
+            devs = axis_devices(mesh, "data")
+            if len(devs) < data_devices:
+                raise ValueError(f"the mesh has {len(devs)} data entries,"
+                                 f" fewer than data_devices={data_devices}")
+            kinds = {d.type for d in devs}
+            if kinds != {store.device.type}:
+                raise ValueError(f"mesh entries on {sorted(kinds)}, the"
+                                 f" store on {store.device}")
         if max_retries < 0:
             raise ValueError(f"max_retries must be >= 0, got {max_retries}")
         if retry_backoff_s < 0:
@@ -554,7 +580,8 @@ class StemmerWorkload:
         self.watchdog_s = watchdog_s
         self.checksum = checksum
         self.injector = injector
-        self.launch_b = block_b * megabatch_tiles
+        self.super_b = block_b * data_devices
+        self.launch_b = self.super_b * megabatch_tiles
         self.inflight: list[StemRequest] = []
         self.ring: list[InflightTile] = []
         self._requeue: list[RetryGroup] = []
@@ -568,8 +595,7 @@ class StemmerWorkload:
         self.timeouts = 0          # launches abandoned at launch_timeout_s
         self.checksum_failures = 0  # retires discarded on checksum mismatch
         self.watchdog_stalls = 0   # persistent launches abandoned as wedged
-        self.device_losses = 0     # sharded launches lost a device (none
-        # here: no sharded launch is ported)
+        self.device_losses = 0     # sharded launches failed with DeviceLost
         # the incident stream; the Engine adopts it
         self.events = EventLog()
         # degradation-ladder state: a requested ServingMode lands at the
@@ -578,7 +604,25 @@ class StemmerWorkload:
         self.residency_override: str | None = None
         self._pending_mode = None
         self._degraded: dict = {}
+        # the data mesh (None on one device) and the dictionary's copies on
+        # its entries, {(version, override): {device: handle}}
+        self._base_mesh = mesh
+        self._mesh = self._data_mesh(data_devices)
+        self._replicas: dict = {}
         self._alloc_buffers()
+
+    def _data_mesh(self, d: int):
+        """The mesh a launch shards over at ``d`` data devices: None for
+        one (the single-device path, as in the reference), else the given
+        mesh's first d entries or ``make_data_mesh(d)`` on the store's
+        device type, which raises for more GPUs than there are."""
+        if d == 1:
+            return None
+        if self._base_mesh is not None:
+            return self._base_mesh.first(d)
+        from repro_torch.launch import mesh as mesh_mod
+
+        return mesh_mod.make_data_mesh(d, device=self.device.type)
 
     def _alloc_buffers(self) -> None:
         """One reusable set of host buffers per ring slot, at the launch
@@ -593,7 +637,7 @@ class StemmerWorkload:
         self._staging = [host(self.launch_b, ab.MAXLEN)
                          for _ in range(self.max_inflight)]
         self._outputs = [(host(self.launch_b, 4), host(self.launch_b),
-                          host(self.megabatch_tiles))
+                          host(self.launch_b // self.block_b))
                          for _ in range(self.max_inflight)]
         self._flags = [None if pin else host(self.megabatch_tiles)
                        for _ in range(self.max_inflight)]
@@ -716,17 +760,19 @@ class StemmerWorkload:
         if m is None or self.ring:
             return
         self._pending_mode = None
-        if m.data_devices != self.data_devices:
-            raise NotImplementedError(
-                f"serving mode {m.label!r} reshards onto {m.data_devices}"
-                " data devices: multi-device launches are not ported yet"
-                " (ROADMAP §1 item 7)")
-        geom_changed = m.megabatch_tiles != self.megabatch_tiles
+        geom_changed = (m.data_devices != self.data_devices
+                        or m.megabatch_tiles != self.megabatch_tiles)
         self.persistent = m.persistent
         self.megabatch_tiles = m.megabatch_tiles
         self.residency_override = m.residency
+        if m.data_devices != self.data_devices:
+            # reshard onto the mesh's first d entries (an empty ring: no
+            # launch holds the old geometry)
+            self._mesh = self._data_mesh(m.data_devices)
+            self.data_devices = m.data_devices
         if geom_changed:
-            self.launch_b = self.block_b * self.megabatch_tiles
+            self.super_b = self.block_b * self.data_devices
+            self.launch_b = self.super_b * self.megabatch_tiles
             self._alloc_buffers()
             self._split_requeue(self.launch_b)
 
@@ -804,12 +850,25 @@ class StemmerWorkload:
 
     def _bucket_rows(self, fill: int) -> int:
         """Rows to launch for ``fill`` coalesced words: the next
-        power-of-two tile count, capped at megabatch_tiles."""
-        n_tiles = -(-fill // self.block_b)
+        power-of-two super-tile count, capped at megabatch_tiles."""
+        n_super = -(-fill // self.super_b)
         bucket = 1
-        while bucket < n_tiles:
+        while bucket < n_super:
             bucket *= 2
-        return min(bucket, self.megabatch_tiles) * self.block_b
+        return min(bucket, self.megabatch_tiles) * self.super_b
+
+    def _replicas_for(self, version: int) -> dict:
+        """The dictionary's copies on the mesh's entries for this version
+        (at the ladder's residency override): filled at most once a device
+        by the launches, and dropped once no launch can pin the version."""
+        key = (version, self.residency_override)
+        got = self._replicas.get(key)
+        if got is None:
+            live = {e.version for e in self.ring} | {version}
+            self._replicas = {k: v for k, v in self._replicas.items()
+                              if k[0] in live}
+            got = self._replicas[key] = {}
+        return got
 
     def _next_group(self) -> RetryGroup | None:
         """The next dispatchable group: an eligible retry first (FIFO),
@@ -899,7 +958,14 @@ class StemmerWorkload:
             try:
                 self.injector.on_dispatch(
                     rids=[req.rid for req, _r0, _take in grp.segments])
+                if self._mesh is not None:
+                    self.injector.on_device_loss()
             except Exception as e:
+                if isinstance(e, DeviceLost):
+                    self.device_losses += 1
+                    self.events.emit("device_loss",
+                                     data_devices=self.data_devices,
+                                     detail=str(e))
                 return self._launch_failed(grp, e)
         # one version a launch: recovered requests pin the version they
         # were admitted under, the rest serve the current one
@@ -935,25 +1001,36 @@ class StemmerWorkload:
         kw = dict(infix=self.infix, match=self.match, block_b=self.block_b,
                   dict_block_r=self.dict_block_r,
                   num_buffers=self.num_buffers, skip_index=self.skip_index,
-                  with_checksum=self.checksum, device=self.device)
+                  with_checksum=self.checksum)
         flags = event = None
+        home = (self.device if self._mesh is None
+                else axis_devices(self._mesh, "data")[0])
         try:
-            words = staging[:rows].to(self.device, non_blocking=True)
-            if use_persistent:
-                out = ops.extract_roots_persistent(
-                    words, handle, version_slot=dv.version,
-                    flags_out=self._slot_flags(slot)[:tiles], **kw)
-                flags = out[2]
+            if self._mesh is not None:
+                # each entry's shard goes straight from the pinned staging
+                # rows to its device; the merged rows land on the first
+                out = ops.extract_roots_sharded(
+                    staging[:rows], handle, self._mesh,
+                    replicas=self._replicas_for(dv.version), **kw)
             else:
-                out = ops.extract_roots_fused(words, handle, **kw)
+                words = staging[:rows].to(self.device, non_blocking=True)
+                kw["device"] = self.device
+                if use_persistent:
+                    out = ops.extract_roots_persistent(
+                        words, handle, version_slot=dv.version,
+                        flags_out=self._slot_flags(slot)[:tiles], **kw)
+                    flags = out[2]
+                else:
+                    out = ops.extract_roots_fused(words, handle, **kw)
             copies = [(roots_h[:rows], out[0]), (sources_h[:rows], out[1])]
             if self.checksum:
                 copies.append((sums_h[:tiles], out[-1]))
-            for dst, src in copies:
-                dst.copy_(src, non_blocking=on_cuda)
-            if on_cuda:
-                event = torch.cuda.Event()
-                event.record()
+            with on_device(home):
+                for dst, src in copies:
+                    dst.copy_(src, non_blocking=on_cuda)
+                if on_cuda:
+                    event = torch.cuda.Event()
+                    event.record()
         except BaseException as e:
             # a failed launch must not wedge the engine: return the slot
             # and route the group through the retry machinery (strict

@@ -30,8 +30,8 @@ builder claim to tolerate is drivable from here, deterministically:
                       launch — the deterministic stand-in for losing a
                       device out of the ``("data",)`` mesh; the
                       degradation ladder reshards onto fewer devices.
-                      The port has no sharded launch yet (ROADMAP §1
-                      item 7), so on one device this site never fires.
+                      Only a launch over a mesh of two or more entries
+                      (``StemmerWorkload(data_devices > 1)``) reaches it.
   site ``journal``    tear the Nth write-ahead journal append in half —
                       the torn tail a crash mid-write leaves, which
                       recovery must truncate.

@@ -1,10 +1,10 @@
 """Serving health: the structured engine event stream and the
 graceful-degradation ladder.
 
-The counterpart of ``repro.serve.health``, with a private copy of the
-reference's ``dist.shard_batch.device_downshift_ladder`` (the port has no
-``dist`` package yet). With ``data_devices=1`` the ladder has no device
-rungs.
+The counterpart of ``repro.serve.health``. With ``data_devices=1`` the
+ladder has no device rungs; with N it ends in ``devices-d`` rungs that
+reshard onto the mesh's first d entries
+(``dist.shard_batch.device_downshift_ladder``).
 
 Every notable serving incident — a terminal :class:`FailureInfo`, a
 retry/bisection/quarantine, a checksum or flag mismatch, a watchdog
@@ -38,22 +38,7 @@ import collections
 import time
 from dataclasses import dataclass, field
 
-
-def device_downshift_ladder(n_dev: int) -> list[int]:
-    """Data-device counts the degradation ladder reshards through:
-    ``n_dev`` halving down to 1, descending.
-
-    A copy of the reference's ``dist.shard_batch.device_downshift_ladder``;
-    ROADMAP §1 item 7 moves it into the port's ``dist`` package.
-    """
-    if n_dev < 1:
-        raise ValueError(f"n_dev must be >= 1, got {n_dev}")
-    out, d = [], n_dev
-    while d > 1:
-        out.append(d)
-        d //= 2
-    out.append(1)
-    return out
+from repro_torch.dist.shard_batch import device_downshift_ladder
 
 
 @dataclass(frozen=True)

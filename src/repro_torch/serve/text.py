@@ -9,8 +9,9 @@ separator between documents, bucketed to a pow2 multiple of
 ``char_block``), runs the text front end to get normalised word rows and
 utf-8 byte spans, attributes each word to its document by span offset,
 and hands the word rows to the unchanged pipeline: the dispatch/retire
-ring, megabatching, persistent descriptor-ring launches and hot swaps
-serve text requests exactly as they serve word-tile requests. Results
+ring, megabatching, ``data_devices`` sharding over a mesh (and its
+``mesh=``), persistent descriptor-ring launches and hot swaps serve text
+requests exactly as they serve word-tile requests. Results
 scatter back per document through :meth:`TextRequest.analyses`.
 
 The front end runs at admission, on the store's device, not inside the

@@ -26,8 +26,9 @@ def check_mesh(mesh, what: str) -> None:
     """Raise for a mesh: the port trains on one device."""
     if mesh is not None:
         raise NotImplementedError(
-            f"{what}(mesh=...): training on several devices is not ported"
-            " yet (ROADMAP §1 item 7)")
+            f"{what}(mesh=...): training on a mesh is not ported: the"
+            " reference's training step calls sharding.make_constrain,"
+            " which its dist/sharding.py does not define (ROADMAP §3)")
 
 
 def to_device(batch: dict, device) -> dict:

@@ -122,9 +122,6 @@ def test_build_root_index_matches_reference(dicts, table):
     for g, w in zip(got, want):
         assert g.dtype == torch.int32
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tops.build_root_index(ch.words, tda, vocab, ch.doc_ids, ch.positions,
-                              mesh=object(), **CPU)
 
 
 def test_build_root_index_text_matches_reference(dicts, table):
@@ -169,8 +166,6 @@ def test_builder_matches_host_and_merges(dicts, table):
     assert idx.n_postings == int(idx.counts.sum()) > 0
     docs, poss = idx.postings_for(int(vocab[np.argmax(idx.counts)]))
     assert docs.shape[0] == int(idx.counts.max())
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tix.build_corpus_index(_stream(table), tda, mesh=object(), **CPU)
 
 
 def test_checkpoints_are_compatible_with_reference(dicts, table, tmp_path):

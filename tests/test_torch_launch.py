@@ -100,8 +100,8 @@ print("new modules missing:", missing)
 assert not missing, missing
 """
 
-# the modules of the text, index, staged-Compare, LM and dry-run slices,
-# which the walk must reach
+# the modules of the text, index, staged-Compare, LM, dry-run and
+# several-device slices, which the walk must reach
 _NEW_MODULES = ("repro_torch.core.textnorm", "repro_torch.core.corpus",
                 "repro_torch.kernels.text_frontend",
                 "repro_torch.kernels.postings", "repro_torch.kernels.ops",
@@ -116,7 +116,10 @@ _NEW_MODULES = ("repro_torch.core.textnorm", "repro_torch.core.corpus",
                 "repro_torch.models.params", "repro_torch.models.layers",
                 "repro_torch.models.attention", "repro_torch.models.blocks",
                 "repro_torch.models.model", "repro_torch.launch.input_specs",
-                "repro_torch.launch.dryrun")
+                "repro_torch.launch.dryrun", "repro_torch.launch.mesh",
+                "repro_torch.dist", "repro_torch.dist.sharding",
+                "repro_torch.dist.shard_batch", "repro_torch.dist.pipeline",
+                "repro_torch.dist.compression")
 
 
 def test_port_imports_without_jax_or_repro():
@@ -130,7 +133,8 @@ def test_port_sources_never_import_jax_or_repro():
     forbidden = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)[\s.])",
                            re.M)
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                          ROOT / "chip_ab.py"]
+                                          ROOT / "chip_ab.py",
+                                          ROOT / "chip_moe_prefill.py"]
     assert len(files) > 10
     for f in files:
         m = forbidden.search(f.read_text())

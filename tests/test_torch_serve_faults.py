@@ -308,8 +308,6 @@ def test_queue_cap_validation(dict_and_words):
         Engine(w, queue_cap=0)
     with pytest.raises(ValueError, match="queue_cap"):
         Engine(w, on_full="shed")   # a cap-less queue is never full
-    with pytest.raises(NotImplementedError, match="item 7"):
-        StemmerWorkload(_store(arrays), data_devices=2)
 
 
 def test_queue_cap_raise(dict_and_words):

@@ -505,7 +505,7 @@ def test_mesh_and_unported_families_raise():
     for make in (lambda: tts.make_train_step(tcfg, trun, mesh=object()),
                  lambda: tts.make_prefill_step(tcfg, mesh=object()),
                  lambda: tts.make_decode_step(tcfg, mesh=object())):
-        with pytest.raises(NotImplementedError, match="item 7"):
+        with pytest.raises(NotImplementedError, match="make_constrain"):
             make()
     # Mamba, Hymba and the VLM (items 9.4 and 9.5) train, and so does the
     # audio family (9.6), on [B, T, K] tokens and labels

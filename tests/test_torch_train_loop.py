@@ -228,7 +228,7 @@ def test_straggler_counter(monkeypatch):
 
 def test_mesh_and_unported_families_raise():
     _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="make_constrain"):
         tloop.fit(tcfg, _run(tcfg), iter(()), mesh=object(), device="cpu")
     # Mamba (item 9.4) fits now, and so does the audio family (9.6), on
     # [B, T, K] batches
