@@ -3,10 +3,10 @@ the port: one case per fault-injection site, plus the poison-pill
 quarantine, each asserting the recovery invariant: a run that absorbs the
 fault returns the reference stemmer's fault-free roots and sources (its
 jnp path) bit for bit, or the right FailureInfo, with no state leaked into
-the engine, the store or the checkpoint directory. On one device the
-device_loss site has no sharded launch to fire at: its case checks that
-the plan is accepted and never fires (the resharding scenario waits for
-ROADMAP §1 item 7)."""
+the engine, the store or the checkpoint directory. The device_loss case
+is the reference's scenario: data_devices=4 on a mesh of 4 CPU entries,
+the first sharded launch loses a device, and the degradation ladder
+reshards onto fewer devices."""
 import os
 
 import numpy as np
@@ -22,6 +22,7 @@ from repro.core import stemmer as rstemmer  # noqa: E402
 from repro_torch.core import corpus as tcorpus  # noqa: E402
 from repro_torch.core import stemmer as tstemmer  # noqa: E402
 from repro_torch.index import builder  # noqa: E402
+from repro_torch.launch.mesh import make_data_mesh  # noqa: E402
 from repro_torch.serve import (DegradationPolicy, DictStore, Engine,  # noqa: E402
                                FaultInjector, FaultPlan, FaultSpec,
                                InjectedFault, Journal, StemmerWorkload)
@@ -171,10 +172,14 @@ def _device_loss(inputs, tmp_path):
     arrays, _, enc, want_r, want_s = inputs
     inj = _plan(FaultSpec("device_loss", at=0))
     pol = DegradationPolicy(down_after=1)
-    eng, rids = _drain(arrays, enc, injector=inj, policy=pol)
-    assert inj.fired == [] and inj.events["device_loss"] == 0
-    assert eng.workload.device_losses == 0 and not pol.transitions
-    assert eng.workload.data_devices == 1
+    eng, rids = _drain(arrays, enc, injector=inj, policy=pol,
+                       data_devices=4, mesh=make_data_mesh(4, device="cpu"))
+    assert inj.fired == [("device_loss", "lost", 0)]
+    assert eng.workload.device_losses == 1
+    assert any(t[2] == "device_loss" and t[1].startswith("devices-")
+               for t in pol.transitions), pol.transitions
+    eng.step()                # a requested mode lands at an empty-ring tick
+    assert eng.workload.data_devices < 4
     _check_identical([eng.result(r) for r in rids], want_r, want_s)
 
 

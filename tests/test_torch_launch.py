@@ -132,9 +132,10 @@ def test_port_imports_without_jax_or_repro():
 def test_port_sources_never_import_jax_or_repro():
     forbidden = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)[\s.])",
                            re.M)
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                          ROOT / "chip_ab.py",
-                                          ROOT / "chip_moe_prefill.py"]
+    files = sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "chip_ab.py",
+        ROOT / "chip_moe_prefill.py", ROOT / "chip_train_recipe.py",
+    ] + sorted((ROOT / "examples").glob("torch_*.py"))
     assert len(files) > 10
     for f in files:
         m = forbidden.search(f.read_text())

@@ -251,3 +251,28 @@ def test_cache_dtype_mismatch_raises_in_both():
         rmla.mla_decode(p, xj, rcfg, cr, pos=jnp.int32(0), dt=jnp.float32)
     with pytest.raises(TypeError):
         tmla.mla_decode(pt, xt, tcfg, ct, pos=0, dt=torch.float32)
+
+
+# deepseek-v2-lite's bf16 prefill against prefill-by-decode (chip_smoke.py
+# phase 8d holds it within 2e-2 of the largest |logit| at 2 layers): both
+# packages at d_model 512 and 2 layers (the dense layer, then an MoE layer
+# with the 64-expert top-6 routing and 2 shared experts), from the same
+# weights, on three 16-id prompts (numpy seeds 0-2) decoded into caches of
+# 19 positions (tests/mla_prefill_gap.py; run alone, it takes 15 prompts).
+# The unabsorbed prefill and the absorbed decode round their bf16 products
+# over matrices of other shapes, so the gap is the reference's own; the
+# port's must be of its size (within a factor 2 of the reference's
+# largest), and in fp32 both gaps are rounding (1e-4).
+GAP_PROMPTS = [(16, s) for s in (0, 1, 2)]
+GAP_LIMIT = 2e-2
+
+
+def test_bf16_prefill_against_decode_gap_is_the_references():
+    import mla_prefill_gap
+
+    got = mla_prefill_gap.gaps(GAP_PROMPTS)
+    ref = max(v[0] for k, v in got.items() if k[0] == "bfloat16")
+    port = max(v[1] for k, v in got.items() if k[0] == "bfloat16")
+    assert ref > GAP_LIMIT, got           # the reference's own spread
+    assert 0.5 * ref <= port <= 2 * ref, got
+    assert max(max(v) for k, v in got.items() if k[0] == "float32") < 1e-4

@@ -558,3 +558,29 @@ def test_cuda_default_raises_without_cuda(monkeypatch):
         launch_train.main(["--smoke", "--steps", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_train.main(["--smoke", "--steps", "1", "--device", "cuda"])
+
+
+# chip_smoke.py phase 10's recipe (peak lr 3e-3, warmup 20, B 1, 64 live
+# ids, remat "full"), from the reference's init rescaled as its
+# trainable_params rescales the port's, at gemma-2b cut to 2 layers,
+# d_model 1024 (4 heads of 256, d_ff 8192), a 32,000-id vocabulary and
+# T 512, in fp32: the largest that fits about 30 test-seconds. At full
+# width (d_model 2048, vocab 256,000) both packages' losses jump back up
+# at step 5 alike (tests/train_recipe.py --full-width). Eight losses and
+# lrs within 1e-3 relative.
+RECIPE_RTOL = 1e-3
+
+
+def test_eight_steps_at_the_chip_recipe_match_reference():
+    import train_recipe
+
+    ref, port = train_recipe.curves(
+        train_recipe.recipe_config(d_model=1024, vocab=32000), t=512,
+        steps=8)
+    assert len(ref) == len(port) == 8
+    for i, (r, p) in enumerate(zip(ref, port)):
+        assert np.isfinite(p[0]), (i, p)
+        for k, name in ((0, "loss"), (2, "lr")):
+            assert abs(p[k] - r[k]) <= RECIPE_RTOL * abs(r[k]), (
+                i, name, p[k], r[k])
+    assert port[-1][0] < port[0][0]
