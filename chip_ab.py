@@ -18,9 +18,16 @@ for the streamed ones, and the wall time of a whole streamed
 The streamed kernels are called with the checkout's own contract: a
 checkout whose K2 takes visit tables gets them from the reference's
 pre-pass (not timed), one whose K2 takes the tile set's fence level gets
-that. Prints one line a run, a table of both checkouts' times, and the
-card's name and power limit. Needs one CUDA card; exits non-zero without
-one.
+that. K5 at an index chunk (131,072 words, block_w 2048) and at 1,048,576
+words of the realistic vocabulary and at an index chunk of the
+262,144-key dictionary's vocabulary, and on that vocabulary 131,072 ids
+(the index chunk's, a Zipf draw and a uniform draw over all of it) at
+block_w 128, 2048 and 4096 (each on the instance the checkout's rule
+picks, named beside its time), and the words/s of
+``build_corpus_index`` over 1,048,576 words on the 262,144-key
+dictionary (the best of 3 runs after a warm-up). Prints one line a run,
+a table of both checkouts' times, and the card's name and power limit.
+Needs one CUDA card; exits non-zero without one.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ import inspect
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import chip_smoke as cs
@@ -42,9 +50,11 @@ def child(tree: Path, block_b: int) -> None:
     import numpy as np
     import torch
 
+    from repro_torch import index as ix
     from repro_torch.core import corpus, stemmer
     from repro_torch.core import textnorm as tn
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import postings as pk
     from repro_torch.kernels import stem_datapath as sdp
     from repro_torch.kernels import stem_fused as sf
     from repro_torch.kernels import stem_match as sm
@@ -164,6 +174,67 @@ def child(tree: Path, block_b: int) -> None:
                              + e.device_time_total / 1e3)
     out["K8 profile, ms a call"] = {name: t / calls
                                     for name, t in split.items()}
+    # K5 as the index builds launch it, on the realistic vocabulary and on
+    # the 262,144-key dictionary's
+    block = cs.INDEX_BLOCK
+    table = corpus.build_token_table()
+    chunks = list(corpus.stream_corpus_words(
+        cs.INDEX_WORDS, seed=0, chunk_words=cs.INDEX_CHUNK,
+        words_per_doc=cs.INDEX_WORDS_PER_DOC, table=table))
+    index_words = torch.from_numpy(np.concatenate([c.words for c in chunks])
+                                   ).to(dev)
+    for label, arrays, n_words in (
+            ("index chunk", realistic, cs.INDEX_CHUNK),
+            ("1M words", realistic, cs.INDEX_WORDS),
+            ("index chunk, 262,144-key vocabulary", grown, cs.INDEX_CHUNK)):
+        vocab = ix.build_vocab(arrays)
+        ids = ops._root_ids(*sf.stem_fused(index_words[:n_words], arrays,
+                                           block_b=block),
+                            torch.from_numpy(vocab).to(dev))
+        tiles_ = pk.pad_ids(ids, n_roots=len(vocab), block_w=block)
+        fn = lambda: pk.postings_cuda(  # noqa: E731
+            tiles_, n_roots=len(vocab), block_w=block)
+        out[f"K5 {label} B={n_words}"] = cs.device_ms(fn, 100,
+                                                      cs.call_ms(fn, 100))
+        out[f"K5 instance, {label}"] = pk._instance(len(vocab), block)
+        if arrays is grown:
+            grown_ids = ids
+    # K5 on the 262,144-key vocabulary past the index's own chunk: its ids,
+    # and ids spread over the whole vocabulary (a Zipf draw whose ranks
+    # are scattered over the ids, as the tests draw them, and a uniform
+    # one), each at three tile widths
+    n_roots = len(ix.build_vocab(grown))
+    rng = np.random.default_rng(0)
+    ranks = (rng.zipf(1.3, size=cs.INDEX_CHUNK) - 1) % (n_roots + 1)
+    spread = {"index ids": grown_ids.cpu().numpy(),
+              "Zipf ids": (ranks * 40_503 + 11) % (n_roots + 1),
+              "uniform ids": rng.integers(0, n_roots + 1, cs.INDEX_CHUNK)}
+    for name, host_ids in spread.items():
+        for block_w in (128, 2048, 4096):
+            tiles_ = pk.pad_ids(torch.from_numpy(host_ids).to(dev),
+                                n_roots=n_roots, block_w=block_w)
+            fn = lambda: pk.postings_cuda(  # noqa: E731
+                tiles_, n_roots=n_roots, block_w=block_w)
+            label = f"262,144-key vocabulary, {name}, block_w {block_w}"
+            got = fn()
+            want = pk.postings_plain(tiles_, n_roots=n_roots, block_w=block_w)
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise RuntimeError(f"chip_ab: K5 at {label} differs from"
+                                   " the plain version")
+            out[f"K5 {label} B={cs.INDEX_CHUNK}"] = cs.device_ms(
+                fn, 100, cs.call_ms(fn, 100))
+            out[f"K5 instance, {label}"] = pk._instance(n_roots, block_w)
+    kw = dict(block_b=block, block_w=block, device=dev)
+    ix.build_corpus_index(iter(chunks[:1]), grown, **kw)      # warm-up
+    secs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ix.build_corpus_index(iter(chunks), grown, **kw)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+    out["index, 262,144 keys, words/s"] = cs.INDEX_WORDS / min(secs)
+    out["index, 262,144 keys, s a run"] = secs
     print(json.dumps(out))
 
 
@@ -197,13 +268,15 @@ def main() -> int:
         results.append(row)
         print(f"[ab] {label} ({tree}): {json.dumps(row)}")
     keys = [k for k in results[1] if "B=" in k and "lanes" not in k]
+    keys.append("index, 262,144 keys, words/s")
     print(f"[ab] ms on the card at block_b={args.block_b}"
           " (other, this, this, other; - where a checkout has no such"
           " launch):")
     for k in keys:
         print(f"[ab] {k}: " + ", ".join(
             f"{r[k]:.6f}" if k in r else "-" for r in results))
-    for k in (k for k in results[1] if "lanes" in k or "profile" in k):
+    for k in (k for k in results[1] if "lanes" in k or "profile" in k
+              or "instance" in k or "s a run" in k):
         print(f"[ab] {k}: " + ", ".join(json.dumps(r.get(k))
                                          for r in results))
     print(cs.card_line())

@@ -58,15 +58,16 @@ next, and before 9):
                index path's block_w 2048; a ~7M-codepoint tile of
                1,048,576 words, whose rows equal the word stream's; every
                rule's lane count reached
-  5c. K5       both postings instances against the plain version,
+  5c. K5       the three postings instances against the plain version,
                identical hist and rank, each launch's instance read from
                its counter: the counting one at block_w {8, 128, 1024,
                2048, 8192} and the bitonic one at 65536 (in global-memory
                scratch rows), on all ids dropped, one root, the realistic
                vocabulary's ids and those ids with 1 in 20 outside [0,
-               n_roots]; the bitonic one also at block_w 2048 on the
-               262,144-key dictionary's vocabulary; the overflow guard
-               raises
+               n_roots]; the sliced one at block_w {128, 2048, 4096} on
+               the 262,144-key dictionary's vocabulary: all dropped, one
+               root, its ids, both sides of every slice edge, 1 in 20
+               outside it; the overflow guard raises
   5f. K6-K8    the staged Compare path's kernels against their plain
                versions, bit for bit: K6 (the standalone datapath) over
                batch sizes {0, 1, 257, 65536} x block_b {64, 256, 1024},
@@ -103,7 +104,7 @@ next, and before 9):
                counting instance), bit-identical to the host build; the
                same corpus from text through build_root_index_text, equal
                to it; the same words on the 262,144-key dictionary (K2,
-               and K5 on its bitonic instance), bit-identical to the host
+               and K5 on its sliced instance), bit-identical to the host
                build
   5e. text     256 requests of 16 documents of 256 words through the
                engine with the kernel front end, resident and persistent,
@@ -316,8 +317,9 @@ next, and before 9):
                at each lane count through its measurement builds; K5: an
                index chunk of 131,072 words and
                1,048,576 words (counting), an index chunk of the 262,144-key
-               vocabulary (bitonic), with torch.sort of the same keys
-               beside each; K7 and K8: the tri group's 6 keys a word, with
+               vocabulary (sliced), 1,048,576 words at block_w 65536
+               (bitonic), with torch.sort of the same keys beside each;
+               K7 and K8: the tri group's 6 keys a word, with
                torch.isin of the same keys beside them, K7 with its
                banks' compares; K8 also on the 262,144-key dictionary's
                tri and quad tables at 1,048,576 words, its instance,
@@ -402,6 +404,10 @@ WIDE_BLOCKS = (1024, 2048)          # the block_b repair: tiles > 512 threads
 K4_BLOCK_WS = (128, 256, 1024, 2048)
 K5_BLOCK_WS = (8, 128, 1024, 2048, 8192, 65536)
 K5_MAX_TILES = 512                  # the K5 parity cases' tiles at most
+# the sliced instance's parity cases on the 262,144-key vocabulary: tiles
+# of 128, 2048 (the index path's) and 4096 lanes, at most 64 tiles a case
+K5_SLICED_BLOCK_WS = (128, 2048, 4096)
+K5_SLICED_TILES = 64
 K6_BATCHES = (0, 1, 257, 65536)
 K6_BLOCKS = (64, 256, 1024)
 K7_BLOCKS = ((1, 1), (2, 8), (4, 2), (16, 200))
@@ -432,7 +438,8 @@ K4_OPS_PER_EMPTY_ROW = 5
 # its bin), an exclusive scan of the n_roots + 1 bins, and each word's
 # stable rank (its bin's start and the equal ids before it): about 4 a
 # word and 2 a bin, O(block_w + n_roots) a tile. The kernel's own work
-# (a bitonic network and bisections) is more; it is not the bound.
+# (ballots, a scan of the bins down the warps, a slice's tile read again;
+# the bitonic network and bisections) is more; it is not the bound.
 K5_OPS_PER_WORD = 4
 K5_OPS_PER_BIN = 2
 # K9: the reference test's grid (B=2, H=3, D=64) and head dims (and 576,
@@ -1060,8 +1067,8 @@ def k4_phase(tf, tn, build, docs, chunk_tile, big_tile, big_words):
 
 def out_of_range(ids, n_roots: int, *, any_int32: bool):
     """ids with every 20th replaced by one outside [0, n_roots]: any int32
-    for the counting instance; for the bitonic one, values whose composite
-    keys still fit int32."""
+    for the counting and sliced instances; for the bitonic one, values
+    whose composite keys still fit int32."""
     import torch
 
     values = [-1, -7, n_roots + 1, n_roots + 9]
@@ -1074,16 +1081,33 @@ def out_of_range(ids, n_roots: int, *, any_int32: bool):
     return bad
 
 
+def slice_edge_ids(pk, ids, n_roots: int, block_w: int):
+    """ids of ``ids``'s shape drawn from both sides of every slice edge of
+    a sliced ``block_w`` launch over ``n_roots`` roots, and the first and
+    last bins (seed 0)."""
+    import torch
+
+    bins, n_slices = pk.slices(n_roots, block_w)
+    edges = torch.arange(1, n_slices, dtype=torch.int32) * bins
+    values = torch.cat([edges - 1, edges,
+                        torch.tensor([0, n_roots], dtype=torch.int32)])
+    pick = torch.randint(values.numel(), ids.shape,
+                         generator=torch.Generator().manual_seed(0))
+    return values[pick].to(ids.device)
+
+
 def k5_phase(pk, real_ids, n_roots, big_ids, n_big):
-    """Both postings instances against the plain version on the card, each
-    launch's instance read from its counter: the realistic vocabulary's
-    ids (counting at block_w <= 8192, bitonic at 65,536) and the 262,144-key
-    dictionary's (bitonic at the index path's block_w), with ids outside
-    [0, n_roots] -> (max_abs_err, {instance: launches checked})."""
+    """The three postings instances against the plain version on the card,
+    each launch's instance read from its counter: the realistic
+    vocabulary's ids (counting at block_w <= 8192, bitonic at 65,536) and
+    the 262,144-key dictionary's (sliced at block_w 128, the index path's
+    2048 and 4096: the drop bucket only, one root, the vocabulary's ids,
+    both sides of every slice edge, 1 in 20 outside [0, n_roots]) ->
+    (max_abs_err, {instance: launches checked})."""
     import torch
 
     t0 = time.perf_counter()
-    worst, seen = 0, {"counting": 0, "bitonic": 0}
+    worst, seen = 0, {"counting": 0, "sliced": 0, "bitonic": 0}
 
     def run(name, ids, n, block_w):
         nonlocal worst
@@ -1110,20 +1134,27 @@ def k5_phase(pk, real_ids, n_roots, big_ids, n_big):
                  ("realistic vocabulary", ids))
         for name, case in cases:
             instance = run(name, case, n_roots, block_w)
-        oob = out_of_range(ids, n_roots, any_int32=instance == "counting")
+        oob = out_of_range(ids, n_roots, any_int32=instance != "bitonic")
         run("out of range", oob, n_roots, block_w)
         print(f"[K5] block_w={block_w} ({instance}): {ids.shape[0]} ids x"
               " {all dropped, one root, realistic vocabulary of"
               f" {n_roots}, 1 in 20 outside [0, {n_roots}]}}: hist and"
               " rank identical")
-    ids = big_ids[:K5_MAX_TILES * INDEX_BLOCK]
-    for name, case in (("262,144-key vocabulary", ids),
-                       ("out of range", out_of_range(ids, n_big,
-                                                     any_int32=False))):
-        instance = run(name, case, n_big, INDEX_BLOCK)
-    print(f"[K5] block_w={INDEX_BLOCK} ({instance}): {ids.shape[0]} ids of"
-          f" the 262,144-key dictionary's vocabulary of {n_big} roots, and"
-          " 1 in 20 outside it: hist and rank identical")
+    for block_w in K5_SLICED_BLOCK_WS:
+        ids = big_ids[:K5_SLICED_TILES * block_w]
+        cases = (("all dropped", torch.full_like(ids, n_big)),
+                 ("one root", torch.full_like(ids, n_big // 2)),
+                 ("262,144-key vocabulary", ids),
+                 ("slice edges", slice_edge_ids(pk, ids, n_big, block_w)),
+                 ("out of range", out_of_range(ids, n_big, any_int32=True)))
+        for name, case in cases:
+            instance = run(name, case, n_big, block_w)
+        bins, n_slices = pk.slices(n_big, block_w)
+        print(f"[K5] block_w={block_w} ({instance}, {n_slices} slices of"
+              f" {bins} bins): {ids.shape[0]} ids x {{all dropped, one root,"
+              f" the 262,144-key dictionary's vocabulary of {n_big} roots,"
+              " both sides of every slice edge, 1 in 20 outside it}: hist"
+              " and rank identical")
     try:
         pk.postings(real_ids, n_roots=1 << 22, block_w=1024)
     except ValueError as e:
@@ -1131,11 +1162,11 @@ def k5_phase(pk, real_ids, n_roots, big_ids, n_big):
         print(f"[K5] overflow guard raises: {e}")
     else:
         check(False, "the int32 overflow guard did not raise")
-    check(all(seen.values()), f"K5 instances not both run: {seen}")
+    check(all(seen.values()), f"K5 instances not all run: {seen}")
     print(f"[K5] {sum(seen.values())} launches ({seen}) identical to the"
           f" plain version, max_abs_err {worst}"
           f" ({time.perf_counter() - t0:.1f} s)")
-    return worst
+    return worst, seen
 
 
 def k6_phase(sdp, ops, words):
@@ -1480,7 +1511,7 @@ def index_phase(ops, pk, ix, corpus, tn, arrays, table):
     n_chunks = INDEX_WORDS // INDEX_CHUNK
     check(launches == {"stem_fused_cuda": n_chunks,
                        "postings_cuda": n_chunks}
-          and instances == {"counting": n_chunks, "bitonic": 0},
+          and instances == {"counting": n_chunks, "sliced": 0, "bitonic": 0},
           f"index launches {launches} ({instances}), want K1 and K5's"
           " counting instance once a chunk")
     vocab = ix.build_vocab(arrays)
@@ -1549,7 +1580,7 @@ def index_phase(ops, pk, ix, corpus, tn, arrays, table):
 def index_grown_phase(ops, pk, sf, ix, corpus, grown, table):
     """The same 1M-word corpus indexed on the 262,144-key dictionary: K2
     streams the dictionary and the vocabulary's 262K roots take K5's
-    bitonic instance; launches counted from zero; bit-identical to the
+    sliced instance; launches counted from zero; bit-identical to the
     host build -> (K5 launches by instance, seconds)."""
     import numpy as np
     import torch
@@ -1571,10 +1602,10 @@ def index_grown_phase(ops, pk, sf, ix, corpus, grown, table):
     vocab = ix.build_vocab(grown)
     check(set(launches) == {"stem_streamed_cuda", "postings_cuda"}
           and launches["postings_cuda"] == n_chunks
-          and instances == {"counting": 0, "bitonic": n_chunks}
-          and pk._instance(len(vocab), INDEX_BLOCK) == "bitonic",
+          and instances == {"counting": 0, "sliced": n_chunks, "bitonic": 0}
+          and pk._instance(len(vocab), INDEX_BLOCK) == "sliced",
           f"grown index launches {launches} ({instances}), want K2 and K5's"
-          " bitonic instance once a chunk")
+          " sliced instance once a chunk")
     parts = []
     for ch in chunks:
         ids = ix.host_root_ids(ch.words, grown, vocab)
@@ -4287,12 +4318,13 @@ def main() -> int:
     vocab_t = torch.from_numpy(vocab).to(dev)
     real_ids = ops._root_ids(*sf.stem_fused(big_words, realistic,
                                             block_b=INDEX_BLOCK), vocab_t)
-    # the 262,144-key dictionary's vocabulary takes K5's bitonic instance
+    # the 262,144-key dictionary's vocabulary takes K5's sliced instance
     grown_vocab = ix.build_vocab(grown)
     grown_ids = ops._root_ids(
         *sf.stem_fused(big_words[:INDEX_CHUNK], grown, block_b=INDEX_BLOCK),
         torch.from_numpy(grown_vocab).to(dev))
-    k5_err = k5_phase(pk, real_ids, len(vocab), grown_ids, len(grown_vocab))
+    k5_err, k5_checked = k5_phase(pk, real_ids, len(vocab), grown_ids,
+                                  len(grown_vocab))
 
     lap("K4-K5 parity")
 
@@ -4802,20 +4834,23 @@ def main() -> int:
               f" {sms} SMs; by lanes a word (measurement builds), ms: "
               + ", ".join(by_lanes))
     # K5: the counting instance at an index chunk and at 1M words of the
-    # realistic vocabulary; the bitonic one at an index chunk of the
-    # 262,144-key dictionary's vocabulary
-    for label, ids_, n_roots in (
-            ("index chunk", real_ids[:INDEX_CHUNK], len(vocab)),
-            ("1M words", real_ids[:INDEX_WORDS], len(vocab)),
+    # realistic vocabulary; the sliced one at an index chunk of the
+    # 262,144-key dictionary's vocabulary; the bitonic one at phase 5c's
+    # 65,536-lane tiles, on 1M words of the realistic vocabulary
+    for label, ids_, n_roots, block_w in (
+            ("index chunk", real_ids[:INDEX_CHUNK], len(vocab), INDEX_BLOCK),
+            ("1M words", real_ids[:INDEX_WORDS], len(vocab), INDEX_BLOCK),
             ("index chunk, 262,144-key vocabulary", grown_ids,
-             len(grown_vocab))):
-        tiles_ = pk.pad_ids(ids_, n_roots=n_roots, block_w=INDEX_BLOCK)
+             len(grown_vocab), INDEX_BLOCK),
+            ("1M words, block_w 65536", real_ids[:INDEX_WORDS], len(vocab),
+             1 << 16)):
+        tiles_ = pk.pad_ids(ids_, n_roots=n_roots, block_w=block_w)
         n_tiles = tiles_.shape[0]
         w = ids_.shape[0]
-        lane = torch.arange(INDEX_BLOCK, dtype=torch.int32, device=dev)
-        keys = (tiles_ * INDEX_BLOCK + lane).view(n_tiles, INDEX_BLOCK)
-        kern = dict(n_roots=n_roots, block_w=INDEX_BLOCK)
-        instance = pk._instance(n_roots, INDEX_BLOCK)
+        lane = torch.arange(block_w, dtype=torch.int32, device=dev)
+        keys = (tiles_ * block_w + lane).view(n_tiles, block_w)
+        kern = dict(n_roots=n_roots, block_w=block_w)
+        instance = pk._instance(n_roots, block_w)
         kernel = lambda: pk.postings_cuda(tiles_, **kern)  # noqa: E731
         plain = lambda: pk.postings_plain(tiles_, **kern)  # noqa: E731
         library = lambda: torch.sort(keys, dim=1)  # noqa: E731
@@ -4823,21 +4858,27 @@ def main() -> int:
               f"timed shape {label}: K5 differs from its plain version")
         k_call = call_ms(kernel, 100)
         ms = device_ms(kernel, 100, k_call)
-        lib_ms = device_ms(library, 100, call_ms(library, 100))
+        # torch.sort of 65,536-key rows synchronizes inside: no spacer can
+        # hold its launches back
+        lib_ms = (event_ms(library, 100) if block_w > INDEX_BLOCK else
+                  device_ms(library, 100, call_ms(library, 100)))
         plain_ms = call_ms(plain, 10)
-        log_bw = INDEX_BLOCK.bit_length() - 1
-        work = (f"{log_bw * (log_bw + 1) // 2} sort stages"
-                if instance == "bitonic" else
-                f"{pk.COUNT_LANES_PER_WARP // 32} groups a warp")
-        n_ops = n_tiles * (K5_OPS_PER_WORD * INDEX_BLOCK
+        if instance == "bitonic":
+            log_bw = block_w.bit_length() - 1
+            work = f"{log_bw * (log_bw + 1) // 2} sort stages"
+        else:
+            bins, n_slices = pk.slices(n_roots, block_w)
+            work = (f"{n_slices} slice(s) of {bins} bins a tile,"
+                    f" {pk.COUNT_LANES_PER_WARP // 32} groups a warp")
+        n_ops = n_tiles * (K5_OPS_PER_WORD * block_w
                            + K5_OPS_PER_BIN * (n_roots + 1))
         # ids in, rank and histogram out
-        bd = bound(4 * n_tiles * INDEX_BLOCK + 4 * n_tiles * INDEX_BLOCK
+        bd = bound(4 * n_tiles * block_w + 4 * n_tiles * block_w
                    + 4 * n_tiles * (n_roots + 1), n_ops)
         times[("K5", label)] = dict(ms=ms, call_ms=k_call, plain_ms=plain_ms,
                                     library_ms=lib_ms, **bd)
         print(f"[times] K5 {label} ({w} words, {n_tiles} tiles of"
-              f" {INDEX_BLOCK}, {n_roots} roots, instance {instance},"
+              f" {block_w}, {n_roots} roots, instance {instance},"
               f" {work}): {ms:.6f} ms on the card ({k_call:.6f} ms a call"
               f" with the host), plain {plain_ms:.6f} ms a call, torch.sort"
               f" of the same keys alone (library_ms) {lib_ms:.6f} ms, bound"
@@ -4965,6 +5006,13 @@ def main() -> int:
     print(f"[times] index build: K5 ran for {k5_busy:.6f} of the wall time"
           f" ({k5_launches['postings_cuda']} launches x its device time at"
           f" an index chunk, over {index_s:.6f} s)")
+    k5_grown_busy = (k5_grown_inst["sliced"] * times[(
+        "K5", "index chunk, 262,144-key vocabulary")]["ms"] * 1e-3
+        / index_grown_s)
+    print(f"[times] index build, 262,144 keys: K5 (sliced) ran for"
+          f" {k5_grown_busy:.6f} of the wall time ({k5_grown_inst['sliced']}"
+          f" launches x its device time at an index chunk, over"
+          f" {index_grown_s:.6f} s)")
 
     serve_b = SERVE_REQUEST_WORDS
     for label, kernel, launches, serve_s in (
@@ -5134,9 +5182,19 @@ def main() -> int:
               "src/repro/kernels/postings.py:92",
               k5_inst["counting"] + more_k5.get("counting", 0),
               k5_err, shape="index chunk"),
-        entry("postings_bitonic", "K5", csrc + "postings.cu (+ postings.cuh)",
-              "src/repro/kernels/postings.py:92", k5_grown_inst["bitonic"],
-              k5_err, shape="index chunk, 262,144-key vocabulary"),
+        entry("postings_sliced", "K5", csrc + "postings.cu (+ postings.cuh)",
+              "src/repro/kernels/postings.py:92",
+              k5_grown_inst["sliced"] + more_k5.get("sliced", 0), k5_err,
+              shape="index chunk, 262,144-key vocabulary"),
+        # on no main path since the sliced instance (0 in the counted
+        # runs); phase 5c's parity launches under a key of their own
+        dict(entry("postings_bitonic", "K5",
+                   csrc + "postings.cu (+ postings.cuh)",
+                   "src/repro/kernels/postings.py:92",
+                   k5_inst["bitonic"] + k5_grown_inst["bitonic"]
+                   + more_k5.get("bitonic", 0), k5_err,
+                   shape="1M words, block_w 65536"),
+             parity_launches=k5_checked["bitonic"]),
         entry("stem_candidates", "K6", csrc + "stem_candidates.cu",
               "src/repro/kernels/stem_datapath.py:121",
               staged["K6+K7"][0]["stem_datapath_cuda"]

@@ -10,7 +10,7 @@ run under a file lock: parallel test workers or processes build once.
 
 ``host_datapath`` compiles the ``__host__ __device__`` headers (the
 datapath, the streamed fence search, the resident kernels' walk and lane
-split, the text front end's per-word rules, both
+split, the text front end's per-word rules, the
 postings instances' tile steps, the comparator bank's banks and the
 sorted search's fence tree) with
 ``g++`` for the CPU tests; nothing on the port's CPU path uses it.
@@ -384,10 +384,12 @@ def _host_library() -> ctypes.CDLL:
         lib.host_text_lanes.restype = ctypes.c_int
         lib.host_postings.argtypes = [_P, _I, _I, _I, _P, _P]
         lib.host_postings.restype = None
-        lib.host_postings_counting.argtypes = [_P, _I, _I, _I, _P, _P]
+        lib.host_postings_counting.argtypes = [_P, _I, _I, _I, _I, _P, _P]
         lib.host_postings_counting.restype = None
         lib.host_postings_instance.argtypes = [_I, _I, _I]
         lib.host_postings_instance.restype = ctypes.c_int
+        lib.host_postings_slice_bins.argtypes = [_I, _I, _I]
+        lib.host_postings_slice_bins.restype = ctypes.c_int
         lib.host_dict_bank.argtypes = [_P, _I, _P, _I, _I, _I, _P]
         lib.host_dict_bank.restype = None
         lib.host_dict_bsearch.argtypes = [_P, _I, _P, _I, _I, _I, _I, _P]
@@ -532,25 +534,32 @@ def host_text_lanes(rows: int, *, sms: int) -> int:
     return _host_library().host_text_lanes(rows, sms)
 
 
+# postings.cuh's instance numbers (pk::Instance)
+POSTINGS_INSTANCES = ("bitonic", "counting", "sliced")
+
+
 def host_postings(ids: np.ndarray, *, n_roots: int, block_w: int,
                   instance: str = "bitonic") -> tuple[np.ndarray, np.ndarray]:
     """The g++ build of postings.cuh, tile by tile, through ``instance``
-    ("bitonic": the network stage by stage and the searches; "counting":
-    the warps' counters, each 32-lane group in lane order): padded ids
-    int32[n_tiles * block_w] -> (hist int32[n_tiles, n_roots + 1], rank
-    int32[n_tiles * block_w])."""
+    ("bitonic": the network stage by stage and the searches; "counting"
+    and "sliced": the blocks of each tile's slices one after another, each
+    block's warps' counters, each 32-lane group in lane order; counting is
+    the one-slice case): padded ids int32[n_tiles * block_w] -> (hist
+    int32[n_tiles, n_roots + 1], rank int32[n_tiles * block_w])."""
     lib = _host_library()
     ids = np.ascontiguousarray(ids, dtype=np.int32).reshape(-1)
     if block_w < 1 or block_w & (block_w - 1) or ids.size % block_w:
         raise ValueError(f"{ids.size} ids are not whole tiles of a pow2"
                          f" block_w={block_w}")
-    run = {"bitonic": lib.host_postings,
-           "counting": lib.host_postings_counting}[instance]
     n_tiles = ids.size // block_w
     hist = np.zeros((n_tiles, n_roots + 1), np.int32)
     rank = np.zeros(ids.size, np.int32)
-    run(ids.ctypes.data, n_tiles, block_w, n_roots + 1, hist.ctypes.data,
-        rank.ctypes.data)
+    args = (ids.ctypes.data, n_tiles, block_w, n_roots + 1)
+    if instance == "bitonic":
+        lib.host_postings(*args, hist.ctypes.data, rank.ctypes.data)
+    else:
+        lib.host_postings_counting(*args, POSTINGS_INSTANCES.index(instance),
+                                   hist.ctypes.data, rank.ctypes.data)
     return hist, rank
 
 
@@ -559,7 +568,15 @@ def host_postings_instance(*, n_roots: int, block_w: int,
     """The instance postings.cuh's rule picks for a shape."""
     i = _host_library().host_postings_instance(block_w, n_roots + 1,
                                                max_smem)
-    return ("bitonic", "counting")[i]
+    return POSTINGS_INSTANCES[i]
+
+
+def host_postings_slice_bins(*, n_roots: int, block_w: int,
+                             instance: str) -> int:
+    """The bins a block of the counting or sliced instance counts
+    (postings.cuh's ``slice_bins``)."""
+    return _host_library().host_postings_slice_bins(
+        POSTINGS_INSTANCES.index(instance), block_w, n_roots + 1)
 
 
 def host_dict_bank(keys: np.ndarray, dict_keys: np.ndarray, *, rp: int,

@@ -310,12 +310,13 @@ extern "C" void host_postings(const int32_t* ids, int n_tiles, int block_w,
 namespace {
 
 // __ballot_sync over a group of n lanes: the lanes whose predicate is set,
-// the counted flag for bit < 0, else bit `bit` of the id.
-uint32_t ballot(const int32_t* group, int n, int n_roots_pad, int bit) {
+// the in-slice flag for bit < 0, else bit `bit` of the id's bin within the
+// slice [lo, lo + len).
+uint32_t ballot(const int32_t* group, int n, int lo, int len, int bit) {
   uint32_t m = 0;
   for (int l = 0; l < n; ++l) {
-    const bool set = bit < 0 ? pk::counted(group[l], n_roots_pad)
-                             : (group[l] >> bit) & 1;
+    const bool set = bit < 0 ? pk::in_slice(group[l], lo, len)
+                             : (pk::bin_of(group[l], lo) >> bit) & 1;
     m |= uint32_t(set) << l;
   }
   return m;
@@ -323,63 +324,102 @@ uint32_t ballot(const int32_t* group, int n, int n_roots_pad, int bit) {
 
 }  // namespace
 
-// The counting instance a shape takes (postings_instance), on the host.
+// The instance a shape takes (postings_instance), on the host.
 extern "C" int host_postings_instance(int block_w, int n_roots_pad,
                                       int max_smem) {
   return pk::instance(block_w, n_roots_pad, size_t(max_smem));
 }
 
-// The counting instance's contract on the host, its warps one after
-// another, each group of 32 lanes through the same steps in lane order:
-// ids int32[n_tiles, block_w] (any int32) -> hist int32[n_tiles,
-// n_roots_pad], rank int32[n_tiles, block_w]. block_w <= kCountMaxBlockW.
+// The bins a block of the counting (1) or sliced (2) instance counts.
+extern "C" int host_postings_slice_bins(int instance, int block_w,
+                                        int n_roots_pad) {
+  return pk::slice_bins(instance, block_w, n_roots_pad);
+}
+
+// The counting (instance 1) or sliced (2) instance's contract on the host:
+// a tile's slices one after another in one block's counters (zeroed once
+// a tile, the marked quads cleared between slices, as a block that takes
+// every slice of its tile does), each block's warps one after another,
+// each group of 32 lanes through the same steps in lane order: ids
+// int32[n_tiles, block_w] (any int32) -> hist int32[n_tiles, n_roots_pad],
+// rank int32[n_tiles, block_w]. block_w <= kCountMaxBlockW.
 extern "C" void host_postings_counting(const int32_t* ids, int n_tiles,
                                        int block_w, int n_roots_pad,
-                                       int32_t* hist, int32_t* rank) {
+                                       int instance, int32_t* hist,
+                                       int32_t* rank) {
   const int warps = pk::count_warps(block_w);
   const int per_warp = block_w / warps;
-  const int stride = pk::count_stride(n_roots_pad);
-  const int bits = pk::id_bits(n_roots_pad);
-  std::vector<uint16_t> counts(size_t(warps) * stride);
+  const int bins = pk::slice_bins(instance, block_w, n_roots_pad);
+  const int n_slices = pk::slice_count(n_roots_pad, bins);
+  const int words = pk::quad_words(bins);
+  std::vector<uint16_t> counts(size_t(warps) * bins);
+  std::vector<uint32_t> marked(words);
+  std::vector<int32_t> rk(block_w);
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int32_t* tile_ids = ids + size_t(tile) * block_w;
-    int32_t* rk = rank + size_t(tile) * block_w;
+    int32_t* h = hist + size_t(tile) * n_roots_pad;
     std::fill(counts.begin(), counts.end(), uint16_t(0));
-    for (int w = 0; w < warps; ++w) {
-      uint16_t* mine = counts.data() + size_t(w) * stride;
-      for (int g0 = 0; g0 < per_warp; g0 += pk::kWarp) {
-        const int width = std::min(pk::kWarp, per_warp - g0);
-        const int32_t* group = tile_ids + w * per_warp + g0;
-        const uint32_t active = width == pk::kWarp ? 0xffffffffu
-                                                   : (1u << width) - 1u;
-        uint32_t peers[pk::kWarp], base[pk::kWarp] = {0};
-        for (int l = 0; l < width; ++l) {
-          const bool ok = pk::counted(group[l], n_roots_pad);
-          peers[l] = pk::narrow(active, ballot(group, width, n_roots_pad, -1),
-                                ok);
-          for (int b = 0; b < bits; ++b) {
-            peers[l] = pk::narrow(peers[l], ballot(group, width, n_roots_pad, b),
-                                  (group[l] >> b) & 1);
+    std::fill(marked.begin(), marked.end(), 0u);
+    for (int s = 0; s < n_slices; ++s) {
+      const int lo = s * bins;
+      const int len = std::min(bins, n_roots_pad - lo);
+      const int bits = pk::id_bits(len);
+      for (int w = 0; w < warps; ++w) {
+        uint16_t* mine = counts.data() + size_t(w) * bins;
+        for (int g0 = 0; g0 < per_warp; g0 += pk::kWarp) {
+          const int width = std::min(pk::kWarp, per_warp - g0);
+          const int32_t* group = tile_ids + w * per_warp + g0;
+          const uint32_t any = ballot(group, width, lo, len, -1);
+          if (any == 0) continue;
+          const uint32_t active = width == pk::kWarp ? 0xffffffffu
+                                                     : (1u << width) - 1u;
+          uint32_t peers[pk::kWarp], base[pk::kWarp] = {0};
+          for (int l = 0; l < width; ++l) {
+            const bool in = pk::in_slice(group[l], lo, len);
+            const uint32_t bin = pk::bin_of(group[l], lo);
+            peers[l] = pk::narrow(active, any, in);
+            for (int b = 0; b < bits; ++b) {
+              peers[l] = pk::narrow(peers[l],
+                                    ballot(group, width, lo, len, b),
+                                    (bin >> b) & 1);
+            }
+            if (l == pk::lowest_lane(peers[l]) && in) {
+              base[l] = pk::bump(mine, bin, peers[l]);
+              pk::mark(marked.data(), bin);
+            }
           }
-          if (l == pk::lowest_lane(peers[l]) && ok) {
-            base[l] = pk::bump(mine, group[l], peers[l]);
+          for (int l = 0; l < width; ++l) {      // __shfl_sync from the leader
+            rk[w * per_warp + g0 + l] = pk::group_rank(
+                base[pk::lowest_lane(peers[l])], peers[l], l);
           }
-        }
-        for (int l = 0; l < width; ++l) {        // __shfl_sync from the leader
-          rk[w * per_warp + g0 + l] = pk::group_rank(
-              base[pk::lowest_lane(peers[l])], peers[l], l);
         }
       }
-    }
-    for (int r = 0; r < n_roots_pad; ++r) {
-      hist[size_t(tile) * n_roots_pad + r] =
-          pk::scan_bin(counts.data(), warps, stride, r);
-    }
-    for (int l = 0; l < block_w; ++l) {
-      const int32_t id = tile_ids[l];
-      rk[l] = pk::counted(id, n_roots_pad)
-                  ? rk[l] + counts[size_t(l / per_warp) * stride + id]
-                  : pk::rank_by_scan(tile_ids, l, id);
+      for (int w = 0; w < words; ++w) {          // the marked quads
+        for (int lane = 0; lane < pk::kWarp; ++lane) {
+          if (marked[w] >> lane & 1) {
+            pk::scan_quad(counts.data(), warps, bins, 4 * (32 * w + lane));
+          }
+        }
+      }
+      std::copy(counts.begin(), counts.begin() + len, h + lo);   // warp 0's
+      for (int l = 0; l < block_w; ++l) {
+        const int32_t id = tile_ids[l];
+        int32_t* out = rank + size_t(tile) * block_w + l;
+        if (pk::in_slice(id, lo, len)) {
+          *out = rk[l] + pk::earlier(counts.data(), l / per_warp, bins,
+                                     pk::bin_of(id, lo));
+        } else if (s == 0 && !pk::counted(id, n_roots_pad)) {
+          *out = pk::rank_by_scan(tile_ids, l, id);
+        }
+      }
+      for (int w = 0; w < words; ++w) {          // back to 0
+        for (int lane = 0; lane < pk::kWarp; ++lane) {
+          if (marked[w] >> lane & 1) {
+            pk::clear_quad(counts.data(), warps, bins, 4 * (32 * w + lane));
+          }
+        }
+        marked[w] = 0;
+      }
     }
   }
 }

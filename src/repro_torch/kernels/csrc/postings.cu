@@ -13,30 +13,48 @@
 // operations a word and 2 a bin (O(block_w + n_roots) a tile): at 512
 // tiles of 2048 words and 2232 bins, 12.9 MB and 0.0039 ms.
 //
-// Two instances, picked by shape alone (pk::instance, postings.cuh):
+// Three instances, picked by shape alone (pk::instance, postings.cuh):
 //
-// counting (postings_count_kernel): one block a tile, one warp per 256
-// lanes. Each thread loads its 8 ids of the warp's lane run up front (8
-// coalesced loads in flight), while the block zeroes uint16 counters
-// [warps][n_roots_pad] in shared memory (35.7 KB at block_w 2048 and the
-// realistic 2232 bins). Each warp then walks its run 32 lanes at a time:
-// __ballot_sync of the counted flag and of each of the id's 12 low bits
-// (at 2232 bins) finds the lanes with the same id (on the card, faster
-// than __match_any_sync), the lowest of them reads and bumps the warp's
-// counter for it, __shfl_sync hands the old count to its peers, and a
-// lane's rank in the warp is that count plus its peers in lower lanes.
-// After a barrier, one thread a bin scans the bin down the warps (the
-// total is hist[tile, r], written coalesced; each warp's counter becomes
-// the count in earlier warps), and after another each lane adds its
-// warp's count to its rank. Three barriers a tile, no
-// sort, and ranks in lane order (no atomic decides one). An id outside [0,
+// counting and sliced (postings_count_kernel, one kernel): a grid of
+// (tile, slice of the tile's bins) blocks, one warp per 256 lanes. The
+// counting instance is the one-slice case, for shapes whose uint16
+// counters [warps][n_roots_pad] fit one block's shared memory (35.7 KB at
+// block_w 2048 and the realistic 2232 bins); the sliced one cuts the row
+// into slices of pk::kSliceCounters / warps bins (4096 at block_w 2048:
+// 64 KB of counters a block, 3 blocks an SM), and a block takes
+// pk::kSlicesPerBlock (4) of its tile's slices one after another, so at an
+// index chunk of the 262,144-key vocabulary (64 tiles, 262,145 bins, 65
+// slices) it runs 64 x 17 blocks. Each thread loads its 8 ids of the
+// warp's lane run up front (8 coalesced loads in flight, from L2 for the
+// sliced blocks that share a tile) while the block zeroes its counters
+// once. Each warp then walks its run 32 lanes at a time: __ballot_sync
+// of "in this slice" skips a group with no such lane; for the others,
+// ballots of each of the id's low bits within the slice (12 at 4096 bins
+// and at 2232) find the lanes with the same id (on the card, faster than
+// __match_any_sync), the lowest of them reads and bumps the warp's
+// counter for it and marks its quad of four bins in a bitmap,
+// __shfl_sync hands the old count to its peers, and a lane's rank in the
+// warp is that count plus its peers in lower lanes. After a barrier, the
+// marked quads only are scanned down the warps (one 8-byte shared load
+// and store a warp; warp 0's counters become the totals, the others the
+// count in earlier warps); after another, the block writes its slice of
+// hist[tile] from warp 0's counters densely and coalesced, zeros
+// included, 16 bytes a thread between 16-byte boundaries, and each lane
+// in the slice adds its warp's earlier count to its rank. Then the marked
+// quads and the bitmap go back to 0 for the block's next slice. No sort,
+// and ranks in lane order (no atomic decides one). An id outside [0,
 // n_roots_pad), which the contract excludes, gets the plain version's
-// answer: no histogram entry, and a rank counted by a loop over the
-// earlier lanes of the tile.
+// answer from slice 0 alone: no histogram entry, and a rank counted by a
+// loop over the earlier lanes of the tile.
+//
+// What bounds the sliced instance: the dense histogram it must write
+// (67 MB at the 262,144-key index chunk, 0.020 ms at 3.35 TB/s). A
+// 2048-lane tile has at most 2048 non-zero bins of 262,145, so the
+// counting itself is small: each slice does it only for the groups that
+// hold one of its ids, and scans only the quads they marked.
 //
 // bitonic (postings_kernel, unchanged from the sort-based design), for
-// shapes whose counters do not fit one block's shared memory (vocabularies
-// past ~14,500 roots at block_w 2048) or tiles past 8192 lanes: the
+// tiles past 8192 lanes, which the counting instances do not take: the
 // composite keys id * block_w + lane go into shared memory, a bitonic
 // network sorts them in place (log2(block_w) * (log2(block_w) + 1) / 2
 // stages, each one compare-exchange a thread and a block-wide barrier),
@@ -92,20 +110,26 @@ postings_kernel(const int32_t* __restrict__ ids, int32_t* __restrict__ hist,
   }
 }
 
-// One block of pk::count_warps(block_w) warps a tile.
-__global__ void __launch_bounds__(pk::kMaxWarps * pk::kWarp)
+// Grid (n_tiles, pk::slice_blocks(n_slices)): block (t, y) counts bins
+// [s * bins, + bins) of tile t for s = y, y + gridDim.y, ..., with
+// pk::count_warps(block_w) warps; dynamic shared memory pk::slice_smem.
+// (a minimum of one block an SM: without it ptxas keeps 32 registers and
+// spills, and the kernel is 25-30% slower; chip_k5_slices.py)
+__global__ void __launch_bounds__(pk::kMaxWarps * pk::kWarp, 1)
 postings_count_kernel(const int32_t* __restrict__ ids,
                       int32_t* __restrict__ hist, int32_t* __restrict__ rank,
-                      int block_w, int n_roots_pad) {
+                      int block_w, int n_roots_pad, int bins, int n_slices) {
   extern __shared__ uint4 smem_counts[];
   uint16_t* counts = reinterpret_cast<uint16_t*>(smem_counts);
   const int warps = blockDim.x / pk::kWarp;
+  // the bitmap of marked quads, after the counters (16-byte aligned)
+  uint32_t* marked = reinterpret_cast<uint32_t*>(counts + warps * bins);
+  const int words = pk::quad_words(bins);
   const int warp = threadIdx.x / pk::kWarp, lane = threadIdx.x % pk::kWarp;
   const int per_warp = block_w / warps;
   const int groups = (per_warp + pk::kWarp - 1) / pk::kWarp;
   const int width = per_warp < pk::kWarp ? per_warp : pk::kWarp;
   const bool live = lane < width;
-  const int stride = pk::count_stride(n_roots_pad);
   const size_t tile = blockIdx.x;
   const int32_t* tile_ids = ids + tile * block_w;
   const int first = warp * per_warp + lane;
@@ -114,49 +138,91 @@ postings_count_kernel(const int32_t* __restrict__ ids,
   for (int g = 0; g < pk::kMaxGroups; ++g) {
     id[g] = g < groups && live ? __ldg(tile_ids + first + pk::kWarp * g) : 0;
   }
-  for (int q = threadIdx.x; q < warps * stride / 8; q += blockDim.x) {
+  for (int q = threadIdx.x; q < warps * bins / 8; q += blockDim.x) {
     smem_counts[q] = make_uint4(0, 0, 0, 0);
   }
-  __syncthreads();
-  uint16_t* mine = counts + warp * stride;
+  for (int i = threadIdx.x; i < words; i += blockDim.x) marked[i] = 0;
+  uint16_t* mine = counts + warp * bins;
   const uint32_t active = width == pk::kWarp ? 0xffffffffu
                                              : (1u << width) - 1u;
-  const int bits = pk::id_bits(n_roots_pad);
-  int32_t rk[pk::kMaxGroups];
-  if (live) {
+  int32_t* out = rank + tile * block_w;
+  for (int s = blockIdx.y; s < n_slices; s += gridDim.y) {
+    const int lo = s * bins;
+    const int len = min(bins, n_roots_pad - lo);
+    __syncthreads();                 // the counters and bitmap are all 0
+    const int bits = pk::id_bits(len);
+    int32_t rk[pk::kMaxGroups];
+    if (live) {
 #pragma unroll
-    for (int g = 0; g < pk::kMaxGroups; ++g) {
-      if (g < groups) {
-        const bool ok = pk::counted(id[g], n_roots_pad);
-        uint32_t peers = pk::narrow(active, __ballot_sync(active, ok), ok);
+      for (int g = 0; g < pk::kMaxGroups; ++g) {
+        rk[g] = 0;
+        if (g >= groups) continue;
+        const bool in = pk::in_slice(id[g], lo, len);
+        const uint32_t any = __ballot_sync(active, in);
+        if (any == 0) continue;      // warp-uniform: no lane in the slice
+        const uint32_t bin = pk::bin_of(id[g], lo);
+        uint32_t peers = pk::narrow(active, any, in);
         for (int b = 0; b < bits; ++b) {
-          const bool set = (id[g] >> b) & 1;
+          const bool set = (bin >> b) & 1;
           peers = pk::narrow(peers, __ballot_sync(active, set), set);
         }
         const int leader = pk::lowest_lane(peers);
         uint32_t base = 0;
-        if (lane == leader && ok) base = pk::bump(mine, id[g], peers);
+        if (lane == leader && in) {
+          base = pk::bump(mine, bin, peers);
+          pk::mark(marked, bin);
+        }
         base = __shfl_sync(active, base, leader);
         rk[g] = pk::group_rank(base, peers, lane);
         __syncwarp(active);          // the counter's update before the next
       }
     }
-  }
-  __syncthreads();
-  int32_t* h = hist + tile * n_roots_pad;
-  for (int r = threadIdx.x; r < n_roots_pad; r += blockDim.x) {
-    h[r] = pk::scan_bin(counts, warps, stride, r);
-  }
-  __syncthreads();
-  if (!live) return;
-  int32_t* out = rank + tile * block_w;
+    __syncthreads();
+    // the marked quads down the warps, a warp a bitmap word at a time
+    for (int w = warp; w < words; w += warps) {
+      if (marked[w] >> lane & 1) {
+        pk::scan_quad(counts, warps, bins, 4 * (pk::kWarp * w + lane));
+      }
+    }
+    __syncthreads();
+    // the slice of hist[tile] from warp 0's row, zeros included: 16-byte
+    // stores between the 16-byte boundaries, single words before and after
+    int32_t* h = hist + tile * n_roots_pad + lo;
+    const int head = min(len, (4 - int(reinterpret_cast<uintptr_t>(h) & 15)
+                                   / 4) & 3);
+    const int tail = head + ((len - head) & ~3);
+    if (int(threadIdx.x) < head) h[threadIdx.x] = counts[threadIdx.x];
+    if (int(threadIdx.x) < len - tail) {
+      h[tail + threadIdx.x] = counts[tail + threadIdx.x];
+    }
+    for (int r = head + 4 * threadIdx.x; r < tail; r += 4 * blockDim.x) {
+      *reinterpret_cast<int4*>(h + r) = make_int4(
+          counts[r], counts[r + 1], counts[r + 2], counts[r + 3]);
+    }
+    if (live) {
 #pragma unroll
-  for (int g = 0; g < pk::kMaxGroups; ++g) {
-    if (g < groups) {
-      const int l = first + pk::kWarp * g;
-      out[l] = pk::counted(id[g], n_roots_pad)
-                   ? rk[g] + mine[id[g]]
-                   : pk::rank_by_scan(tile_ids, l, id[g]);
+      for (int g = 0; g < pk::kMaxGroups; ++g) {
+        if (g < groups) {
+          const int l = first + pk::kWarp * g;
+          if (pk::in_slice(id[g], lo, len)) {
+            out[l] = rk[g] + pk::earlier(counts, warp, bins,
+                                         pk::bin_of(id[g], lo));
+          } else if (s == 0 && !pk::counted(id[g], n_roots_pad)) {
+            out[l] = pk::rank_by_scan(tile_ids, l, id[g]);
+          }
+        }
+      }
+    }
+    if (s + gridDim.y < n_slices) {  // the marked quads back to 0
+      __syncthreads();
+      for (int w = warp; w < words; w += warps) {
+        const uint32_t word = marked[w];
+        if (word >> lane & 1) {
+          pk::clear_quad(counts, warps, bins, 4 * (pk::kWarp * w + lane));
+        }
+        __syncwarp();
+        if (lane == 0) marked[w] = 0;
+      }
     }
   }
 }
@@ -169,7 +235,8 @@ cudaError_t allow_smem(const void* kernel, size_t smem) {
 
 }  // namespace
 
-// The instance a launch of this shape takes: 1 counting, 0 bitonic.
+// The instance a launch of this shape takes: 0 bitonic, 1 counting, 2
+// sliced.
 extern "C" int postings_instance(int block_w, int n_roots_pad, int max_smem) {
   return pk::instance(block_w, n_roots_pad, size_t(max_smem));
 }
@@ -180,10 +247,10 @@ extern "C" int postings_instance(int block_w, int n_roots_pad, int max_smem) {
 // block_w]. max_smem is one block's shared-memory budget in bytes; it
 // picks the instance (postings_instance). The bitonic instance takes ids
 // in [0, n_roots_pad) (or any whose composite keys fit int32); the
-// counting one any int32. scratch is int32[n_tiles, block_w] when the
-// bitonic instance runs and 4 * block_w exceeds max_smem (the keys then
-// sort there), else unused and may be null. Launches on `stream` and
-// returns the CUDA error code (0 on success) of the launch.
+// counting and sliced ones any int32. scratch is int32[n_tiles, block_w]
+// when the bitonic instance runs and 4 * block_w exceeds max_smem (the
+// keys then sort there), else unused and may be null. Launches on
+// `stream` and returns the CUDA error code (0 on success) of the launch.
 extern "C" int postings_launch(const void* ids, int n_tiles, int block_w,
                                int n_roots_pad, void* hist, void* rank,
                                void* scratch, int max_smem, void* stream) {
@@ -196,13 +263,18 @@ extern "C" int postings_launch(const void* ids, int n_tiles, int block_w,
   auto* h = static_cast<int32_t*>(hist);
   auto* r = static_cast<int32_t*>(rank);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (pk::instance(block_w, n_roots_pad, size_t(max_smem)) == pk::kCounting) {
-    const size_t smem = pk::count_smem(block_w, n_roots_pad);
+  const int inst = pk::instance(block_w, n_roots_pad, size_t(max_smem));
+  if (inst != pk::kBitonic) {
+    const int bins = pk::slice_bins(inst, block_w, n_roots_pad);
+    const int n_slices = pk::slice_count(n_roots_pad, bins);
+    const size_t smem = pk::slice_smem(block_w, bins);
     const cudaError_t e =
         allow_smem(reinterpret_cast<const void*>(postings_count_kernel), smem);
     if (e != cudaSuccess) return int(e);
-    postings_count_kernel<<<n_tiles, pk::kWarp * pk::count_warps(block_w),
-                            smem, s>>>(in, h, r, block_w, n_roots_pad);
+    const dim3 grid(unsigned(n_tiles), unsigned(pk::slice_blocks(n_slices)));
+    postings_count_kernel<<<grid, pk::kWarp * pk::count_warps(block_w), smem,
+                            s>>>(in, h, r, block_w, n_roots_pad, bins,
+                                 n_slices);
     return int(cudaGetLastError());
   }
   int log_bw = 0;

@@ -16,14 +16,17 @@ plain PyTorch, as the reference does it outside its kernel.
   postings_cuda   the CUDA kernel, ``csrc/postings.cu`` with the tile steps
                   in ``csrc/postings.cuh`` (replaces
                   ``repro/kernels/postings.py:92``, ``_postings_kernel``),
-                  two instances picked by shape alone (:func:`_instance`):
+                  three instances picked by shape alone (:func:`_instance`):
                   "counting" counts the ids warp by warp in shared-memory
                   counters (ranks in lane order, three barriers a tile, no
-                  sort); "bitonic", for counters that do not fit one
-                  block's shared memory or tiles past COUNT_MAX_BLOCK_W,
-                  sorts the composite keys with a bitonic network in
-                  shared memory (in a global-memory scratch row past
-                  MAX_BLOCK_W) and bisects them
+                  sort); "sliced", for counters that do not fit one
+                  block's shared memory, runs the same count in one block
+                  per (tile, slice of SLICE_COUNTERS / warps bins), each
+                  block counting only its slice's ids (counting is its
+                  one-slice case); "bitonic", for tiles past
+                  COUNT_MAX_BLOCK_W, sorts the composite keys with a
+                  bitonic network in shared memory (in a global-memory
+                  scratch row past MAX_BLOCK_W) and bisects them
 
 :func:`postings` takes the plain version for a CPU tensor only; a CUDA
 tensor launches the kernel or raises.
@@ -41,23 +44,41 @@ MAX_COMPOSITE = 1 << 31
 # The largest pow2 tile whose keys (4 B each) the bitonic instance sorts in
 # one block's shared memory; wider tiles sort in a global-memory scratch row.
 MAX_BLOCK_W = 1 << ((SMEM_BLOCK_BYTES // 4).bit_length() - 1)
-# The counting instance (postings.cuh): a warp per COUNT_LANES_PER_WARP
-# lanes, at most 32 warps, uint16 counters [warps][n_roots + 1 rounded up
-# to 8] in shared memory.
+# The counting instances (postings.cuh): a warp per COUNT_LANES_PER_WARP
+# lanes, at most 32 warps, uint16 counters [warps][bins] and a bitmap of
+# the bins' quads in shared memory: the whole row of n_roots + 1 bins
+# rounded up to 8 ("counting") or, where that does not fit,
+# SLICE_COUNTERS / warps bins a block ("sliced").
 COUNT_LANES_PER_WARP = 256
 COUNT_MAX_BLOCK_W = 32 * COUNT_LANES_PER_WARP
+SLICE_COUNTERS = 32768
 
 
 def _instance(n_roots: int, block_w: int) -> str:
     """The K5 instance a launch takes, by shape alone (the C side's
-    ``postings_instance``): ``"counting"`` while block_w <=
-    COUNT_MAX_BLOCK_W and its counters fit one block's shared memory,
-    else ``"bitonic"``."""
-    warps = max(1, block_w // COUNT_LANES_PER_WARP)
-    counters = warps * (-(-(n_roots + 1) // 8) * 8)
-    fits = (block_w <= COUNT_MAX_BLOCK_W
-            and 2 * counters <= SMEM_BLOCK_BYTES)
-    return "counting" if fits else "bitonic"
+    ``postings_instance``): ``"bitonic"`` past COUNT_MAX_BLOCK_W, else
+    ``"counting"`` while its counters fit one block's shared memory, else
+    ``"sliced"``."""
+    if block_w > COUNT_MAX_BLOCK_W:
+        return "bitonic"
+    bins = -(-(n_roots + 1) // 8) * 8
+    # uint16 counters a warp and a bitmap of 4-bin quads (postings.cuh)
+    smem = 2 * _count_warps(block_w) * bins + 4 * -(-bins // 128)
+    return "counting" if smem <= SMEM_BLOCK_BYTES else "sliced"
+
+
+def _count_warps(block_w: int) -> int:
+    return max(1, block_w // COUNT_LANES_PER_WARP)
+
+
+def slices(n_roots: int, block_w: int) -> tuple[int, int]:
+    """-> (bins a block counts, slices a tile) of a counting or sliced
+    launch (postings.cuh's ``slice_bins`` and ``slice_count``)."""
+    n_roots_pad = n_roots + 1
+    if _instance(n_roots, block_w) == "counting":
+        return -(-n_roots_pad // 8) * 8, 1
+    bins = SLICE_COUNTERS // _count_warps(block_w)
+    return bins, -(-n_roots_pad // bins)
 
 
 def check_block_w(block_w: int, n_roots: int) -> None:
@@ -137,7 +158,7 @@ def postings_cuda(tiles: torch.Tensor, *, n_roots: int, block_w: int):
 
 
 postings_cuda.launches = 0
-postings_cuda.instances = {"counting": 0, "bitonic": 0}
+postings_cuda.instances = {"counting": 0, "sliced": 0, "bitonic": 0}
 CUDA_WRAPPERS = (postings_cuda,)
 
 

@@ -1,9 +1,10 @@
 """The port's postings kernel (K5, repro_torch.kernels.postings) against the
 JAX package: the plain version against the interpret-mode Pallas kernel,
-the guards, the g++ build of both instances' tile steps (the counting
-instance's warps run group by group with their ballots over the lanes in
-order; the bitonic network stage by stage), the instance rule, and the
-global half (finish_postings). Every compared output is int32 and must be
+the guards, the g++ build of the three instances' tile steps (the counting
+and sliced instances' blocks one after another, their warps group by
+group with their ballots over the lanes in order; the bitonic network
+stage by stage), the instance rule, and the global half
+(finish_postings). Every compared output is int32 and must be
 identical."""
 import numpy as np
 import pytest
@@ -165,20 +166,121 @@ def test_host_build_of_bitonic_instance_takes_out_of_range_ids(block_w):
         np.testing.assert_array_equal(g, w.numpy())
 
 
+# the 262,144-key dictionary's vocabulary: its counters fit no block
+BIG_VOCAB = 262_143
+SLICED_CASES = ("all dropped", "one root", "zipf", "slice edges",
+                "out of range")
+
+
+def _big_vocab_ids(case: str, w: int, seed: int, block_w: int,
+                   n_roots: int = BIG_VOCAB) -> np.ndarray:
+    """ids int32[w] over n_roots roots for one of SLICED_CASES: the drop
+    bucket only; one root; a Zipf draw whose ranks are spread over the ids
+    (an odd multiplier, coprime to 2^18 and to 2^18 + 1); the ids on both
+    sides of every slice edge of a ``block_w`` launch, and the first and
+    last bins; the Zipf draw with 1 in 10 ids outside [0, n_roots]."""
+    rng = np.random.default_rng(seed)
+    n_pad = n_roots + 1
+    if case == "all dropped":
+        return np.full(w, n_roots, np.int32)
+    if case == "one root":
+        return np.full(w, rng.integers(n_roots), np.int32)
+    if case == "slice edges":
+        bins, n_slices = tpk.slices(n_roots, block_w)
+        edges = np.arange(1, n_slices) * bins
+        values = np.concatenate([edges - 1, edges, [0, n_roots]])
+        return rng.choice(values, size=w).astype(np.int32)
+    ranks = (rng.zipf(1.3, size=w) - 1) % n_pad
+    ids = (ranks * 40_503 + 11) % n_pad
+    if case == "out of range":
+        bad = rng.random(w) < 0.1
+        extra = np.concatenate([OUT_OF_RANGE, [n_pad, n_pad + 8]])
+        ids[bad] = rng.choice(extra, size=int(bad.sum()))
+    return ids.astype(np.int32)
+
+
+@pytest.mark.parametrize("case", SLICED_CASES)
+@pytest.mark.parametrize("block_w", [128, 2048, 4096])
+@pytest.mark.parametrize("n_roots", [BIG_VOCAB, BIG_VOCAB + 1])
+def test_host_build_of_sliced_instance_matches_plain(n_roots, block_w, case):
+    """The g++ build of the sliced instance (postings.cuh; a tile's slices
+    one after another in one block's counters) against the plain version,
+    bit for bit, over the 262,144-key vocabulary: three tiles, the last
+    padded with drop ids. At BIG_VOCAB + 1 roots (the 262,144-key
+    dictionary's own vocabulary, 262,145 bins) the last slice holds the
+    drop bucket alone and the histogram rows are not 16-byte aligned."""
+    assert tpk._instance(n_roots, block_w) == "sliced"
+    ids = _big_vocab_ids(case, 2 * block_w + block_w // 2 + 1, block_w,
+                         block_w, n_roots)
+    tiles = tpk.pad_ids(torch.from_numpy(ids), n_roots=n_roots,
+                        block_w=block_w)
+    want_h, want_r = tpk.postings_plain(tiles, n_roots=n_roots,
+                                        block_w=block_w)
+    got_h, got_r = build.host_postings(tiles.numpy(), n_roots=n_roots,
+                                       block_w=block_w, instance="sliced")
+    np.testing.assert_array_equal(got_h, want_h.numpy())
+    np.testing.assert_array_equal(got_r, want_r.numpy())
+    if case == "slice edges":
+        bins = tpk.slices(n_roots, block_w)[0]
+        assert (got_h[:, bins - 1] > 0).any() and (got_h[:, bins] > 0).any()
+
+
+def test_sliced_instance_matches_pallas():
+    """The sliced instance's g++ build against the interpret-mode Pallas
+    kernel, on Zipf ids of the 262,144-key vocabulary (two tiles)."""
+    block_w = 128
+    ids = _big_vocab_ids("zipf", 2 * block_w, 5, block_w)
+    want_h, want_r = rpk.postings_pallas(jnp.asarray(ids), n_roots=BIG_VOCAB,
+                                         block_w=block_w, interpret=True)
+    got_h, got_r = build.host_postings(ids, n_roots=BIG_VOCAB,
+                                       block_w=block_w, instance="sliced")
+    np.testing.assert_array_equal(got_h, np.asarray(want_h))
+    np.testing.assert_array_equal(got_r, np.asarray(want_r))
+
+
+@pytest.mark.parametrize("case", ("realistic", "out of range"))
+def test_counting_instance_is_the_one_slice_case(case):
+    """At the realistic vocabulary the counting instance's one slice and
+    the sliced instance's two (2048 bins a block at block_w 4096) give
+    the plain version's hist and rank."""
+    block_w = 4096
+    ids, n_roots = _case_ids(case, 3 * block_w, seed=3)
+    tiles = tpk.pad_ids(torch.from_numpy(ids), n_roots=n_roots,
+                        block_w=block_w)
+    want = tpk.postings_plain(tiles, n_roots=n_roots, block_w=block_w)
+    assert build.host_postings_slice_bins(
+        n_roots=n_roots, block_w=block_w, instance="sliced") < n_roots + 1
+    for instance in ("counting", "sliced"):
+        got = build.host_postings(tiles.numpy(), n_roots=n_roots,
+                                  block_w=block_w, instance=instance)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w.numpy())
+
+
 @pytest.mark.parametrize("block_w", [1, 16, 256, 2048, 8192, 16384])
 def test_instance_rule_matches_the_header(block_w):
     """kernels/postings.py:_instance picks what postings.cuh's rule picks:
-    counting while block_w <= 8192 and the counters fit one block's shared
-    memory; the realistic vocabulary at the index path's block_w 2048 is
-    counted, the 262,144-key dictionary's is sorted."""
-    for n_roots in (0, 1, 2231, 14_000, 14_600, 59_000, 120_000, 262_143):
+    bitonic past 8192 lanes, else counting while the counters fit one
+    block's shared memory, else sliced; ``slices`` gives the header's bins
+    a block. The realistic vocabulary at the index path's block_w 2048 is
+    counted in one slice, the 262,144-key dictionary's in slices of 4096
+    bins."""
+    for n_roots in (0, 1, 2231, 14_000, 14_600, 59_000, 120_000, BIG_VOCAB):
         if (n_roots + 1) * block_w >= tpk.MAX_COMPOSITE:
             continue
         want = build.host_postings_instance(
             n_roots=n_roots, block_w=block_w, max_smem=tpk.SMEM_BLOCK_BYTES)
-        assert tpk._instance(n_roots, block_w) == want, (n_roots, block_w)
+        instance = tpk._instance(n_roots, block_w)
+        assert instance == want, (n_roots, block_w)
+        if instance != "bitonic":
+            bins, n_slices = tpk.slices(n_roots, block_w)
+            assert bins == build.host_postings_slice_bins(
+                n_roots=n_roots, block_w=block_w, instance=instance)
+            assert (n_slices - 1) * bins < n_roots + 1 <= n_slices * bins
     assert tpk._instance(2231, 2048) == "counting"
-    assert tpk._instance(262_143, 2048) == "bitonic"
+    assert tpk.slices(2231, 2048) == (2232, 1)
+    assert tpk._instance(BIG_VOCAB, 2048) == "sliced"
+    assert tpk.slices(BIG_VOCAB, 2048) == (4096, 64)
     assert tpk._instance(2231, 16384) == "bitonic"
 
 
@@ -251,7 +353,8 @@ def test_reset_zeroes_instance_counts():
 
     tpk.postings_cuda.instances["counting"] += 3
     ops.reset_dispatch_count()
-    assert tpk.postings_cuda.instances == {"counting": 0, "bitonic": 0}
+    assert tpk.postings_cuda.instances == {"counting": 0, "sliced": 0,
+                                           "bitonic": 0}
     assert tpk.postings_cuda in ops.CUDA_WRAPPERS
 
 
@@ -270,22 +373,22 @@ def test_empty_and_cpu_wrapper():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("block_w", [1, 8, 32, 128, 1024, 2048, 8192, 1 << 16,
-                                     1 << 17])
+@pytest.mark.parametrize("block_w", [1, 8, 32, 128, 1024, 2048, 4096, 8192,
+                                     1 << 16, 1 << 17])
 def test_postings_kernel_matches_plain_on_card(block_w):
-    """Both instances, each launch on the instance its shape picks (by the
-    per-instance counter and by the library's own rule), ids outside
-    [0, n_roots] included where the instance takes them."""
+    """The three instances, each launch on the instance its shape picks
+    (by the per-instance counter and by the library's own rule), ids
+    outside [0, n_roots] included where the instance takes them."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     lib = build.postings_library()
     for n_roots, w in ((2231, 5 * block_w + 17), (1, 3 * block_w),
-                       (60, block_w), (262_143 if block_w <= 4096 else 60,
+                       (60, block_w), (BIG_VOCAB if block_w <= 4096 else 60,
                                        2 * block_w)):
         ids = _ids(n_roots, w, seed=w)
         instance = tpk._instance(n_roots, block_w)
         bad = np.random.default_rng(w).random(w) < 0.05
-        extra = OUT_OF_RANGE if instance == "counting" else np.array(
+        extra = OUT_OF_RANGE if instance != "bitonic" else np.array(
             [-1, -7, n_roots + 1, n_roots + 9], np.int32)
         ids[bad] = np.resize(extra, int(bad.sum()))
         tiles = tpk.pad_ids(torch.from_numpy(ids).cuda(), n_roots=n_roots,
@@ -296,6 +399,5 @@ def test_postings_kernel_matches_plain_on_card(block_w):
         want = tpk.postings_plain(tiles, n_roots=n_roots, block_w=block_w)
         assert all(torch.equal(g, x) for g, x in zip(got, want))
         assert tpk.postings_cuda.instances[instance] == before[instance] + 1
-        assert lib.postings_instance(block_w, n_roots + 1,
-                                     tpk.SMEM_BLOCK_BYTES) == (
-            instance == "counting")
+        assert build.POSTINGS_INSTANCES[lib.postings_instance(
+            block_w, n_roots + 1, tpk.SMEM_BLOCK_BYTES)] == instance
