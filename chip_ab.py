@@ -6,7 +6,11 @@ CUDA card.
 
 For the checkouts (other, this, this, other), in that order, a subprocess
 imports ``repro_torch`` from that checkout's ``src``, builds its kernels
-(into that checkout's ``build/``) and times K1, K2 and both K3 variants at
+(into that checkout's ``build/``) and times K6 at 128, 4096, 16,896,
+65,536 and 1,048,576 corpus words (each launch first held to the plain
+version; by the checkout's rule, with the lanes a word it took where the
+checkout records them, and at each lane count through the measurement
+builds where the checkout has them), K1, K2 and both K3 variants at
 ``block_b = N`` (default 256) on 4096 and 1,048,576 corpus words (K3 also
 with its flags in host-mapped memory, where the checkout has them), and K1
 as the index builds launch it (131,072 words at block_b 2048), with
@@ -63,7 +67,9 @@ def child(tree: Path, block_b: int) -> None:
 
     check_root = Path(sf.__file__).resolve().parents[3]
     cs.check(check_root == tree, f"imported {check_root}, not {tree}")
-    build_s, _ = build.build_cuda()
+    k6_forced = getattr(build, "CANDIDATE_LANES", ())
+    build_s, _ = build.build_cuda(**(
+        {"forced_candidates_lanes": k6_forced} if k6_forced else {}))
     dev = torch.device("cuda")
     realistic = stemmer.RootDictArrays.from_rootdict(
         corpus.build_dictionary(), device=dev)
@@ -76,6 +82,23 @@ def child(tree: Path, block_b: int) -> None:
         c.words for c in corpus.stream_corpus_words(
             max(SIZES), seed=0, chunk_words=65536)])).to(dev)
     out = {"tree": str(tree), "block_b": block_b, "build_s": build_s}
+    # K6 at a pipeline tick, a served request, 16,896 and 65,536 words,
+    # and 1M words
+    for b in (cs.K6_TICK_WORDS, SIZES[0], 16_896, 65_536, SIZES[1]):
+        w = words[:b]
+        want = sdp.stem_datapath_plain(w)
+        runs = {"K6": lambda: sdp.stem_datapath_cuda(w)}  # noqa: E731
+        for lanes in k6_forced:
+            runs[f"K6 at {lanes} lanes"] = \
+                lambda lanes=lanes: cs.forced_k6(lanes, w)  # noqa: E731
+        n = 20 if b == max(SIZES) else 200
+        for name, fn in runs.items():
+            if cs.same(fn(), want):
+                raise RuntimeError(f"chip_ab: {name} at B={b} differs from"
+                                   " the plain version")
+            out[f"{name} B={b}"] = cs.device_ms(fn, n, cs.call_ms(fn, n))
+        out[f"K6 lanes, B={b}"] = getattr(sdp.stem_datapath_cuda,
+                                          "last_lanes", None)
     visit_contract = "n_visits" in inspect.signature(
         sf.stem_streamed_cuda).parameters
     for b in SIZES:

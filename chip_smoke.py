@@ -70,7 +70,11 @@ next, and before 9):
                outside it; the overflow guard raises
   5f. K6-K8    the staged Compare path's kernels against their plain
                versions, bit for bit: K6 (the standalone datapath) over
-               batch sizes {0, 1, 257, 65536} x block_b {64, 256, 1024},
+               batch sizes {0, 1, 128, 257, 4096, 65536} x block_b {64,
+               256, 1024} by the launcher's rule (its lanes a word checked
+               against the g++ build of the rule,
+               build.host_candidate_lanes_rule) and at every lane count
+               (1, 2, 4, 8) through the measurement builds that fix it,
                zero pad columns; K7 (the banked comparator bank) over
                (block_n, block_r) {(1,1), (2,8), (4,2), (16,200)} x tables
                with and without padding, the grown quad table shuffled
@@ -306,13 +310,16 @@ next, and before 9):
                the roofline's compute term (989 TFLOP/s bf16)
   9. times     the launch floor (a one-element torch op, same timer);
                the registers and spills of every instance of the resident
-               kernels, K4 and K7/K8 (the build's -Xptxas -v log); each
+               kernels, K4, K6 and K7/K8 (the build's -Xptxas -v log); each
                kernel's device time with
                CUDA events at 4096 and
                1,048,576 words (K1 and K3 resident with their lanes a word
                and blocks, their bank instance too; K1 at 4096 words and at
                an index chunk, 131,072 words at block_b 2048, at each lane
-               count through measurement builds that fix it; K4: a served
+               count through measurement builds that fix it; K6 also at a
+               pipeline tick, 128 words, beside the launch floor, by the
+               rule and at each lane count through its measurement builds;
+               K4: a served
                request's tile and the 1,048,576-word tile, by the rule and
                at each lane count through its measurement builds; K5: an
                index chunk of 131,072 words and
@@ -408,7 +415,11 @@ K5_MAX_TILES = 512                  # the K5 parity cases' tiles at most
 # of 128, 2048 (the index path's) and 4096 lanes, at most 64 tiles a case
 K5_SLICED_BLOCK_WS = (128, 2048, 4096)
 K5_SLICED_TILES = 64
-K6_BATCHES = (0, 1, 257, 65536)
+# 128: a pipeline_map tick (phase 12); 4096: a served request
+K6_BATCHES = (0, 1, 128, 257, 4096, 65536)
+K6_TICK_WORDS = 128
+# phase 9: K6 at each lane count between a served request and 1M words
+K6_RULE_WORDS = (8192, 16_896, 65_536, 262_144)
 K6_BLOCKS = (64, 256, 1024)
 K7_BLOCKS = ((1, 1), (2, 8), (4, 2), (16, 200))
 K8_BLOCK_NS = (1, 8)
@@ -1170,11 +1181,17 @@ def k5_phase(pk, real_ids, n_roots, big_ids, n_big):
 
 
 def k6_phase(sdp, ops, words):
-    """The standalone datapath against its plain version on the card."""
+    """The standalone datapath against its plain version on the card: by
+    the launcher's rule at every block_b (its lanes a word equal to the
+    g++ build of the rule's) and at every lane count through the
+    measurement builds that fix it."""
     import torch
 
+    from repro_torch.kernels import build
+
     t0 = time.perf_counter()
-    worst, cases = 0, 0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    worst, cases, picked = 0, 0, {}
     for b in K6_BATCHES:
         w = words[:b]
         if b == 0:   # the wrapper returns early, no launch
@@ -1185,19 +1202,31 @@ def k6_phase(sdp, ops, words):
                   "K6 B=0 must return empty outputs, no launch")
             continue
         want = sdp.stem_datapath_plain(w)
-        for block_b in K6_BLOCKS:
-            got = sdp.stem_datapath_cuda(w, block_b=block_b)
+        picked[b] = build.host_candidate_lanes_rule(b, sms=sms)
+        runs = [(f"block_b={block_b}, the rule's {picked[b]} lanes",
+                 lambda block_b=block_b: sdp.stem_datapath_cuda(
+                     w, block_b=block_b)) for block_b in K6_BLOCKS]
+        runs += [(f"{lanes} lanes forced",
+                  lambda lanes=lanes: forced_k6(lanes, w))
+                 for lanes in build.CANDIDATE_LANES]
+        for label, fn in runs:
+            got = fn()
             torch.cuda.synchronize()
             bad = same(got, want)
             worst = max(worst, max_err(got, want))
             cases += 1
             check(bad == 0 and not got[0][:, 30:].any()
                   and not got[1][:, 30:].any(),
-                  f"K6 vs plain: {bad} rows differ (B={b}, block_b="
-                  f"{block_b}), or a pad column is not zero")
-    print(f"[K6] B in {K6_BATCHES} x block_b in {K6_BLOCKS}: {cases}"
-          f" launches identical to the plain version, pad columns zero,"
-          f" max_abs_err {worst} ({time.perf_counter() - t0:.1f} s)")
+                  f"K6 vs plain: {bad} rows differ (B={b}, {label}), or a"
+                  " pad column is not zero")
+        check(sdp.stem_datapath_cuda.last_lanes == picked[b],
+              f"K6 B={b} took {sdp.stem_datapath_cuda.last_lanes} lanes a"
+              f" word, the rule {picked[b]}")
+    print(f"[K6] B in {K6_BATCHES} x (block_b in {K6_BLOCKS} by the rule,"
+          f" lanes a word {picked} on {sms} SMs; lanes"
+          f" {build.CANDIDATE_LANES} forced): {cases} launches identical to"
+          f" the plain version, pad columns zero, max_abs_err {worst}"
+          f" ({time.perf_counter() - t0:.1f} s)")
     return worst
 
 
@@ -4025,17 +4054,21 @@ def example_phase(tm, pm) -> dict:
 
 def instance_registers(libs: dict) -> list:
     """Registers and spills of every kernel instance of the resident
-    kernels (K1, K3 resident), K4 and K7/K8, from the build's -Xptxas -v
-    log: one line each, its template arguments decoded."""
+    kernels (K1, K3 resident), K4, K6 and K7/K8, from the build's -Xptxas
+    -v log: one line each, its template arguments decoded."""
     resident = re.compile(r"resident_kernelILi(\d)ELb(\d)ELi(\d)ELb(\d)E")
     pats = {"stem_fused": resident, "stem_persistent": resident,
             "text_frontend": re.compile(r"text_frontend_kernelILi(\d+)E"),
+            "stem_candidates": re.compile(
+                r"stem_candidates_kernelILi(\d+)E"),
             "dict_match": re.compile(
                 r"dict_bank_kernel|dict_bsearch_kernelILi(\d)E")}
 
     def label(name, m):
         if name == "text_frontend":
             return f"K4, {m.group(1)} lanes a word"
+        if name == "stem_candidates":
+            return f"K6, {m.group(1)} lanes a word"
         if name == "dict_match":
             if m.group(1) is None:
                 return "K7, the banks"
@@ -4113,6 +4146,25 @@ def forced_k4(lanes: int, tile, starts, lens, block_w: int = 128):
     check(err == 0, f"K4 measurement build at {lanes} lanes: CUDA error"
           f" {err}")
     return words
+
+
+def forced_k6(lanes: int, w):
+    """K6's launch through a measurement build that fixes its lanes a word
+    (build.forced_candidates_lanes_library), as the wrapper makes it;
+    counted nowhere."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    lib = build.forced_candidates_lanes_library(lanes)
+    keys = torch.empty((w.shape[0], 32), dtype=torch.int32, device=w.device)
+    valid = torch.empty_like(keys)
+    err = lib.stem_candidates_launch(
+        w.data_ptr(), w.shape[0], keys.data_ptr(), valid.data_ptr(),
+        torch.cuda.current_stream(w.device).cuda_stream)
+    check(err == 0, f"K6 measurement build at {lanes} lanes: CUDA error"
+          f" {err}")
+    return keys, valid
 
 
 def request_tile(tn, docs):
@@ -4254,8 +4306,9 @@ def main() -> int:
     print("[card] TF32 off for fp32 matrix products and convolutions")
 
     # ---- 2. build --------------------------------------------------------
-    build_s, libs = build.build_cuda(forced_lanes=FORCED_LANES,
-                                     forced_text_lanes=build.TEXT_LANES)
+    build_s, libs = build.build_cuda(
+        forced_lanes=FORCED_LANES, forced_text_lanes=build.TEXT_LANES,
+        forced_candidates_lanes=build.CANDIDATE_LANES)
     print(f"[build] {len(libs)} kernel libraries built in {build_s:.1f} s")
     # phase 11's dry run, on the host's CPU beside the phases to come
     dry = start_dryrun()
@@ -4886,9 +4939,61 @@ def main() -> int:
               f" ({bd['n_bytes']} B, {bd['n_ops']} int32 ops):"
               f" {bd['bound_ms'] / ms:.6f} of the bound,"
               f" {lib_ms / ms:.6f}x torch.sort's speed")
-    # K6 at 4096 and 1M words; K7 and K8 on the tri group's keys of those
-    # words (6 a word, against the realistic tri table), as the staged path
-    # gives them, with torch.isin of the same keys beside them
+    # K6 at a pipeline tick, a served request and 1M words, by the rule
+    # beside its bound and the launch floor, and at each lane count through
+    # the measurement builds that fix it (the answers do not change)
+    for b in (K6_TICK_WORDS, SERVE_REQUEST_WORDS, SERVE_WORDS):
+        w = staged_words[:b]
+        kernel = lambda: sdp.stem_datapath_cuda(w)  # noqa: E731
+        plain = lambda: sdp.stem_datapath_plain(w)  # noqa: E731
+        want = plain()
+        check(same(kernel(), want) == 0,
+              f"timed shape B={b}: K6 differs from its plain version")
+        n_k = 10 if b == SERVE_WORDS else 200
+        k_call = call_ms(kernel, n_k)
+        ms = device_ms(kernel, n_k, k_call)
+        rule = (sdp.stem_datapath_cuda.last_lanes,
+                sdp.stem_datapath_cuda.last_grid)
+        plain_ms = call_ms(plain, 2 if b == SERVE_WORDS else 10)
+        bd = bound(b * K6_BYTES_PER_WORD, b * DATAPATH_OPS_PER_WORD)
+        times[("K6", b)] = dict(ms=ms, call_ms=k_call, plain_ms=plain_ms,
+                                library_ms=None, lanes=rule[0], **bd)
+        by_lanes = []
+        for lanes in build.CANDIDATE_LANES:
+            forced = lambda: forced_k6(lanes, w)  # noqa: E731
+            check(same(forced(), want) == 0, f"timed shape B={b}: K6 at"
+                  f" {lanes} lanes differs from its plain version")
+            f_ms = device_ms(forced, n_k, call_ms(forced, n_k))
+            by_lanes.append(f"{lanes} {f_ms:.6f}")
+        print(f"[times] K6 B={b}: {ms:.6f} ms on the card at the rule's"
+              f" {rule[0]} lanes a word, {rule[1]} blocks ({k_call:.6f} ms"
+              f" a call with the host), plain {plain_ms:.6f} ms a call,"
+              f" bound {bd['bound_ms']:.6f} ms by {bd['bound_by']}"
+              f" ({bd['n_bytes']} B, {bd['n_ops']} int32 ops), launch floor"
+              f" {floor_ms:.6f} ms: {bd['bound_ms'] / ms:.6f} of the bound,"
+              f" {ms / floor_ms:.6f}x the floor; no single PyTorch call"
+              " computes stages 1-4, library_ms null; by lanes a word"
+              " (measurement builds), ms: " + ", ".join(by_lanes))
+    # K6 at each lane count between a served request and 1M words, where
+    # its rule takes 8 lanes a word
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b in K6_RULE_WORDS:
+        w = staged_words[:b]
+        want = sdp.stem_datapath_plain(w)
+        by_lanes = []
+        for lanes in build.CANDIDATE_LANES:
+            forced = lambda: forced_k6(lanes, w)  # noqa: E731
+            check(same(forced(), want) == 0, f"K6 at B={b}, {lanes} lanes,"
+                  " differs from its plain version")
+            f_ms = device_ms(forced, 50, call_ms(forced, 50))
+            by_lanes.append(f"{lanes} {f_ms:.6f}")
+        print(f"[times] K6 lane rule, B={b}: the rule's"
+              f" {build.host_candidate_lanes_rule(b, sms=sms)} lanes a word"
+              f" on {sms} SMs; by lanes a word (measurement builds), ms: "
+              + ", ".join(by_lanes))
+    # K7 and K8 on the tri group's keys of 4096 and 1M words (6 a word,
+    # against the realistic tri table), as the staged path gives them,
+    # with torch.isin of the same keys beside them
     tri_bank = sm.pad_dict_bank(realistic.tri, 8).numel()
     tri_sorted = sm.pad_dict_sorted(realistic.tri).numel()
     tri_steps = (tri_sorted - 1).bit_length()
@@ -4903,10 +5008,6 @@ def main() -> int:
         # sorted search, ceil(log2 Rp) probes a key, whatever computes it
         member_ops = n * tri_steps * OPS_PER_PROBE
         runs = {
-            "K6": (lambda: sdp.stem_datapath_cuda(w),
-                   lambda: sdp.stem_datapath_plain(w), None,
-                   bound(b * K6_BYTES_PER_WORD, b * DATAPATH_OPS_PER_WORD),
-                   "no single PyTorch call computes stages 1-4"),
             "K7": (lambda: sm.dict_match_cuda(k, realistic.tri),
                    lambda: sm.dict_match_plain(k, realistic.tri),
                    lambda: torch.isin(k, realistic.tri),
@@ -5195,10 +5296,14 @@ def main() -> int:
                    + more_k5.get("bitonic", 0), k5_err,
                    shape="1M words, block_w 65536"),
              parity_launches=k5_checked["bitonic"]),
-        entry("stem_candidates", "K6", csrc + "stem_candidates.cu",
-              "src/repro/kernels/stem_datapath.py:121",
-              staged["K6+K7"][0]["stem_datapath_cuda"]
-              + more.get("stem_datapath_cuda", 0), k6_err),
+        # the lanes a word the rule took at a pipeline tick, a served
+        # request and 1M words
+        dict(entry("stem_candidates", "K6", csrc + "stem_candidates.cu",
+                   "src/repro/kernels/stem_datapath.py:121",
+                   staged["K6+K7"][0]["stem_datapath_cuda"]
+                   + more.get("stem_datapath_cuda", 0), k6_err),
+             lanes={str(b): times[("K6", b)]["lanes"] for b in
+                    (K6_TICK_WORDS, serve_b, SERVE_WORDS)}),
         entry("dict_match_bank", "K7",
               csrc + "dict_match.cu (+ dict_bank.cuh)",
               "src/repro/kernels/stem_match.py:152",

@@ -224,17 +224,22 @@ CUDA_LIBRARIES = ("stem_fused", "stem_streamed", "stem_persistent",
                   "dict_match", "flash_attention")
 
 
-def build_cuda(forced_lanes: tuple = (), forced_text_lanes: tuple = ()
+def build_cuda(forced_lanes: tuple = (), forced_text_lanes: tuple = (),
+               forced_candidates_lanes: tuple = ()
                ) -> tuple[float, dict[str, Path]]:
     """Build every CUDA library of the port in parallel, and the
-    measurement builds of K1 at each of ``forced_lanes`` and of K4 at each
-    of ``forced_text_lanes`` (see :func:`forced_lanes_library`,
-    :func:`forced_text_lanes_library`); -> (seconds, {name: library
+    measurement builds of K1 at each of ``forced_lanes``, of K4 at each
+    of ``forced_text_lanes`` and of K6 at each of
+    ``forced_candidates_lanes`` (see :func:`forced_lanes_library`,
+    :func:`forced_text_lanes_library`,
+    :func:`forced_candidates_lanes_library`); -> (seconds, {name: library
     path}). Zero-cost when all are already built."""
     t0 = time.perf_counter()
     specs = [_cuda_spec(n) for n in CUDA_LIBRARIES]
     specs += [_cuda_spec("stem_fused", g) for g in forced_lanes]
     specs += [_cuda_spec("text_frontend", g) for g in forced_text_lanes]
+    specs += [_cuda_spec("stem_candidates", g)
+              for g in forced_candidates_lanes]
     paths = _build(specs)
     return time.perf_counter() - t0, {s.name: p
                                       for s, p in zip(specs, paths)}
@@ -268,7 +273,9 @@ _SIGNATURES = {
         "text_frontend_last_shape": [_IP, _IP]},
     "postings": {"postings_launch": [_P, _I, _I, _I, _P, _P, _P, _I, _P],
                  "postings_instance": [_I, _I, _I]},
-    "stem_candidates": {"stem_candidates_launch": [_P, _I, _P, _P, _I, _P]},
+    "stem_candidates": {
+        "stem_candidates_launch": [_P, _I, _P, _P, _P],
+        "stem_candidates_last_shape": [_IP, _IP]},
     "dict_match": {
         "dict_match_bank_launch": [_P, _I, _P, _I, _I, _P, _I, _P],
         "dict_match_bsearch_launch": [_P, _I, _P, _I, _I, _P, _P],
@@ -350,6 +357,22 @@ def stem_candidates_library() -> ctypes.CDLL:
     return _cuda_library("stem_candidates")
 
 
+# the lanes a word K6 can take (csrc/stem_datapath.cuh:lane_columns)
+CANDIDATE_LANES = (1, 2, 4, 8)
+
+
+def forced_candidates_lanes_library(lanes: int) -> ctypes.CDLL:
+    """A measurement build of K6 (csrc/stem_candidates.cu with
+    -DRT_FORCED_LANES) whose every launch splits a word across ``lanes``
+    lanes (one of CANDIDATE_LANES), whatever the launcher's rule picks;
+    for timing the rule's choices at one shape. Nothing in the port loads
+    it."""
+    if lanes not in CANDIDATE_LANES:
+        raise ValueError(f"lanes must be one of {CANDIDATE_LANES}, got"
+                         f" {lanes}")
+    return _cuda_library("stem_candidates", lanes)
+
+
 def dict_match_library() -> ctypes.CDLL:
     """K7 and K8, the comparator bank and the sorted search
     (csrc/dict_match.cu)."""
@@ -368,6 +391,10 @@ def _host_library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         lib.host_candidate_columns.argtypes = [_P, _I, _P, _P]
         lib.host_candidate_columns.restype = None
+        lib.host_candidate_lanes.argtypes = [_P, _I, _I, _P, _P]
+        lib.host_candidate_lanes.restype = ctypes.c_int
+        lib.host_candidate_lanes_rule.argtypes = [_LL, _I]
+        lib.host_candidate_lanes_rule.restype = ctypes.c_int
         lib.host_stem_streamed.argtypes = [_P, _I, _P, _P, _I, _I, _I, _I,
                                            _I, _I, _I, _P, _P]
         lib.host_stem_streamed.restype = None
@@ -411,6 +438,31 @@ def host_candidate_columns(words: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     lib.host_candidate_columns(w.ctypes.data, n, keys.ctypes.data,
                                valid.ctypes.data)
     return keys, valid
+
+
+def host_candidate_lanes(words: np.ndarray, *, lanes: int
+                         ) -> tuple[np.ndarray, np.ndarray]:
+    """The g++ build of K6's lane split (stem_datapath.cuh's lane_terms,
+    the group's bits ORed, lane_columns), as a launch at ``lanes`` lanes a
+    word (one of CANDIDATE_LANES) runs it, each word's lanes in lane
+    order: words int32[n, 16] -> (keys int32[n, 32], valid int32[n, 32]);
+    a column no lane wrote keeps -7."""
+    if lanes not in CANDIDATE_LANES:
+        raise ValueError(f"lanes must be one of {CANDIDATE_LANES}, got"
+                         f" {lanes}")
+    w = _host_words(words)
+    n = w.shape[0]
+    keys = np.full((n, 32), -7, np.int32)
+    valid = np.full((n, 32), -7, np.int32)
+    _host_library().host_candidate_lanes(w.ctypes.data, n, lanes,
+                                         keys.ctypes.data, valid.ctypes.data)
+    return keys, valid
+
+
+def host_candidate_lanes_rule(words: int, *, sms: int) -> int:
+    """The lanes a word K6's launcher takes for ``words`` words on a card
+    of ``sms`` SMs (the g++ build of ``rt::candidate_lanes``)."""
+    return _host_library().host_candidate_lanes_rule(words, sms)
 
 
 def host_stem_streamed(words: np.ndarray, stream: np.ndarray,

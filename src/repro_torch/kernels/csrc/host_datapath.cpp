@@ -34,6 +34,57 @@ extern "C" void host_candidate_columns(const int32_t* words, int n,
   }
 }
 
+namespace {
+
+template <int LANES>
+void host_lanes(const int32_t* words, int n, int32_t* keys,
+                int32_t* valid) {
+  constexpr int C = rt::kOutCols / LANES;
+  for (int i = 0; i < n; ++i) {
+    const int32_t* w = words + size_t(rt::kMaxLen) * i;
+    rt::TermBits t{0u, 0u};
+    for (int j = 0; j < LANES; ++j) {            // the group's shuffles
+      int32_t codes[rt::kMaxLen / LANES];
+      for (int m = 0; m < rt::kMaxLen / LANES; ++m) {
+        codes[m] = w[m * LANES + j];
+      }
+      t = rt::merge(t, rt::lane_terms<LANES>(codes, j));
+    }
+    const uint32_t v = rt::valid_mask(t);
+    for (int j = 0; j < LANES; ++j) {            // the lanes, in lane order
+      rt::lane_columns<LANES>(w, v, j,
+                              keys + size_t(rt::kOutCols) * i + j * C,
+                              valid + size_t(rt::kOutCols) * i + j * C);
+    }
+  }
+}
+
+}  // namespace
+
+// K6's contract (stem_candidates_launch) on the host, as a launch at
+// `lanes` lanes a word (1, 2, 4 or 8) runs it: each word's lanes in lane
+// order classify their positions (lane_terms), their bits are ORed as
+// the group's shuffles OR them, and each lane writes its columns
+// (lane_columns):
+// words int32[n, 16] -> keys, valid int32[n, 32]. Returns -1 for another
+// lane count.
+extern "C" int host_candidate_lanes(const int32_t* words, int n, int lanes,
+                                    int32_t* keys, int32_t* valid) {
+  switch (lanes) {
+    case 1: host_lanes<1>(words, n, keys, valid); return 0;
+    case 2: host_lanes<2>(words, n, keys, valid); return 0;
+    case 4: host_lanes<4>(words, n, keys, valid); return 0;
+    case 8: host_lanes<8>(words, n, keys, valid); return 0;
+    default: return -1;
+  }
+}
+
+// The lanes a word stem_candidates_launch takes for `words` words on a
+// card of `sms` SMs.
+extern "C" int host_candidate_lanes_rule(long long words, int sms) {
+  return rt::candidate_lanes(words, sms);
+}
+
 // The streamed kernels' contract (stem_streamed_launch), on the host, word
 // by word through the same search: words int32[n_words, 16], stream
 // int32[(tri_tiles + quad_tiles + bi_tiles) * tile_n], fences (the fence

@@ -14,8 +14,10 @@ candidates to device memory, for the staged Compare path
   stem_datapath_plain  the plain PyTorch version (the CPU path)
   stem_datapath_cuda   the CUDA kernel, ``csrc/stem_candidates.cu``
                        (replaces ``repro/kernels/stem_datapath.py:121``,
-                       ``_datapath_kernel``), one thread per word over the
-                       same ``csrc/stem_datapath.cuh`` functions K1 runs
+                       ``_datapath_kernel``): a word a group of 8 lanes
+                       (1, 2 or 4 only in the measurement builds), each
+                       lane its columns through ``csrc/stem_datapath.cuh``'s
+                       ``lane_columns``, stored from registers
   stem_datapath        takes the kernel for a CUDA tensor and the plain
                        version for a CPU tensor
 
@@ -30,6 +32,8 @@ Candidate layout (30 slots), matching ``core.stemmer`` group order:
   [24:30)  remove-infix tri→bi   (dict: bi)
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -140,7 +144,11 @@ def stem_datapath_plain(words: torch.Tensor, *, block_b: int = 256):
 def stem_datapath_cuda(words: torch.Tensor, *, block_b: int = 256):
     """Launch K6 (``csrc/stem_candidates.cu``) on the current stream: same
     contract as :func:`stem_datapath_plain`, for CUDA tensors. Adds one to
-    ``stem_datapath_cuda.launches`` per launch."""
+    ``stem_datapath_cuda.launches`` per launch and records the lanes a
+    word and blocks it took (the header's rule, which
+    ``build.host_candidate_lanes_rule`` runs on the host) in
+    ``last_lanes`` and ``last_grid``. ``block_b`` only groups the words:
+    it is checked, and sets no grid."""
     from repro_torch.kernels import build  # lazy: builds at first launch
     from repro_torch.kernels import stem_fused as sf  # lazy: sf imports us
 
@@ -154,13 +162,18 @@ def stem_datapath_cuda(words: torch.Tensor, *, block_b: int = 256):
     with torch.cuda.device(dev):
         err = lib.stem_candidates_launch(words.data_ptr(), b,
                                          keys.data_ptr(), valid.data_ptr(),
-                                         block_b, sf._cuda_stream(dev))
+                                         sf._cuda_stream(dev))
     sf._raise_on(err, lib, "stem_candidates")
     stem_datapath_cuda.launches += 1
+    lanes, grid = ctypes.c_int(0), ctypes.c_int(0)
+    lib.stem_candidates_last_shape(ctypes.byref(lanes), ctypes.byref(grid))
+    stem_datapath_cuda.last_lanes = lanes.value
+    stem_datapath_cuda.last_grid = grid.value
     return keys, valid
 
 
 stem_datapath_cuda.launches = 0
+stem_datapath_cuda.last_lanes = stem_datapath_cuda.last_grid = 0
 CUDA_WRAPPERS = (stem_datapath_cuda,)
 
 

@@ -5,6 +5,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -35,17 +36,52 @@ def test_plain_matches_pallas(b, block_b):
     assert not got_k[:, 30:].any() and not got_v[:, 30:].any()
 
 
-def test_garbage_codes_match_pallas():
-    """Codes outside the alphabet (and every position filled) still give
-    the reference's keys and flags."""
+@pytest.fixture(scope="module")
+def mixed_reference():
+    """Corpus words, codes outside the alphabet (every position filled in
+    two rows of three) and all-pad rows, through the reference's Pallas
+    kernel once: (words, (keys, valid))."""
     rng = np.random.default_rng(5)
-    enc = rng.integers(-3, 70, size=(300, 16)).astype(np.int32)
-    enc[::3, 10:] = 0
+    garbage = rng.integers(-3, 70, size=(300, 16)).astype(np.int32)
+    garbage[::3, 10:] = 0
+    enc = np.concatenate([_words(128), garbage,
+                          np.zeros((8, 16), np.int32)])
     want = rsdp.stem_datapath_pallas(jnp.asarray(enc), block_b=64,
                                      interpret=True)
+    return enc, tuple(np.asarray(x) for x in want)
+
+
+def test_garbage_codes_match_pallas(mixed_reference):
+    """Codes outside the alphabet (and every position filled) still give
+    the reference's keys and flags."""
+    enc, want = mixed_reference
     got = tsdp.stem_datapath(torch.from_numpy(enc), block_b=64)
     for g, w in zip(got, want):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("lanes", build.CANDIDATE_LANES)
+def test_host_build_of_lane_split_matches_pallas(mixed_reference, lanes):
+    """The g++ build of K6's lane split (each word's G lanes in lane
+    order, their position bits ORed, each writing only its 32 / G columns
+    through lane_columns) gives the reference's rows bit for bit, pads
+    included, on corpus words, garbage codes and all-pad rows."""
+    enc, (want_k, want_v) = mixed_reference
+    keys, valid = build.host_candidate_lanes(enc, lanes=lanes)
+    np.testing.assert_array_equal(keys, want_k)
+    np.testing.assert_array_equal(valid, want_v)
+
+
+def test_lane_rule_picks():
+    """K6's launcher takes 8 lanes a word at every size on a 132-SM card
+    (a pipeline tick of 128 words, a served request of 4096, 16,896 and
+    1M words): with the terms shared, 8 won at every shape timed on the
+    card."""
+    picks = {b: build.host_candidate_lanes_rule(b, sms=132)
+             for b in (128, 4096, 16_896, 1 << 20)}
+    assert picks == {128: 8, 4096: 8, 16_896: 8, 1 << 20: 8}
+    with pytest.raises(ValueError, match="lanes"):
+        build.host_candidate_lanes(np.zeros((1, 16), np.int32), lanes=3)
 
 
 def test_rows_match_host_build_of_datapath_header():
@@ -104,3 +140,38 @@ def test_kernel_at_one_million_words_on_card():
     assert tsdp.stem_datapath_cuda.launches == before + 1
     want = tsdp.stem_datapath_plain(w)
     assert all(torch.equal(g, x) for g, x in zip(got, want))
+
+
+def _forced_launch(lib, w):
+    """K6 through a measurement build that fixes its lanes a word, as the
+    wrapper launches it; counted nowhere."""
+    keys = torch.empty((w.shape[0], tsdp.N_OUT), dtype=torch.int32,
+                       device=w.device)
+    valid = torch.empty_like(keys)
+    err = lib.stem_candidates_launch(
+        w.data_ptr(), w.shape[0], keys.data_ptr(), valid.data_ptr(),
+        torch.cuda.current_stream(w.device).cuda_stream)
+    assert err == 0, lib.error_string(err)
+    return keys, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", build.CANDIDATE_LANES)
+def test_forced_lanes_match_plain_on_card(lanes):
+    """Each lane count, forced, and the rule's own pick, against the plain
+    version on either side of a block's words."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    lib = build.forced_candidates_lanes_library(lanes)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b in (1, 127, 128, 4095, 4096):
+        w = torch.from_numpy(_words(b)).cuda()
+        want = tsdp.stem_datapath_plain(w)
+        got = _forced_launch(lib, w)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, x) for g, x in zip(got, want)), (lanes, b)
+        got = tsdp.stem_datapath_cuda(w)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, x) for g, x in zip(got, want)), b
+        assert tsdp.stem_datapath_cuda.last_lanes == \
+            build.host_candidate_lanes_rule(b, sms=sms)

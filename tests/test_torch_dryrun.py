@@ -24,6 +24,7 @@ import jax
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro import configs as rc  # noqa: E402
 from repro.launch import hlo_analysis  # noqa: E402

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro.kernels import ref as kref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as ref_flash  # noqa: E402

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro.configs import paper as rpaper  # noqa: E402
 from repro.data import pipeline as rpipe  # noqa: E402

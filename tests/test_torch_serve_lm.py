@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro import configs as rc  # noqa: E402
 from repro.launch import serve as rserve  # noqa: E402

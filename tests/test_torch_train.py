@@ -41,6 +41,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro import configs as rc  # noqa: E402
 from repro.configs import RunConfig as RRun, ShapeConfig as RShape  # noqa: E402
@@ -563,8 +564,8 @@ def test_cuda_default_raises_without_cuda(monkeypatch):
 # chip_smoke.py phase 10's recipe (peak lr 3e-3, warmup 20, B 1, 64 live
 # ids, remat "full"), from the reference's init rescaled as its
 # trainable_params rescales the port's, at gemma-2b cut to 2 layers,
-# d_model 1024 (4 heads of 256, d_ff 8192), a 32,000-id vocabulary and
-# T 512, in fp32: the largest that fits about 30 test-seconds. At full
+# d_model 512 (2 heads of 256, d_ff 4096), a 32,000-id vocabulary and
+# T 512, in fp32: about 15 test-seconds on one thread. At full
 # width (d_model 2048, vocab 256,000) both packages' losses jump back up
 # at step 5 alike (tests/train_recipe.py --full-width). Eight losses and
 # lrs within 1e-3 relative.
@@ -575,7 +576,7 @@ def test_eight_steps_at_the_chip_recipe_match_reference():
     import train_recipe
 
     ref, port = train_recipe.curves(
-        train_recipe.recipe_config(d_model=1024, vocab=32000), t=512,
+        train_recipe.recipe_config(d_model=512, vocab=32000), t=512,
         steps=8)
     assert len(ref) == len(port) == 8
     for i, (r, p) in enumerate(zip(ref, port)):

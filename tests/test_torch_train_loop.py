@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro import configs as rc  # noqa: E402
 from repro.configs import RunConfig as RRun, ShapeConfig as RShape  # noqa: E402

@@ -41,6 +41,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro import configs as rc  # noqa: E402
 from repro.models import attention as ra  # noqa: E402
