@@ -32,6 +32,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from repro_torch import device as devmod
+from repro_torch import tracing
 from repro_torch.core import alphabet as ab
 from repro_torch.core import stemmer as core_stemmer
 
@@ -241,86 +242,94 @@ def build_corpus_index(stream, roots, *, mesh=None, checkpoint_dir=None,
     """
     from repro_torch.kernels import ops  # lazy: keep index importable light
 
-    store = roots if hasattr(roots, "acquire") else None
-    pinned = store.acquire().handle if store else roots
-    vocab = build_vocab(pinned)
-    fp = vocab_fingerprint(vocab)
+    with tracing.span("index.build"):
+        store = roots if hasattr(roots, "acquire") else None
+        pinned = store.acquire().handle if store else roots
+        with tracing.span("index.vocab"):
+            vocab = build_vocab(pinned)
+            fp = vocab_fingerprint(vocab)
 
-    done: list[IndexPartial] = []
-    versions: list[int] = []
-    manifest = None
-    if checkpoint_dir:
-        os.makedirs(checkpoint_dir, exist_ok=True)
-        if resume:
-            manifest = _load_manifest(checkpoint_dir)
-        if manifest is not None:
-            if manifest["schema"] != MANIFEST_SCHEMA:
-                raise ValueError(
-                    f"checkpoint schema {manifest['schema']} !="
-                    f" {MANIFEST_SCHEMA}")
-            if manifest["vocab"] != fp:
-                raise ValueError(
-                    "checkpoint was built against a different vocabulary"
-                    f" ({manifest['vocab']} != {fp}) — refusing to resume")
-        else:
-            manifest = {"schema": MANIFEST_SCHEMA, "vocab": fp,
-                        "n_roots": int(vocab.shape[0]), "chunks": []}
-    n_ckpt = len(manifest["chunks"]) if manifest else 0
-
-    for i, ch in enumerate(stream):
-        if i < n_ckpt:
-            rec = manifest["chunks"][i]
-            if rec["start_word"] != ch.start_word or \
-                    rec["n_words"] != ch.n_words:
-                raise ValueError(
-                    f"resumed stream diverges at chunk {i}: checkpoint"
-                    f" covers words [{rec['start_word']},"
-                    f" +{rec['n_words']}), stream yields"
-                    f" [{ch.start_word}, +{ch.n_words})")
-            part = _load_partial(checkpoint_dir, i, rec.get("sha"))
-            if part is not None:
-                done.append(part)
-                versions.append(rec["dict_version"])
-                continue
-            # missing / torn / hash-divergent partial: fall through and
-            # recompute this chunk from its stream item
-        last = None
-        for _ in range(chunk_retries + 1):
-            dv = store.acquire() if store else None
-            handle = dv.handle if dv else roots
-            try:
-                if injector is not None:
-                    injector.on_dispatch()
-                counts, docs, poss, n_post = ops.build_root_index(
-                    ch.words, handle, vocab, ch.doc_ids, ch.positions,
-                    mesh=mesh, block_b=block_b, block_w=block_w,
-                    device=device, **stem_kw)
-            except (KeyboardInterrupt, SystemExit):
-                raise
-            except Exception as e:
-                last = e
-                continue
-            break
-        else:
-            raise RuntimeError(
-                f"chunk {i}: compute still failing after"
-                f" {chunk_retries + 1} attempts") from last
-        n_post = int(n_post)
-        part = IndexPartial(counts=counts.cpu().numpy().astype(np.int64),
-                            docs=docs[:n_post].cpu().numpy(),
-                            positions=poss[:n_post].cpu().numpy())
-        done.append(part)
-        versions.append(dv.version if dv else 0)
+        done: list[IndexPartial] = []
+        versions: list[int] = []
+        manifest = None
         if checkpoint_dir:
-            sha = _write_partial(checkpoint_dir, i, part,
-                                 injector=injector, retries=chunk_retries)
-            rec = {"i": i, "start_word": int(ch.start_word),
-                   "n_words": int(ch.n_words),
-                   "n_postings": part.n_postings,
-                   "dict_version": versions[-1], "sha": sha}
-            if i < len(manifest["chunks"]):
-                manifest["chunks"][i] = rec     # recomputed torn chunk
+            os.makedirs(checkpoint_dir, exist_ok=True)
+            if resume:
+                manifest = _load_manifest(checkpoint_dir)
+            if manifest is not None:
+                if manifest["schema"] != MANIFEST_SCHEMA:
+                    raise ValueError(
+                        f"checkpoint schema {manifest['schema']} !="
+                        f" {MANIFEST_SCHEMA}")
+                if manifest["vocab"] != fp:
+                    raise ValueError(
+                        "checkpoint was built against a different"
+                        f" vocabulary ({manifest['vocab']} != {fp}) —"
+                        " refusing to resume")
             else:
-                manifest["chunks"].append(rec)
-            _write_manifest(checkpoint_dir, manifest)
-    return merge_partials(done, vocab, dict_versions=versions)
+                manifest = {"schema": MANIFEST_SCHEMA, "vocab": fp,
+                            "n_roots": int(vocab.shape[0]), "chunks": []}
+        n_ckpt = len(manifest["chunks"]) if manifest else 0
+
+        for i, ch in enumerate(stream):
+            if i < n_ckpt:
+                rec = manifest["chunks"][i]
+                if rec["start_word"] != ch.start_word or \
+                        rec["n_words"] != ch.n_words:
+                    raise ValueError(
+                        f"resumed stream diverges at chunk {i}: checkpoint"
+                        f" covers words [{rec['start_word']},"
+                        f" +{rec['n_words']}), stream yields"
+                        f" [{ch.start_word}, +{ch.n_words})")
+                part = _load_partial(checkpoint_dir, i, rec.get("sha"))
+                if part is not None:
+                    done.append(part)
+                    versions.append(rec["dict_version"])
+                    continue
+                # missing / torn / hash-divergent partial: fall through and
+                # recompute this chunk from its stream item
+            last = None
+            for _ in range(chunk_retries + 1):
+                dv = store.acquire() if store else None
+                handle = dv.handle if dv else roots
+                try:
+                    if injector is not None:
+                        injector.on_dispatch()
+                    counts, docs, poss, n_post = ops.build_root_index(
+                        ch.words, handle, vocab, ch.doc_ids, ch.positions,
+                        mesh=mesh, block_b=block_b, block_w=block_w,
+                        device=device, **stem_kw)
+                except (KeyboardInterrupt, SystemExit):
+                    raise
+                except Exception as e:
+                    last = e
+                    continue
+                break
+            else:
+                raise RuntimeError(
+                    f"chunk {i}: compute still failing after"
+                    f" {chunk_retries + 1} attempts") from last
+            with tracing.span("index.readback"):   # the host waits here
+                n = int(n_post)
+                got = (counts.cpu(), docs[:n].cpu(), poss[:n].cpu())
+            tracing.add("index.copy_bytes",
+                        n_post.nbytes + sum(t.nbytes for t in got))
+            part = IndexPartial(counts=got[0].numpy().astype(np.int64),
+                                docs=got[1].numpy(),
+                                positions=got[2].numpy())
+            done.append(part)
+            versions.append(dv.version if dv else 0)
+            if checkpoint_dir:
+                sha = _write_partial(checkpoint_dir, i, part,
+                                     injector=injector, retries=chunk_retries)
+                rec = {"i": i, "start_word": int(ch.start_word),
+                       "n_words": int(ch.n_words),
+                       "n_postings": part.n_postings,
+                       "dict_version": versions[-1], "sha": sha}
+                if i < len(manifest["chunks"]):
+                    manifest["chunks"][i] = rec     # recomputed torn chunk
+                else:
+                    manifest["chunks"].append(rec)
+                _write_manifest(checkpoint_dir, manifest)
+        with tracing.span("index.merge"):
+            return merge_partials(done, vocab, dict_versions=versions)

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as devmod
+from repro_torch import tracing
 from repro_torch.core import pyref
 from repro_torch.core import stemmer as core_stemmer
 from repro_torch.core import textnorm as tn
@@ -309,8 +310,12 @@ def text_to_words(chars, *, block_w: int = 128, max_words: int | None = None,
     """
     dev = devmod.resolve(device)
     chars = devmod.as_int32(chars, dev)
-    geo = tn.segment_geometry(chars, block_w=block_w, max_words=max_words)
-    words = tf.text_frontend(chars, geo.starts, geo.lens, block_w=block_w)
+    with tracing.span("text.geometry"):
+        geo = tn.segment_geometry(chars, block_w=block_w,
+                                  max_words=max_words)
+    with tracing.span("text.frontend"):
+        words = tf.text_frontend(chars, geo.starts, geo.lens,
+                                 block_w=block_w)
     return words, geo.spans, geo.n_words
 
 
@@ -393,19 +398,27 @@ def build_root_index(words, roots, vocab, doc_ids, positions, *,
                               num_buffers=num_buffers, skip_index=skip_index,
                               visit_budget=visit_budget)
     dev = devmod.resolve(device)
-    words = devmod.as_int32(words, dev)
-    vocab = devmod.as_int32(vocab, dev)
-    root, source = extract_roots_fused(
-        words, roots, infix=infix, match=match, block_b=block_b,
-        residency=residency, dict_block_r=dict_block_r,
-        num_buffers=num_buffers, skip_index=skip_index,
-        visit_budget=visit_budget, device=dev)
-    ids = _root_ids(root, source, vocab)
-    n_roots = vocab.shape[0]
-    hist, rank = pk.postings(ids, n_roots=n_roots, block_w=block_w)
-    return pk.finish_postings(hist, rank, ids, devmod.as_int32(doc_ids, dev),
-                              devmod.as_int32(positions, dev),
-                              n_roots=n_roots, block_w=block_w)
+    with tracing.span("index.upload"):
+        words = devmod.as_int32(words, dev)
+        vocab = devmod.as_int32(vocab, dev)
+    with tracing.span("index.compute"):     # enqueued, not waited for
+        root, source = extract_roots_fused(
+            words, roots, infix=infix, match=match, block_b=block_b,
+            residency=residency, dict_block_r=dict_block_r,
+            num_buffers=num_buffers, skip_index=skip_index,
+            visit_budget=visit_budget, device=dev)
+        ids = _root_ids(root, source, vocab)
+        n_roots = vocab.shape[0]
+        hist, rank = pk.postings(ids, n_roots=n_roots, block_w=block_w)
+        with tracing.span("index.upload"):  # after the stemmer is enqueued
+            doc_ids = devmod.as_int32(doc_ids, dev)
+            positions = devmod.as_int32(positions, dev)
+        out = pk.finish_postings(hist, rank, ids, doc_ids, positions,
+                                 n_roots=n_roots, block_w=block_w)
+    tracing.add("index.words", words.shape[0])
+    tracing.add("index.copy_bytes", words.nbytes + vocab.nbytes
+                + doc_ids.nbytes + positions.nbytes)
+    return out
 
 
 def _index_sharded(words, roots, vocab, doc_ids, positions, *, mesh,

@@ -72,6 +72,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as devmod
+from repro_torch import tracing
 from repro_torch.core import alphabet as ab
 from repro_torch.dist.shard_batch import on_device
 from repro_torch.dist.sharding import axis_devices
@@ -196,6 +197,10 @@ class Engine:
 
     def submit(self, payload, *, deadline_s: float | None = None,
                **opts) -> int:
+        with tracing.span("serve.submit", self._next_rid):
+            return self._submit(payload, deadline_s, opts)
+
+    def _submit(self, payload, deadline_s: float | None, opts: dict) -> int:
         if deadline_s is not None and deadline_s <= 0:
             raise ValueError(f"deadline_s must be > 0, got {deadline_s}")
         if self._queue_full():
@@ -212,7 +217,8 @@ class Engine:
                     raise RuntimeError(
                         "on_full='block' made no progress against a full"
                         " queue — the workload is wedged")
-        req = self.workload.make_request(self._next_rid, payload, **opts)
+        with tracing.span("serve.make_request", self._next_rid):
+            req = self.workload.make_request(self._next_rid, payload, **opts)
         rid = self._next_rid
         self._next_rid += 1
         if deadline_s is not None:
@@ -445,6 +451,7 @@ class InflightTile:
     t_dispatch: float = 0.0    # launch_timeout_s / watchdog_s accounting
     stalled: object = None     # injected wedge spec: never reads as ready
     via_megabatch: bool = False  # watchdog re-dispatch: not persistent
+    seq: int = -1              # the launch's number (ticks_launched before)
 
     def is_ready(self) -> bool:
         """True once the host buffers can be read without blocking."""
@@ -891,13 +898,29 @@ class StemmerWorkload:
         segments = self._coalesce()
         return RetryGroup(segments) if segments else None
 
+    def _dispatchable(self) -> bool:
+        """Whether ``_next_group`` will find a group: an eligible retry or
+        an undispatched word. Asked only while tracing is on, so that the
+        many polls that find nothing open no span."""
+        now = time.monotonic()
+        for grp in self._requeue:
+            if grp.not_before <= now and any(req.failure is None
+                                             for req, _, _ in grp.segments):
+                return True
+        return any(req.failure is None and req.dispatched < req.n_words
+                   for req in self.inflight)
+
     def _fill_ring(self) -> int:
         """Dispatch until max_inflight launches are outstanding or nothing
         is dispatchable; returns the number of launches."""
         n = 0
         waited = False
         while len(self.ring) < self.max_inflight:
-            grp = self._next_group()
+            if tracing.on() and not self._dispatchable():
+                grp = self._next_group()    # a poll: no span
+            else:
+                with tracing.span("ring.coalesce", self.ticks_launched):
+                    grp = self._next_group()
             if grp is None:
                 if self._requeue and not self.ring and not waited:
                     # every retryable group is backing off and nothing
@@ -910,7 +933,8 @@ class StemmerWorkload:
                     waited = True
                     continue
                 break
-            n += self._dispatch_group(grp)
+            with tracing.span("ring.dispatch", self.ticks_launched):
+                n += self._dispatch_group(grp)
         return n
 
     def _launch_failed(self, grp: RetryGroup, exc: BaseException) -> int:
@@ -985,16 +1009,18 @@ class StemmerWorkload:
                 and handle.residency != self.residency_override):
             handle = self._degraded_handle(dv)
         use_persistent = self.persistent and not grp.via_megabatch
+        seq = self.ticks_launched
         slot = self._free_slots.pop()
         staging = self._staging[slot]
         tile = staging.numpy()
         placed, fill = [], 0
-        for req, r0, take in grp.segments:
-            tile[fill:fill + take] = req.words[r0:r0 + take]
-            placed.append((req, r0, fill, take))
-            fill += take
-        rows = self._bucket_rows(fill)
-        tile[fill:rows] = 0             # padded words must stay empty
+        with tracing.span("ring.stage", seq):
+            for req, r0, take in grp.segments:
+                tile[fill:fill + take] = req.words[r0:r0 + take]
+                placed.append((req, r0, fill, take))
+                fill += take
+            rows = self._bucket_rows(fill)
+            tile[fill:rows] = 0         # padded words must stay empty
         tiles = rows // self.block_b
         roots_h, sources_h, sums_h = self._outputs[slot]
         on_cuda = self.device.type == "cuda"
@@ -1005,45 +1031,46 @@ class StemmerWorkload:
         flags = event = None
         home = (self.device if self._mesh is None
                 else axis_devices(self._mesh, "data")[0])
-        try:
-            if self._mesh is not None:
-                # each entry's shard goes straight from the pinned staging
-                # rows to its device; the merged rows land on the first
-                out = ops.extract_roots_sharded(
-                    staging[:rows], handle, self._mesh,
-                    replicas=self._replicas_for(dv.version), **kw)
-            else:
-                words = staging[:rows].to(self.device, non_blocking=True)
-                kw["device"] = self.device
-                if use_persistent:
-                    out = ops.extract_roots_persistent(
-                        words, handle, version_slot=dv.version,
-                        flags_out=self._slot_flags(slot)[:tiles], **kw)
-                    flags = out[2]
+        with tracing.span("ring.launch", seq):
+            try:
+                if self._mesh is not None:
+                    # each entry's shard goes straight from the pinned staging
+                    # rows to its device; the merged rows land on the first
+                    out = ops.extract_roots_sharded(
+                        staging[:rows], handle, self._mesh,
+                        replicas=self._replicas_for(dv.version), **kw)
                 else:
-                    out = ops.extract_roots_fused(words, handle, **kw)
-            copies = [(roots_h[:rows], out[0]), (sources_h[:rows], out[1])]
-            if self.checksum:
-                copies.append((sums_h[:tiles], out[-1]))
-            with on_device(home):
-                for dst, src in copies:
-                    dst.copy_(src, non_blocking=on_cuda)
-                if on_cuda:
-                    event = torch.cuda.Event()
-                    event.record()
-        except BaseException as e:
-            # a failed launch must not wedge the engine: return the slot
-            # and route the group through the retry machinery (strict
-            # mode re-raises with the words unclaimed)
-            self._free_slots.append(slot)
-            if isinstance(e, (KeyboardInterrupt, SystemExit)):
-                raise
-            return self._launch_failed(grp, e)
+                    words = staging[:rows].to(self.device, non_blocking=True)
+                    kw["device"] = self.device
+                    if use_persistent:
+                        out = ops.extract_roots_persistent(
+                            words, handle, version_slot=dv.version,
+                            flags_out=self._slot_flags(slot)[:tiles], **kw)
+                        flags = out[2]
+                    else:
+                        out = ops.extract_roots_fused(words, handle, **kw)
+                copies = [(roots_h[:rows], out[0]), (sources_h[:rows], out[1])]
+                if self.checksum:
+                    copies.append((sums_h[:tiles], out[-1]))
+                with on_device(home):
+                    for dst, src in copies:
+                        dst.copy_(src, non_blocking=on_cuda)
+                    if on_cuda:
+                        event = torch.cuda.Event()
+                        event.record()
+            except BaseException as e:
+                # a failed launch must not wedge the engine: return the slot
+                # and route the group through the retry machinery (strict
+                # mode re-raises with the words unclaimed)
+                self._free_slots.append(slot)
+                if isinstance(e, (KeyboardInterrupt, SystemExit)):
+                    raise
+                return self._launch_failed(grp, e)
         entry = InflightTile(
             placed, dv.version, slot, roots_h[:rows], sources_h[:rows],
             sums_h[:tiles] if self.checksum else None, flags, event,
             retries=grp.retries, t_dispatch=time.monotonic(),
-            via_megabatch=grp.via_megabatch)
+            via_megabatch=grp.via_megabatch, seq=seq)
         if flags is not None and self.injector is not None:
             # a wedge shows only in the completion flags, so the stall
             # site covers persistent launches alone
@@ -1062,7 +1089,8 @@ class StemmerWorkload:
         for entry in self.ring:
             stalled = entry.stalled is not None
             if not stalled and entry.is_ready():
-                self._retire(entry)
+                with tracing.span("ring.retire", entry.seq):
+                    self._retire(entry)
                 n += 1
             elif (self.watchdog_s is not None and entry.flags is not None
                   and now - entry.t_dispatch > self.watchdog_s):
@@ -1099,7 +1127,8 @@ class StemmerWorkload:
                 time.sleep(wait)
             self._watchdog_abandon(entry)
         else:
-            self._retire(entry)
+            with tracing.span("ring.retire", entry.seq):
+                self._retire(entry)
 
     def _watchdog_abandon(self, entry: InflightTile) -> None:
         """Abandon a wedged persistent launch.
@@ -1169,7 +1198,8 @@ class StemmerWorkload:
         Returns False when the launch failed its checksum and its words
         were queued for re-dispatch instead. Bad completion flags raise.
         """
-        entry.wait()
+        with tracing.span("ring.wait", entry.seq):
+            entry.wait()
         self._free_slots.append(entry.slot)
         roots = entry.roots.numpy()
         sources = entry.sources.numpy()
@@ -1187,7 +1217,9 @@ class StemmerWorkload:
             self.flag_tiles += flags.shape[0]
         if entry.checksums is not None:
             want = entry.checksums.numpy()
-            got = ops.tile_checksum_host(roots, sources, block_b=self.block_b)
+            with tracing.span("ring.checksum", entry.seq):
+                got = ops.tile_checksum_host(roots, sources,
+                                             block_b=self.block_b)
             if not np.array_equal(got, want):
                 bad = np.nonzero(got != want)[0].tolist()
                 err = RuntimeError(
@@ -1205,13 +1237,14 @@ class StemmerWorkload:
                 self._launch_failed(grp, err)
                 return False
             self.checksum_tiles += want.shape[0]
-        for req, r0, t0, take in entry.segments:
-            if req.failure is not None:   # expired/cancelled mid-flight
-                continue
-            req.roots[r0:r0 + take] = roots[t0:t0 + take]
-            req.sources[r0:r0 + take] = sources[t0:t0 + take]
-            req.dict_versions[r0:r0 + take] = entry.version
-            req.served += take
+        with tracing.span("ring.scatter", entry.seq):
+            for req, r0, t0, take in entry.segments:
+                if req.failure is not None:   # expired/cancelled mid-flight
+                    continue
+                req.roots[r0:r0 + take] = roots[t0:t0 + take]
+                req.sources[r0:r0 + take] = sources[t0:t0 + take]
+                req.dict_versions[r0:r0 + take] = entry.version
+                req.served += take
         return True
 
 

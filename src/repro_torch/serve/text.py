@@ -34,6 +34,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import alphabet as ab
 from repro_torch.core import textnorm as tn
 from repro_torch.serve.engine import StemmerWorkload, StemRequest
@@ -117,12 +118,14 @@ class TextAnalysisWorkload(StemmerWorkload):
                 raise ValueError(
                     "text workload takes str documents, got"
                     f" {type(d).__name__}")
-        chars, _char_off, byte_off = tn.coalesce_docs(docs)
-        n_bytes = sum(len(d.encode("utf-8")) for d in docs)
+        with tracing.span("text.coalesce", rid):
+            chars, _char_off, byte_off = tn.coalesce_docs(docs)
+            n_bytes = sum(len(d.encode("utf-8")) for d in docs)
         if self.frontend == "host":
             words, spans, doc_ids = self._frontend_host(docs)
         else:
-            words, spans, doc_ids = self._frontend_device(chars, byte_off)
+            words, spans, doc_ids = self._frontend_device(chars, byte_off,
+                                                          rid)
         n = words.shape[0]
         return TextRequest(
             rid, np.ascontiguousarray(words, np.int32),
@@ -143,7 +146,7 @@ class TextAnalysisWorkload(StemmerWorkload):
             if parts else np.zeros(0, np.int32))
         return words, spans, doc_ids
 
-    def _frontend_device(self, chars, byte_off):
+    def _frontend_device(self, chars, byte_off, rid: int):
         from repro_torch.kernels import ops  # lazy: keep engine import light
 
         tile = np.zeros(self._char_bucket(max(chars.shape[0], 1)), np.int32)
@@ -156,16 +159,19 @@ class TextAnalysisWorkload(StemmerWorkload):
                 torch.from_numpy(tile).to(self.device),
                 block_w=self.text_block_w)
             spans_d, nw = geo.spans, geo.n_words
-        n = int(nw)
-        words = words_d[:n].cpu().numpy()
-        spans_abs = spans_d[:n].cpu().numpy().astype(np.int64)
-        if byte_off.size:
-            # word -> owning doc: the last doc whose byte offset is <=
-            # the word's absolute byte start (separators add one byte)
-            doc_ids = (np.searchsorted(byte_off, spans_abs[:, 0],
-                                       side="right") - 1).astype(np.int32)
-            spans = (spans_abs - byte_off[doc_ids][:, None]).astype(np.int32)
-        else:
-            doc_ids = np.zeros(0, np.int32)
-            spans = spans_abs.astype(np.int32)
+        with tracing.span("text.readback", rid):   # the host waits here
+            n = int(nw)
+            words = words_d[:n].cpu().numpy()
+            spans_abs = spans_d[:n].cpu().numpy().astype(np.int64)
+        with tracing.span("text.doc_ids", rid):
+            if byte_off.size:
+                # word -> owning doc: the last doc whose byte offset is <=
+                # the word's absolute byte start (separators add one byte)
+                doc_ids = (np.searchsorted(byte_off, spans_abs[:, 0],
+                                           side="right") - 1).astype(np.int32)
+                spans = (spans_abs
+                         - byte_off[doc_ids][:, None]).astype(np.int32)
+            else:
+                doc_ids = np.zeros(0, np.int32)
+                spans = spans_abs.astype(np.int32)
         return words, spans, doc_ids
